@@ -32,3 +32,10 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA GPU (skips with a reason without one)")
+    config.addinivalue_line(
+        "markers", "slow: long sweeps kept out of the tier-1 run")
