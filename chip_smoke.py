@@ -12,7 +12,9 @@ and suppresses the final ``ok`` line):
                version at n = 2,880,404 rows (SF1 store_sales) and
                G in {1, 1000, 100000}, with int64 extremes, NaN, signed
                zeros, empty groups, null (-1) and pad (>= G) group ids;
-               kernel, plain and library-call times and the bytes bound;
+               the kernel's own time (raw launches on preallocated
+               outputs), the wrapper's, the plain version's and the
+               library call's, and the bytes bound;
 4. data        builds ``native/ndsgen`` and writes SF1 (parallel children)
                and SF0.01 raw data under ``.smoke_data/``;
 5. power       the 25 CI statements at SF1 through the port's Power Run
@@ -54,6 +56,9 @@ SEED = 19620718
 SF1_ROWS = 2880404            # store_sales rows at SF1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM published device-memory rate
 KERNEL_GROUPS = (1, 1000, 100000)
+# a kernel's own time: raw launches on preallocated outputs, enough of them
+# back to back that the host's launch cost hides behind the device's work
+KERNEL_REPS = 100
 KERNEL_META = {
     "segment_sum_i64": ("nds_tpu/engine/kernels.py:257 "
                         "(_segment_sum_exact_pallas)"),
@@ -76,8 +81,8 @@ def smi_line() -> str:
 
 
 def cuda_ms(torch, fn, reps=20) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
-    after one warm-up)."""
+    """Mean time of ``fn`` over ``reps`` back-to-back calls on the stream
+    (CUDA events, after one warm-up)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -147,7 +152,10 @@ def kernel_phase(torch, K):
         err = 0.0 if good else float((s - ps).abs().max())
         records["segment_sum_i64"].append(dict(
             G=G, n=n, ok=good, max_abs_err=err, tol="bit-exact",
-            ms=cuda_ms(torch, lambda: K.segment_sum_i64(ivals, gids, G)),
+            ms=cuda_ms(torch, K.launcher("segment_sum_i64", ivals, gids,
+                                         G), reps=KERNEL_REPS),
+            wrapper_ms=cuda_ms(torch, lambda: K.segment_sum_i64(
+                ivals, gids, G)),
             plain_ms=cuda_ms(torch, lambda: K.segment_sum_i64_plain(
                 ivals, gids, G)),
             library_ms=cuda_ms(torch, lambda: torch.zeros(
@@ -166,7 +174,10 @@ def kernel_phase(torch, K):
         records["segment_sum_f64"].append(dict(
             G=G, n=n, ok=good, max_abs_err=err, max_rel_err=float(rel),
             tol="counts exact, sums rel 1e-9",
-            ms=cuda_ms(torch, lambda: K.segment_sum_f64(fvals, gids, G)),
+            ms=cuda_ms(torch, K.launcher("segment_sum_f64", fvals, gids,
+                                         G), reps=KERNEL_REPS),
+            wrapper_ms=cuda_ms(torch, lambda: K.segment_sum_f64(
+                fvals, gids, G)),
             plain_ms=cuda_ms(torch, lambda: K.segment_sum_f64_plain(
                 fvals, gids, G)),
             library_ms=cuda_ms(torch, lambda: torch.zeros(
@@ -186,7 +197,10 @@ def kernel_phase(torch, K):
             G=G, n=n, ok=good, max_abs_err=err, tol="bit-exact",
             nan_groups=int(torch.isnan(mn).sum()),
             empty_groups=int(torch.isinf(mn).sum()),
-            ms=cuda_ms(torch, lambda: K.segment_minmax_f64(mvals, gids, G)),
+            ms=cuda_ms(torch, K.launcher("segment_minmax_f64", mvals, gids,
+                                         G), reps=KERNEL_REPS),
+            wrapper_ms=cuda_ms(torch, lambda: K.segment_minmax_f64(
+                mvals, gids, G)),
             plain_ms=cuda_ms(torch, lambda: K.segment_minmax_f64_plain(
                 mvals, gids, G)),
             library_ms=cuda_ms(torch, lambda: torch.full(
@@ -438,6 +452,7 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+                     "wrapper_ms": r.get("wrapper_ms"),
                      "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by", "bytes"),

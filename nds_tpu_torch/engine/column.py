@@ -233,10 +233,14 @@ def _bucket_pad(a: np.ndarray, cap: int):
 
 
 def from_arrow_array(arr, canonical_type: str, cap: int | None = None,
-                     device="cpu") -> Column:
+                     device=None) -> Column:
     """One arrow column (Array or ChunkedArray) -> device Column on
-    ``device``, physically padded to ``cap`` rows when given."""
+    ``device`` (default ``cuda``; raises without a GPU unless ``cpu`` is
+    asked for), physically padded to ``cap`` rows when given."""
+    from nds_tpu_torch import resolve_device
     from nds_tpu_torch import types as _t
+
+    device = resolve_device(device)
 
     if isinstance(arr, pa.Array):
         arr = pa.chunked_array([arr])
@@ -295,15 +299,18 @@ def from_arrow_array(arr, canonical_type: str, cap: int | None = None,
 
 
 def from_arrow(table: pa.Table, canonical_types: dict | None = None,
-               device="cpu"):
-    """arrow Table -> DeviceTable on ``device``. ``canonical_types``
+               device=None):
+    """arrow Table -> DeviceTable on ``device`` (default ``cuda``; raises
+    without a GPU unless ``cpu`` is asked for). ``canonical_types``
     overrides the per-column canonical type (defaults to inference from
     arrow types). Columns are physically padded to the power-of-two bucket
     (padded-prefix invariant)."""
+    from nds_tpu_torch import resolve_device
     from nds_tpu_torch import types as _t
     from nds_tpu_torch.engine.ops import bucket_len
     from nds_tpu_torch.engine.table import DeviceTable
 
+    device = resolve_device(device)
     cap = bucket_len(table.num_rows)
     cols = {}
     for name in table.column_names:

@@ -24,7 +24,8 @@ histograms and warp-aggregated atomics are later work.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain PyTorch version only for a tensor on the CPU. ``LAUNCHES`` counts
-kernel launches per wrapper, and only those.
+kernel launches per wrapper, and only those: the launches of
+:func:`launcher`, which times a kernel alone, are not counted.
 
 The shared library is built at first use with ``nvcc`` from the sources in
 ``csrc/`` into ``_build/<source hash>/`` beside this package (listed in
@@ -292,3 +293,38 @@ def segment_minmax_f64(values: torch.Tensor, gids: torch.Tensor,
     _check("segment_minmax_f64", rc)
     LAUNCHES["segment_minmax_f64"] += 1
     return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# device-time measurement
+# ---------------------------------------------------------------------------
+
+
+def launcher(name: str, values, gids: torch.Tensor, ngroups: int):
+    """A function that launches kernel ``name`` (a key of ``LAUNCHES``)
+    once on outputs allocated here, with no input check, allocation or
+    count per call: what a measurement of the kernel's own device time
+    calls in a loop. Sums accumulate across calls; nothing reads them."""
+    _check_inputs(name, values, gids, F64 if name.endswith("f64") else I64)
+    values, gids = values.contiguous(), gids.contiguous()
+    dev, n = gids.device, gids.numel()
+    if name == "segment_minmax_f64":
+        keys = torch.empty((2, ngroups), dtype=I64, device=dev)
+        out = torch.empty((2, ngroups), dtype=F64, device=dev)
+        outs = (keys, out)
+        args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(keys[0]),
+                _ptr(keys[1]), _ptr(out[0]), _ptr(out[1]), _stream(gids))
+        fn = _lib().nds_seg_minmax_f64
+    else:
+        sums = torch.zeros(ngroups, dtype=values.dtype, device=dev)
+        counts = torch.zeros(ngroups, dtype=I64, device=dev)
+        outs = (sums, counts)
+        args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(sums),
+                _ptr(counts), _stream(gids))
+        fn = {"segment_sum_i64": _lib().nds_seg_sum_i64,
+              "segment_sum_f64": _lib().nds_seg_sum_f64}[name]
+
+    def launch():
+        _check(name, fn(*args))
+        return outs
+    return launch

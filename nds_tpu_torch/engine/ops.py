@@ -46,12 +46,8 @@ F64 = torch.float64
 # ---------------------------------------------------------------------------
 
 
-def _pow2_ceil(n: int) -> int:
-    return 1 << max(int(n) - 1, 1).bit_length() if n > 2 else 2
-
-
-# the bucket floor is a process-wide shape contract, read once at import
-_MIN_BUCKET = _pow2_ceil(int(os.environ.get("NDS_TPU_MIN_BUCKET", "16")))
+# the bucket floor: the smallest physical length of any column
+_MIN_BUCKET = 16
 
 
 def bucket_len(n: int) -> int:
@@ -145,12 +141,10 @@ def _sync_site() -> str:
 
 
 def host_read(tag: str, fetch):
-    """The single host-read choke point: run ``fetch`` and, with tracing
-    on, emit a sync-site event naming its engine call site. Attribution is
+    """The single host-read choke point: run ``fetch`` and emit a
+    sync-site event naming its engine call site. Attribution is
     re-entrancy-exact: a fetch that re-enters host_read charges each site
     only its OWN syncs."""
-    if not _trace.on():
-        return fetch()
     s0, w0 = sync_count(), sync_wait_ns()
     a_s0, a_w0 = _trace.attributed()
     val = fetch()
@@ -353,10 +347,9 @@ def compact_indices(mask: torch.Tensor, n: int) -> torch.Tensor:
     return prim.nonzero_sized(mask, cap, max(plen, 1))
 
 
-def lazy_shrink_rows() -> int:
-    """Bucket ceiling below which a lazily-compacted table keeps its
-    un-shrunk bucket (read at use time)."""
-    return int(os.environ.get("NDS_TPU_LAZY_SHRINK_ROWS", str(1 << 20)))
+# bucket ceiling below which a lazily-compacted table keeps its un-shrunk
+# bucket
+LAZY_SHRINK_ROWS = 1 << 20
 
 
 def compact_table(table: DeviceTable, mask: torch.Tensor,
@@ -375,7 +368,7 @@ def compact_table(table: DeviceTable, mask: torch.Tensor,
     idx = prim.nonzero_sized(m, cap, max(table.plen, 1))
     n = DeviceCount(m.sum(), min(count_bound(table.nrows), cap))
     out = take_padded(table, idx, n)
-    if cap > lazy_shrink_rows():
+    if cap > LAZY_SHRINK_ROWS:
         # past this bucket size the downstream sorts a fat bucket drags
         # through cost more than one (batched) round trip: resolve now
         return resolve_table(out)
@@ -615,10 +608,8 @@ def _group_ids_impl(views, valids, n_valid):
     return gids, ngroups
 
 
-def group_pack_min() -> int:
-    """Row count from which multi-key groupings try the packed single-sort
-    plan (read at use time)."""
-    return int(os.environ.get("NDS_TPU_GROUP_PACK_MIN", str(1 << 20)))
+# row count from which multi-key groupings try the packed single-sort plan
+GROUP_PACK_MIN = 1 << 20
 
 
 def _int_key_ranges(views, n_valid):
@@ -716,7 +707,7 @@ def group_ids(key_cols, n_valid=None):
     valids = tuple(c.valid for c in key_cols)
     nv = count_arr(n_valid)
     plan = None
-    if len(key_cols) > 1 and plen >= group_pack_min():
+    if len(key_cols) > 1 and plen >= GROUP_PACK_MIN:
         plan = _packed_group_plan(key_cols, views, nv)
     if plan is not None:
         gids, ng_dev = _group_ids_packed(views, valids, plan[0], plan[1], nv)
@@ -1357,10 +1348,9 @@ def _null_column_like(col: Column, n: int) -> Column:
                   col.dict_values, enc=col.enc)
 
 
-def pair_budget() -> int:
-    """Candidate-pair budget of one materialized join chunk: beyond it the
-    inner join splits the probe side into capacity-bounded spans."""
-    return int(os.environ.get("NDS_TPU_PAIR_BUDGET", str(1 << 22)))
+# candidate-pair budget of one materialized join chunk: beyond it the inner
+# join splits the probe side into capacity-bounded spans
+PAIR_BUDGET = 1 << 22
 
 
 def _chunk_spans(counts_np, budget):
@@ -1382,14 +1372,14 @@ def _chunk_spans(counts_np, budget):
 def _chunked_inner_join(left, right, left_keys, right_keys, probe,
                         residual_fn) -> DeviceTable:
     """Inner join materialized span-by-span so peak memory is bounded by
-    ``pair_budget()`` pairs, with residual predicates applied per span."""
+    ``PAIR_BUDGET`` pairs, with residual predicates applied per span."""
     counts, lo, order, total = probe
     plen_r = len(right_keys[0])
     dev = counts.device
 
     def fetch():
         counts_np = to_host(counts)
-        return (_chunk_spans(counts_np, pair_budget()),
+        return (_chunk_spans(counts_np, PAIR_BUDGET),
                 np.concatenate([[0], np.cumsum(counts_np)]))
 
     spans, cum = timed_read("chunk_spans", fetch)
@@ -1434,7 +1424,7 @@ def join_tables(left: DeviceTable, right: DeviceTable, left_on, right_on,
         probe = _probe_candidates(left_keys, right_keys,
                                   n_left=left.nrows, n_right=right.nrows,
                                   l_excl=l_excl, r_excl=r_excl)
-        if probe[3] > pair_budget():
+        if probe[3] > PAIR_BUDGET:
             return _chunked_inner_join(left, right, left_keys, right_keys,
                                        probe, residual_fn)
     l_idx, r_idx, n_pairs, l_extra, n_lx, r_extra, n_rx = join_indices(

@@ -74,10 +74,12 @@ class Session:
         which lets the planner trust schema facts like primary-key
         uniqueness; re-registration through a non-base path revokes it.
         ``arrow`` optionally passes the host-side source table so load-time
-        statistics need no device->host read."""
+        statistics need no device->host read. A DeviceTable must already
+        lie on the session's device."""
         if isinstance(table, pa.Table):
             arrow = table if arrow is None else arrow
             table = from_arrow(table, device=self.device)
+        self._check_on_device(name, table)
         key = name.lower()
         self.catalog[key] = table
         if base and arrow is not None:
@@ -86,6 +88,23 @@ class Session:
             self.base_tables.add(key)
         else:
             self.base_tables.discard(key)
+
+    def _check_on_device(self, name: str, table) -> None:
+        """Refuse a table whose tensors lie off the session's device: its
+        statements would otherwise run there, and quietly past the
+        kernels."""
+        want = self.device
+        for cname, col in getattr(table, "columns", {}).items():
+            for t in (col.data, col.valid):
+                if t is None:
+                    continue
+                d = t.device
+                if d.type != want.type or (want.index is not None
+                                           and d.index != want.index):
+                    raise ValueError(
+                        f"table {name!r}: column {cname!r} lies on {d}, "
+                        f"the session runs on {want}; build the table "
+                        f"with device={str(want)!r}")
 
     def _collect_load_stats(self, key: str, arrow) -> None:
         """Load-time key statistics from HOST data: prewarm the dense

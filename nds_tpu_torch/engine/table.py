@@ -76,7 +76,7 @@ class DeviceTable:
 
     @staticmethod
     def from_arrow(table, canonical_types=None,
-                   device="cpu") -> "DeviceTable":
+                   device=None) -> "DeviceTable":
         from nds_tpu_torch.engine.column import from_arrow
         return from_arrow(table, canonical_types, device)
 
@@ -85,8 +85,9 @@ class DeviceTable:
         return f"DeviceTable[{self.nrows}/{self.plen} rows]({cols})"
 
 
-def from_reference_arrays(cols, nrows: int, device="cpu") -> DeviceTable:
-    """Build a DeviceTable from host arrays with identical codes.
+def from_reference_arrays(cols, nrows: int, device=None) -> DeviceTable:
+    """Build a DeviceTable on ``device`` (default ``cuda``; raises without a
+    GPU unless ``cpu`` is asked for) from host arrays with identical codes.
 
     ``cols`` maps a column name to ``(kind, data, valid, dict_values)``:
     the device kind string, the data array (already bucket-padded, as a
@@ -98,8 +99,10 @@ def from_reference_arrays(cols, nrows: int, device="cpu") -> DeviceTable:
     bit for bit."""
     import numpy as np
 
+    from nds_tpu_torch import resolve_device
     from nds_tpu_torch.engine.column import to_device
 
+    device = resolve_device(device)
     out = {}
     for name, (kind, data, valid, dict_values) in cols.items():
         data = np.asarray(data)

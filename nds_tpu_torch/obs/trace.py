@@ -16,31 +16,17 @@ drain only their own), and a span finished on a thread that never
 attached a ring (e.g. a shared device-runtime callback thread) lands in
 the module-level :data:`unattributed` diagnostics deque instead of
 leaking or cross-charging a stream.
-
-Hazard guard: disabled tracing (``NDS_TPU_TRACE=off`` or :func:`set_enabled`) makes
-  ``span()`` return a shared null context: no clock reads at all.
 """
 
 from __future__ import annotations
 
-import os
 import threading
 import time
 from collections import deque
 
 # ring capacity per thread: diagnostics, never unbounded; drivers drain
-# per query. Read at ring-ATTACH
-# time (not import): a Throughput child that sets NDS_TPU_TRACE_RING
-# after import sizes its threads' rings from the live value.
-def _ring_max() -> int:
-    return int(os.environ.get("NDS_TPU_TRACE_RING", "8192"))
-
-# NDS_TPU_TRACE is only the import DEFAULT of this runtime flag;
-# set_enabled() is the post-import control path, so the conc-audit
-# env-freeze rule is waived on the next line.
-# nds-lint: ignore[env-freeze]
-_enabled = os.environ.get("NDS_TPU_TRACE", "on").lower() not in (
-    "off", "0", "false")
+# per query
+_RING_MAX = 8192
 
 _tls = threading.local()
 
@@ -61,24 +47,12 @@ def _ops():
     return _E
 
 
-def on() -> bool:
-    """Is tracing live for new spans/sync events?"""
-    return _enabled
-
-
-def set_enabled(value: bool) -> None:
-    """Process-wide switch (tests; ``NDS_TPU_TRACE=off`` sets the import
-    default). Open spans finish normally either way."""
-    global _enabled
-    _enabled = bool(value)
-
-
 def attach() -> None:
     """Give the calling thread its own span ring (idempotent). Called by
     ``Session.sql`` so every query-executing thread is scoped; a record
     finished on a never-attached thread goes to :data:`unattributed`."""
     if getattr(_tls, "ring", None) is None:
-        _tls.ring = deque(maxlen=_ring_max())
+        _tls.ring = deque(maxlen=_RING_MAX)
 
 
 def drain_spans() -> list:
@@ -204,7 +178,8 @@ class SpanRecord:
 
 
 class _NullSpan:
-    """Shared no-op span: returned when tracing is off."""
+    """Shared no-op span, for a site that opens a span only sometimes
+    (the planner's nested plans)."""
 
     __slots__ = ()
 
@@ -233,8 +208,6 @@ def span(name: str, **attrs):
 
     Zero host syncs by construction: enter/exit read the host clock and
     the thread's existing sync/wait/compile counters, nothing else."""
-    if not _enabled:
-        return NULL_SPAN
     return SpanRecord(name, attrs)
 
 

@@ -14,7 +14,6 @@ by unique suffix match, mirroring SQL scoping.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -37,12 +36,8 @@ class ExecError(ValueError):
 
 # Defer pushed-down filters into the join hash (no compaction sync) up to
 # this physical size; above it, compaction pays for itself by shrinking the
-# join's sort/probe width. Read at USE time (not import) so tests and
-# Throughput children that set the knob after import are honored; its
-# effect needs no cache-key member — the routing's RESULT (part physical
-# lengths) is already a pipeline/fusion key component.
-def _defer_filter_max_rows() -> int:
-    return int(os.environ.get("NDS_TPU_DEFER_FILTER_MAX_ROWS", 1 << 21))
+# join's sort/probe width.
+DEFER_FILTER_MAX_ROWS = 1 << 21
 
 
 @dataclass
@@ -587,8 +582,7 @@ class Planner:
         if not residual and all_plain:
             l_on = [l for l, _ in equi]
             r_on = [r for _, r in equi]
-            if kind == "left" and right_src and \
-                    not os.environ.get("NDS_TPU_NO_PK_GATHER"):
+            if kind == "left" and right_src:
                 # LEFT join on the right side's declared (composite) PK:
                 # at most one match per probe row, so gather right columns
                 # onto the left's unchanged physical rows and null-extend
@@ -674,8 +668,6 @@ class Planner:
         Returns ``(fact_slot, dim_slot, [fact_keys], [dim_keys])`` or
         None."""
         from nds_tpu_torch.schema import COMPOSITE_PRIMARY_KEYS, PRIMARY_KEYS
-        if os.environ.get("NDS_TPU_NO_PK_GATHER"):
-            return None
         pairs = [((lk, rk) if sl == a else (rk, lk)) for (sl, sr, lk, rk)
                  in es]
         for fact_slot, dim_slot, idx in ((a, b, 1), (b, a, 0)):
@@ -933,7 +925,7 @@ class Planner:
         for i, (p, f) in enumerate(zip(parts, filters_per_part)):
             if not f:
                 masks.append(None)
-            elif p.plen > _defer_filter_max_rows():
+            elif p.plen > DEFER_FILTER_MAX_ROWS:
                 tables[i] = self._filter_conjuncts(p, f)
                 masks.append(None)
             else:

@@ -38,4 +38,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "gpu: needs a CUDA GPU (skips with a reason without one)")
     config.addinivalue_line(
-        "markers", "slow: long sweeps kept out of the tier-1 run")
+        "markers", "slow: long sweeps; deselected by -m 'not slow', which "
+        "the tier-1 command passes (a plain pytest run includes them)")

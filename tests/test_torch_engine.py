@@ -174,3 +174,57 @@ def test_session_refuses_cuda_without_a_gpu_and_big_tables(monkeypatch):
     s.conf["stream_bytes"] = "100"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         s._check_resident("big", _table(n=64))
+
+
+def _ref_cols(t):
+    ref = ref_from_arrow(t)
+    return {n: (c.kind, np.asarray(c.data),
+                None if c.valid is None else np.asarray(c.valid),
+                c.dict_values) for n, c in ref.columns.items()}, ref.nrows
+
+
+@pytest.mark.parametrize("builder", ["from_arrow", "DeviceTable.from_arrow",
+                                     "from_reference_arrays"])
+def test_table_builders_default_to_cuda(builder):
+    """With no ``device`` a builder means ``cuda``: it raises without a GPU
+    and never quietly builds on the host."""
+    from nds_tpu_torch.engine.table import DeviceTable
+    t = _table(seed=9, n=40)
+    build = {
+        "from_arrow": lambda: port_from_arrow(t),
+        "DeviceTable.from_arrow": lambda: DeviceTable.from_arrow(t),
+        "from_reference_arrays": lambda: from_reference_arrays(*_ref_cols(t)),
+    }[builder]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+        return
+    out = build()
+    assert all(c.data.device.type == "cuda" for c in out.columns.values())
+
+
+def test_session_refuses_a_table_off_its_device():
+    host = port_from_arrow(_table(seed=3, n=40), device="cpu")
+    s = PortSession(device="cpu")
+    s.create_temp_view("t", host)                # same device: accepted
+    assert s.sql("select count(*) from t").collect() == [(40,)]
+    # a session on the card must refuse the host-built table; the check
+    # reads only devices, so a cpu session re-pointed at cuda shows it
+    s.device = torch.device("cuda")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        s.create_temp_view("t2", host)
+    assert "t2" not in s.catalog
+
+
+@pytest.mark.gpu
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="needs a CUDA GPU: a cuda Session cannot exist "
+                           "without one")
+def test_cuda_session_refuses_a_cpu_built_table():
+    host = port_from_arrow(_table(seed=3, n=40), device="cpu")
+    s = PortSession(device="cuda")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        s.create_temp_view("t", host)
+    s.create_temp_view("t", port_from_arrow(_table(seed=3, n=40),
+                                            device="cuda"))
+    assert s.sql("select count(*) from t").collect() == [(40,)]

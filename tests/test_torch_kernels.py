@@ -222,3 +222,33 @@ def test_cuda_kernels_match_plain(cuda, G):
             K.segment_minmax_f64_plain(fv, g, G))
     for x, y in zip(a, b):
         assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+
+
+def test_launcher_refuses_host_tensors():
+    """The raw launcher times a kernel alone: it never takes the plain
+    version, so host tensors are refused."""
+    g = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.launcher("segment_sum_i64", torch.zeros(8, dtype=torch.int64), g, 2)
+
+
+@pytest.mark.gpu
+def test_launcher_matches_the_wrapper_and_counts_nothing(cuda):
+    rng = np.random.default_rng(3)
+    n, G = 1 << 16, 100
+    g = _t(_gids(rng, n, G)).to(cuda)
+    iv = _t(rng.integers(-1000, 1000, size=n, dtype=np.int64)).to(cuda)
+    fv = _t(rng.random(n)).to(cuda)
+    want = {"segment_sum_i64": K.segment_sum_i64(iv, g, G),
+            "segment_sum_f64": K.segment_sum_f64(fv, g, G),
+            "segment_minmax_f64": K.segment_minmax_f64(fv, g, G)}
+    before = dict(K.LAUNCHES)
+    for name, vals in (("segment_sum_i64", iv), ("segment_sum_f64", fv),
+                       ("segment_minmax_f64", fv)):
+        outs = K.launcher(name, vals, g, G)()
+        got = (outs[1][0], outs[1][1]) if name == "segment_minmax_f64" \
+            else outs
+        for x, y in zip(got, want[name]):
+            torch.testing.assert_close(x, y, rtol=1e-12, atol=0,
+                                       equal_nan=True)
+    assert K.LAUNCHES == before

@@ -86,7 +86,8 @@ def test_lexsort_is_stable_with_ties_nulls_and_pads():
 @pytest.mark.parametrize("pack", [False, True])
 def test_group_ids_match(monkeypatch, pack):
     if pack:
-        monkeypatch.setenv("NDS_TPU_GROUP_PACK_MIN", "1")
+        monkeypatch.setenv("NDS_TPU_GROUP_PACK_MIN", "1")   # the reference
+        monkeypatch.setattr(PO, "GROUP_PACK_MIN", 1)         # the port
     rng = np.random.default_rng(21)
     n = 300
     a = rng.integers(0, 7, size=n).astype(np.int64)

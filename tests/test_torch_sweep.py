@@ -1,7 +1,9 @@
 # Copyright (c) 2026, nds-tpu authors. Licensed under the Apache License, Version 2.0.
 """One pass over all 103 statements of the SF0.01 stream through the
-reference and the torch port on the CPU (``slow``: outside tier 1). Rows
-must agree in order, exact kinds bit for bit, doubles within rel 1e-5.
+reference and the torch port on the CPU. Rows must agree in order, exact
+kinds bit for bit, doubles within rel 1e-5. It is marked ``slow``: the
+tier-1 command deselects it with ``-m 'not slow'``, and a plain
+``pytest tests/`` runs it.
 
     python -m pytest tests/test_torch_sweep.py -m slow
 """
