@@ -15,12 +15,30 @@ and suppresses the final ``ok`` line):
                the kernel's own time (raw launches on preallocated
                outputs), the wrapper's, the plain version's and the
                library call's, and the bytes bound;
+   scan/probe  K4 ``chunk_scan`` at n = 2^22 rows (one default chunk) with
+               a store_sales-like spec (FOR int16/int32 codes, a dict
+               float column, an IN-list, validity, the routing hash over
+               two keys) and K5 ``join_probe`` at n = 2^22 probe rows
+               against r in {1000, 102000, 2^20} build rows: bit-exact
+               against their plain versions, with kernel, wrapper, plain
+               and bound ms (and, for K5, the ``torch.searchsorted`` pair);
 4. data        builds ``native/ndsgen`` and writes SF1 (parallel children)
                and SF0.01 raw data under ``.smoke_data/``;
 5. power       the 25 CI statements at SF1 through the port's Power Run
                entry on ``cuda``, plus one MIN/MAX-of-double statement;
                per-query ms, syncs and kernel launches;
-6. agreement   the same statements at SF0.01 on ``cuda`` and on ``cpu``:
+6. stream      SF1 transcoded to parquet (the port's ``write_table``); a
+               cuda session that streams every table above 1.5e8 bytes
+               in 2^19-row chunks (store_sales: 6 chunks) against an
+               all-resident one: the 14 streamed A/B statements of
+               ``tests/test_synccount.py`` (and the partitioned subset at 2
+               partitions) and the 25 CI statements through the Power Run
+               entry with ``--input_format parquet``; streamed rows equal
+               resident rows, every ``must_stream`` statement runs
+               ``compiled`` within 6 syncs, K4/K5 launch, and no
+               synchronizing CUDA call happens inside the chunk loop
+               (``torch.cuda.set_sync_debug_mode("warn")`` around it);
+7. agreement   the same statements at SF0.01 on ``cuda`` and on ``cpu``:
                exact kinds bit for bit, doubles within rel 1e-5.
 
 It needs a CUDA device and the rest of the repository; without either it
@@ -65,7 +83,25 @@ KERNEL_META = {
     "segment_sum_f64": "nds_tpu/engine/kernels.py:108 (_segment_sum_pallas)",
     "segment_minmax_f64": ("nds_tpu/engine/kernels.py:371 "
                            "(_segment_minmax_pallas)"),
+    "chunk_scan": "nds_tpu/engine/kernels.py:728 (fused_chunk_scan)",
+    "join_probe": "nds_tpu/engine/kernels.py:924 (fused_probe)",
 }
+KERNEL_SOURCE = {
+    "segment_sum_i64": "nds_tpu_torch/csrc/segment_agg.cu",
+    "segment_sum_f64": "nds_tpu_torch/csrc/segment_agg.cu",
+    "segment_minmax_f64": "nds_tpu_torch/csrc/segment_agg.cu",
+    "chunk_scan": "nds_tpu_torch/csrc/chunk_scan.cu",
+    "join_probe": "nds_tpu_torch/csrc/join_probe.cu",
+}
+# the streamed path's chunk (the port's default) and the K5 build sizes:
+# a small dimension, SF10 item, and 2^20 rows
+SCAN_ROWS = 1 << 22
+PROBE_BUILD_ROWS = (1000, 102000, 1 << 20)
+# the stream phase's cut: SF1 (store_sales 2,880,404 rows) instead of the
+# reference's SF10, so generation plus transcode fit the call; chunks and
+# threshold scaled so store_sales still runs 6 chunks
+STREAM_CHUNK_ROWS = 1 << 19
+STREAM_BYTES = 1.5e8
 
 
 def emit(obj) -> None:
@@ -133,7 +169,8 @@ def kernel_phase(torch, K):
     import numpy as np
     rng = np.random.default_rng(SEED)
     n = SF1_ROWS
-    records = {name: [] for name in KERNEL_META}
+    records = {name: [] for name in ("segment_sum_i64", "segment_sum_f64",
+                                     "segment_minmax_f64")}
     ok = True
     for G in KERNEL_GROUPS:
         gids, ivals, fvals, mvals = kernel_inputs(torch, n, G, rng)
@@ -214,6 +251,105 @@ def kernel_phase(torch, K):
     return ok, records
 
 
+def scan_inputs(torch, K, rng):
+    """One padded 2^22-row chunk shaped like store_sales' streamed
+    columns, and a K4 spec over it: FOR int16 quantity (with nulls), FOR
+    int32 decimal price (float lane, /100), an IN-list on an int16 store
+    key, a dict-encoded float-lane column, and the routing hash over two
+    int32 keys."""
+    import numpy as np
+    n = SCAN_ROWS
+    live = n - 12345                       # a partial trailing chunk
+    qty = rng.integers(0, 100, n).astype(np.int16)        # base 1
+    qty_v = rng.random(n) > 0.04
+    price = rng.integers(0, 20000, n).astype(np.int32)    # base 100
+    store = rng.integers(0, 12, n).astype(np.int16)
+    store_v = rng.random(n) > 0.04
+    disc = rng.integers(0, 64, n).astype(np.int16)        # dict codes
+    table = np.unique(rng.integers(0, 10 ** 6, 64)).astype(np.int64)
+    item = rng.integers(0, 1 << 17, n).astype(np.int32)
+    cust = rng.integers(0, 1 << 20, n).astype(np.int32)
+    bufs = (qty, qty_v, price, None, store, store_v, disc, None, item, None,
+            cust, None)
+    entries = [("irange", 0, 9, 59), ("fge", 1, 12.5), ("flt", 1, 150.25),
+               ("iin", 2, (1, 2, 4, 7, 8, 10)), ("flt", 3, 4000.0),
+               ("notnull", 2)]
+    cols = [(0, 1, "for", 1, -1, 1.0), (2, -1, "for", 100, -1, 100.0),
+            (4, 5, "id", 0, -1, 1.0), (6, -1, "dict", 0, 0, 100.0)]
+    spec = K.ScanSpec(entries, cols, tables=(table,), key_slots=(8, 10))
+    dev = torch.device("cuda")
+    flat = tuple(None if b is None else torch.from_numpy(b).to(dev)
+                 for b in bufs)
+    n_dev = torch.tensor(live, dtype=torch.int64, device=dev)
+    return flat, n_dev, spec
+
+
+def scan_probe_phase(torch, K):
+    """K4 and K5 against their plain versions at the streamed path's
+    shapes: (ok, {name: [records]})."""
+    import numpy as np
+    from nds_tpu_torch.engine import ops as E
+    rng = np.random.default_rng(SEED + 4)
+    records = {"chunk_scan": [], "join_probe": []}
+    flat, n_dev, spec = scan_inputs(torch, K, rng)
+    m, h = K.chunk_scan(flat, n_dev, spec)
+    pm, ph = K.chunk_scan_plain(flat, n_dev, spec)
+    torch.cuda.synchronize()
+    good = bits_equal(torch, m, pm) and bits_equal(torch, h, ph)
+    n = SCAN_ROWS
+    used = {c[0] for c in spec.cols} | {c[1] for c in spec.cols
+                                        if c[1] >= 0} | set(spec.key_slots)
+    nbytes = sum(flat[i].element_size() * n for i in used) + n * (1 + 4)
+    records["chunk_scan"].append(dict(
+        n=n, ok=good, max_abs_err=0 if good else int(
+            (m != pm).sum() + (h != ph).sum()), tol="bit-exact",
+        survivors=int(m.sum()), entries=len(spec.entries),
+        ms=cuda_ms(torch, K.launcher("chunk_scan", flat, n_dev, spec),
+                   reps=KERNEL_REPS),
+        wrapper_ms=cuda_ms(torch, lambda: K.chunk_scan(flat, n_dev, spec)),
+        plain_ms=cuda_ms(torch, lambda: K.chunk_scan_plain(flat, n_dev,
+                                                           spec)),
+        library_ms=None, library_call=None,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes))
+    del flat, m, h, pm, ph
+    dev = torch.device("cuda")
+    for r in PROBE_BUILD_ROWS:
+        keys = torch.from_numpy(rng.integers(1, int(r * 1.1) + 2, n)).to(dev)
+        valid = torch.from_numpy(rng.random(n) > 0.04).to(dev)
+        excl = torch.from_numpy(rng.random(n) > 0.9).to(dev)
+        n_valid = torch.tensor(n - 777, dtype=torch.int64, device=dev)
+        build = torch.arange(1, r + 1, dtype=torch.int64, device=dev)
+        rh = E.unsigned_order(E._key_hash_impl((build,), (None,), 1, False,
+                                               r, None))
+        rh_sorted = torch.sort(rh).values
+        args = ((keys,), (valid,), n_valid, excl, rh_sorted)
+        c, lo = K.join_probe(*args)
+        pc, plo = K.join_probe_plain(*args)
+        torch.cuda.synchronize()
+        good = bits_equal(torch, c, pc) and bits_equal(torch, lo, plo)
+        lh = E.unsigned_order(E._key_hash_impl((keys,), (valid,), 0, False,
+                                               n_valid, excl))
+        nbytes = n * (8 + 1 + 1 + 16) + 8 * r
+        records["join_probe"].append(dict(
+            n=n, r=r, ok=good, max_abs_err=0 if good else int(
+                (c - pc).abs().max()), tol="bit-exact",
+            matched_rows=int((c > 0).sum()),
+            ms=cuda_ms(torch, K.launcher("join_probe", *args),
+                       reps=KERNEL_REPS),
+            wrapper_ms=cuda_ms(torch, lambda: K.join_probe(*args)),
+            plain_ms=cuda_ms(torch, lambda: K.join_probe_plain(*args)),
+            searchsorted_pair_ms=cuda_ms(torch, lambda: (
+                torch.searchsorted(rh_sorted, lh),
+                torch.searchsorted(rh_sorted, lh, right=True))),
+            library_ms=None, library_call=None,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bytes=nbytes))
+        del keys, valid, excl, build, rh, rh_sorted, c, lo, pc, plo, lh
+    ok = all(r["ok"] for recs in records.values() for r in recs)
+    return ok, records
+
+
 # ---------------------------------------------------------------------------
 # data
 # ---------------------------------------------------------------------------
@@ -258,6 +394,361 @@ def stream_file(scale) -> str:
     d = os.path.join(DATA, f"stream_sf{scale}")
     generate_query_streams(d, streams=1, rngseed=SEED, scale=float(scale))
     return os.path.join(d, "query_0.sql")
+
+
+# ---------------------------------------------------------------------------
+# stream
+# ---------------------------------------------------------------------------
+
+# the 14 streamed A/B statements of tests/test_synccount.py
+# (_STREAM_AB_QUERIES; must_stream for every one), kept here so this script
+# needs nothing of the test suite
+STREAM_AB = [
+    """select d_year, i_brand_id, sum(ss_ext_sales_price) s
+       from store_sales, date_dim, item
+       where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+         and d_moy = 11
+       group by d_year, i_brand_id order by d_year, s desc, i_brand_id""",
+    """select ss_item_sk, ss_ext_sales_price from store_sales
+       where ss_ext_sales_price > 9900 and ss_item_sk < 40
+       order by ss_item_sk, ss_ext_sales_price""",
+    """select ss_item_sk, count(*) c, sum(ss_ext_sales_price) s
+       from store_sales where ss_ext_sales_price > 5000
+       group by ss_item_sk order by ss_item_sk""",
+    """select count(*) c, sum(ss_ext_sales_price) s from store_sales
+       where ss_sold_date_sk in
+             (select d_date_sk from date_dim where d_moy = 11)""",
+    """select ss_item_sk, ss_ext_sales_price from store_sales
+       order by ss_item_sk, ss_ext_sales_price""",
+    """select count(*) c, sum(ss_ext_sales_price) s, min(ss_item_sk) m
+       from store_sales""",
+    """select ss_sold_date_sk, count(*) c from store_sales
+       group by ss_sold_date_sk order by ss_sold_date_sk""",
+    """select ss_item_sk, count(*) c, sum(sr_return_amt) r
+       from store_sales, store_returns
+       where ss_item_sk = sr_item_sk and ss_ext_sales_price > 5000
+       group by ss_item_sk order by ss_item_sk""",
+    """select i_brand_id, sum(sr_return_amt) r, count(*) c
+       from store_sales, store_returns, item
+       where ss_item_sk = sr_item_sk and ss_item_sk = i_item_sk
+         and sr_return_amt > 50
+       group by i_brand_id order by i_brand_id""",
+    """select ss_item_sk, count(*) c from store_sales
+       left join store_returns on ss_item_sk = sr_item_sk
+           and ss_ticket_number = sr_ticket_number
+       where sr_ticket_number is null
+       group by ss_item_sk order by ss_item_sk""",
+    """select sr_item_sk, sr_return_amt, ss_ext_sales_price
+       from store_returns
+       left join store_sales on sr_item_sk = ss_item_sk
+           and sr_ticket_number = ss_ticket_number
+       order by sr_item_sk, sr_return_amt, ss_ext_sales_price""",
+    """select ss_item_sk, count(*) c from store_sales
+       where ss_sold_date_sk in
+             (select d_date_sk from date_dim where d_moy = 11)
+         and ss_ext_sales_price >
+             (select avg(ss_ext_sales_price) from store_sales)
+       group by ss_item_sk order by ss_item_sk""",
+    """select count(*) c, sum(ss_ext_sales_price) s from store_sales
+       where ss_item_sk not in
+             (select i_item_sk from item where i_brand_id = 1001)""",
+    """select count(*) c from store_sales ss1 where exists (
+           select * from store_returns sr
+           where ss1.ss_item_sk = sr.sr_item_sk
+             and ss1.ss_ticket_number <> sr.sr_ticket_number)""",
+]
+# the fan-out subset (a store_returns equi edge on the streamed scan) that
+# runs again at a forced partition count of 2
+STREAM_AB_PARTITIONED = (7, 8, 9, 10)
+STREAM_SYNC_BUDGET = 6
+# the outer-build statement (store_returns LEFT JOIN store_sales ON the
+# declared store_sales key): the resident plan gathers ONE match per return
+# (it trusts the key), the streamed plan keeps every match, so where the
+# generated data repeats a store_sales key the streamed result has one row
+# more per extra match (see duplicate_key_matches)
+STREAM_AB_OUTER_BUILD = 10
+
+
+def duplicate_key_matches(pq) -> int:
+    """Extra matches of store_returns rows in store_sales beyond the first,
+    on (item, ticket): the rows by which statement ab10 streamed exceeds
+    ab10 resident. Zero when the generated data keeps the key unique."""
+    import numpy as np
+    from nds_tpu_torch.io import read_table
+    ss = read_table(os.path.join(pq, "store_sales"), "parquet")
+    sr = read_table(os.path.join(pq, "store_returns"), "parquet")
+
+    def keys(t, a, b):
+        x = t[a].to_numpy(zero_copy_only=False)
+        y = t[b].to_numpy(zero_copy_only=False)
+        ok = ~(np.isnan(x.astype(float)) | np.isnan(y.astype(float)))
+        return x[ok].astype(np.int64) * (1 << 32) + y[ok].astype(np.int64)
+
+    uniq, counts = np.unique(keys(ss, "ss_item_sk", "ss_ticket_number"),
+                             return_counts=True)
+    ret = keys(sr, "sr_item_sk", "sr_ticket_number")
+    pos = np.clip(np.searchsorted(uniq, ret), 0, len(uniq) - 1)
+    hit = uniq[pos] == ret
+    return int((counts[pos][hit] - 1).sum())
+
+
+def contains_rows(big, small) -> bool:
+    """Every row of ``small`` (with multiplicity) is a row of ``big``."""
+    from collections import Counter
+    rows = lambda t: Counter(zip(*[t.column(i).to_pylist()  # noqa: E731
+                                   for i in range(t.num_columns)]))
+    return not (rows(small) - rows(big))
+
+
+def transcode(raw_dir, out_dir):
+    """The raw SF1 tables as parquet through the port's ``write_table``
+    (fact tables date-partitioned, as the Load Test writes them)."""
+    from nds_tpu_torch.io import read_raw_table
+    from nds_tpu_torch.io.columnar import write_table
+    from nds_tpu_torch.schema import get_schemas
+    marker = os.path.join(out_dir, ".complete")
+    if os.path.exists(marker):
+        return out_dir
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for tname, fields in get_schemas(use_decimal=True).items():
+        path = os.path.join(raw_dir, tname)
+        if not os.path.exists(path):
+            path += ".dat"
+        arrow = read_raw_table(path, fields)
+        write_table(arrow, os.path.join(out_dir, tname), "parquet")
+    with open(marker, "w"):
+        pass
+    return out_dir
+
+
+def watch_chunk_loop(torch, S, PF):
+    """Run every step of the streamed pipeline's chunk loop (the per-chunk
+    program, the K4 pass, the partition routing, the ring's fetch) under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and collect the
+    synchronizing calls it reports, each with the port's frames that made
+    it. The eager chunk loop is not watched."""
+    import threading
+    import traceback
+    import warnings
+    found = []
+    in_pipeline = threading.local()
+
+    def sites():
+        frames = traceback.extract_stack()[:-2]
+        port = [i for i, f in enumerate(frames)
+                if "nds_tpu_torch" in f.filename]
+        # from the innermost frame out to the fourth frame of the port
+        start = port[-4] if len(port) >= 4 else 0
+        return " < ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                          f":{f.name}" for f in reversed(frames[start:]))
+
+    def wrap(owner, name, always):
+        real = getattr(owner, name)
+
+        def inner(*a, **k):
+            if not (always or getattr(in_pipeline, "on", False)):
+                return real(*a, **k)
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+
+                def show(message, *_a, **_k):
+                    # the sync debug mode's own report (other warnings,
+                    # such as set_sync_debug_mode's notice, do not count)
+                    if "called a synchronizing cuda operation" in \
+                            str(message).lower():
+                        found.append(sites())
+                warnings.showwarning = show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return real(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        setattr(owner, name, inner)
+
+    real_run = S.StreamPipeline.run
+
+    def run(self, *a, **k):
+        in_pipeline.on = True
+        try:
+            return real_run(self, *a, **k)
+        finally:
+            in_pipeline.on = False
+    S.StreamPipeline.run = run
+    for owner, name, always in ((S.StreamPipeline, "_body", True),
+                                (S.StreamPipeline, "_scan", True),
+                                (S.StreamPipeline, "_route", True),
+                                (PF.ChunkRing, "next_chunk", False),
+                                (PF._InlineRing, "next_chunk", False)):
+        wrap(owner, name, always)
+    return found
+
+
+def sync_detector_works(torch) -> bool:
+    """The loop watch's own check: a known synchronizing call (a
+    device-to-host ``item()``) is reported under the same mode and text."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            torch.ones(1, device="cuda").item()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return any("called a synchronizing cuda operation" in
+               str(w.message).lower() for w in seen)
+
+
+def stream_phase(torch, K, raw_sf1, queries):
+    """The streamed path at SF1 against an all-resident session."""
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.engine import prefetch as PF
+    from nds_tpu_torch.engine import stream as S
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.listener import drain_stream_events
+    from nds_tpu_torch.power import (run_query_stream, setup_tables,
+                                     strip_stream_markers)
+    t0 = time.time()
+    pq = transcode(raw_sf1, os.path.join(DATA, "sf1_parquet"))
+    transcode_s = time.time() - t0
+    stream_conf = {"stream_bytes": STREAM_BYTES,
+                   "stream_chunk_rows": STREAM_CHUNK_ROWS,
+                   "stream_strict": True}
+
+    def session(conf):
+        s = Session(conf, device="cuda")
+        setup_tables(s, pq, "parquet", True, [])
+        return s
+
+    resident = session({"stream_bytes": 1e15})
+    streamed = session(dict(stream_conf))
+    from nds_tpu_torch.engine.table import ChunkedTable
+    chunked = {k: v.num_chunks() for k, v in streamed.catalog.items()
+               if isinstance(v, ChunkedTable)}
+    syncs_in_loop = watch_chunk_loop(torch, S, PF)
+
+    def timed(s, sql):
+        drain_stream_events()
+        before = E.sync_count()
+        t = time.perf_counter()
+        out = s.sql(sql).to_arrow()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        return out, ms, E.sync_count() - before, drain_stream_events()
+
+    def scans(events):
+        return [{"table": e.where, "path": e.path, "chunks": e.chunks,
+                 "partitions": e.partitions, "k4": e.scan_launches,
+                 "k5": e.probe_launches, "stall_ms": round(
+                     e.prefetch_stall_ms, 3), "reason": e.reason[:160]}
+                for e in events]
+
+    dup = duplicate_key_matches(pq)
+
+    def check(i, got, want):
+        """None when the streamed rows of statement ``i`` are right, else
+        why not. ab10 holds the resident rows plus one row per duplicate
+        key match, and the eager chunk loop's rows exactly."""
+        if i != STREAM_AB_OUTER_BUILD or not dup:
+            return tables_agree(got, want)
+        if got.num_rows != want.num_rows + dup or \
+                not contains_rows(got, want):
+            return (f"{got.num_rows} rows, resident {want.num_rows} + "
+                    f"{dup} duplicate-key matches")
+        streamed.conf["stream_exec"] = "eager"
+        try:
+            eager = streamed.sql(STREAM_AB[i]).to_arrow()
+        finally:
+            streamed.conf.pop("stream_exec")
+        drain_stream_events()
+        why = tables_agree(got, eager)
+        return None if why is None else f"eager loop differs: {why}"
+
+    K.reset_launches()
+    records, failures = [], []
+    for i, sql in enumerate(STREAM_AB):
+        want, res_ms, _s, _e = timed(resident, sql)
+        got, ms, syncs, events = timed(streamed, sql)
+        why = check(i, got, want)
+        # the pipeline ran every scan — or ran it, found a bound-sized pair
+        # bucket too small for this data (the overflow flag) and reran it
+        # through the eager loop, by design; any other path fails
+        compiled = bool(events) and all(e.path == "compiled"
+                                        for e in events)
+        reran = bool(events) and not compiled and all(
+            e.path == "compiled" or e.reason == "bound-bucket overflow"
+            for e in events)
+        rec = {"statement": f"ab{i}", "ms": round(ms, 3),
+               "resident_ms": round(res_ms, 3), "syncs": syncs,
+               "rows": got.num_rows, "scans": scans(events),
+               "equal": why is None, "overflow_rerun": reran}
+        if why or not (compiled or reran) or \
+                (compiled and syncs > STREAM_SYNC_BUDGET):
+            failures.append(f"ab{i}: {why or ''} compiled={compiled} "
+                            f"syncs={syncs}")
+        records.append(rec)
+    streamed.conf["stream_partitions"] = 2
+    for i in STREAM_AB_PARTITIONED:
+        want, _ms, _s, _e = timed(resident, STREAM_AB[i])
+        got, ms, syncs, events = timed(streamed, STREAM_AB[i])
+        why = check(i, got, want)
+        parts = [e.partitions for e in events]
+        reran = [e.reason for e in events] == ["bound-bucket overflow"]
+        rows_ok = all(sum(e.part_rows) == e.rows for e in events)
+        records.append({"statement": f"ab{i}/p2", "ms": round(ms, 3),
+                        "syncs": syncs, "rows": got.num_rows,
+                        "scans": scans(events), "equal": why is None,
+                        "overflow_rerun": reran})
+        if why or not (reran or (parts == [2] and rows_ok and
+                                 syncs <= STREAM_SYNC_BUDGET)):
+            failures.append(f"ab{i}/p2: {why or ''} partitions={parts}")
+    del streamed
+    # the 25 CI statements through the Power Run entry, parquet input
+    props = os.path.join(OUT, "stream.properties")
+    with open(props, "w") as f:
+        for k, v in stream_conf.items():
+            f.write(f"{k}={v}\n")
+    summ = os.path.join(OUT, "stream_json")
+    shutil.rmtree(summ, ignore_errors=True)
+    power_s = run_query_stream(
+        pq, props, queries, os.path.join(OUT, "stream_time.csv"),
+        sub_queries=CI_QUERIES, input_format="parquet",
+        json_summary_folder=summ, allow_failure=True, device="cuda")
+    drain_stream_events()
+    for fn in sorted(os.listdir(summ)):
+        with open(os.path.join(summ, fn)) as f:
+            js = json.load(f)
+        q = js["query"]
+        sql = strip_stream_markers(queries[q])
+        want, res_ms, _s, _e = timed(resident, sql)
+        got = power_s.sql(sql).to_arrow()
+        why = tables_agree(got, want)
+        records.append({"statement": q, "ms": js["queryTimes"][-1],
+                        "resident_ms": round(res_ms, 3),
+                        "syncs": js["hostSyncs"],
+                        "status": js["queryStatus"][-1],
+                        "scans": js.get("streamedScans", []),
+                        "equal": why is None})
+        if why or js["queryStatus"][-1] != "Completed":
+            failures.append(f"{q}: {why} {js['queryStatus'][-1]}")
+    drain_stream_events()
+    launches = dict(K.LAUNCHES)
+    if not (launches["chunk_scan"] > 0 and launches["join_probe"] > 0):
+        failures.append(f"K4/K5 did not launch: {launches}")
+    detector_ok = sync_detector_works(torch)
+    if syncs_in_loop or not detector_ok:
+        failures.append(f"{len(syncs_in_loop)} synchronizing calls inside "
+                        f"the chunk loop (detector works: {detector_ok})")
+    return {"phase": "stream", "ok": not failures, "scale": 1,
+            "chunk_rows": STREAM_CHUNK_ROWS, "stream_bytes": STREAM_BYTES,
+            "chunked_tables": chunked, "transcode_s": round(transcode_s, 3),
+            "duplicate_key_matches": dup,
+            "launches": launches,
+            "syncs_in_chunk_loop": len(syncs_in_loop),
+            "sync_detector_ok": detector_ok,
+            "sync_sites": sorted(set(syncs_in_loop))[:40],
+            "overflow_reruns": [r["statement"] for r in records
+                                if r.get("overflow_rerun")],
+            "failures": failures[:40], "statements": records}
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +834,7 @@ def main() -> int:
     try:
         K.build(verbose=True)
         emit({"phase": "build", "ok": True, "s": round(time.time() - t0, 3),
-              "sources": ["nds_tpu_torch/csrc/segment_agg.cu"]})
+              "sources": sorted(set(KERNEL_SOURCE.values()))})
     except Exception as e:
         emit({"phase": "build", "ok": False, "error": str(e)[-2000:]})
         return 1
@@ -360,6 +851,19 @@ def main() -> int:
     except Exception as e:
         emit({"phase": "kernel", "ok": False, "error": repr(e)[:2000]})
         failed.append("kernels")
+    try:
+        ok, more = scan_probe_phase(torch, K)
+        records.update(more)
+        for name, recs in more.items():
+            emit({"phase": "kernel", "name": name, "ok": all(
+                r["ok"] for r in recs), "cases": recs})
+        if not ok:
+            failed.append("scan_probe_kernels")
+    except Exception:
+        import traceback
+        emit({"phase": "kernel", "name": "chunk_scan/join_probe",
+              "ok": False, "error": traceback.format_exc()[-2000:]})
+        failed.append("scan_probe_kernels")
 
     # 4. data
     t0 = time.time()
@@ -401,7 +905,8 @@ def main() -> int:
         mm_ok = len(mm) > 0 and all(
             r[1] is not None and math.isfinite(r[1]) and r[1] <= r[2]
             for r in mm if r[0] is not None)
-        counts_ok = all(launches[k] > 0 for k in KERNEL_META)
+        counts_ok = all(launches[k] > 0 for k in (
+            "segment_sum_i64", "segment_sum_f64", "segment_minmax_f64"))
         total_ms = sum(v["ms"] for v in per_q.values())
         emit({"phase": "power", "scale": 1, "device": "cuda",
               "ok": statuses_ok and mm_ok and counts_ok,
@@ -417,7 +922,27 @@ def main() -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("power")
 
-    # 6. agreement at SF0.01: cuda vs cpu
+    # 6. the streamed path at SF1, against all-resident
+    try:
+        K.reset_launches()
+        res = stream_phase(torch, K, os.path.join(DATA, "sf1"),
+                           gen_sql_from_stream(stream_file(1)))
+        for k in ("chunk_scan", "join_probe"):
+            launches[k] = res["launches"][k]
+        with open(os.path.join(OUT, "stream.json"), "w") as f:
+            json.dump(res, f, indent=1)
+        emit({k: v for k, v in res.items() if k != "statements"})
+        for rec in res["statements"]:
+            emit({"phase": "stream", **rec})
+        if not res["ok"]:
+            failed.append("stream")
+    except Exception:
+        import traceback
+        emit({"phase": "stream", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("stream")
+
+    # 7. agreement at SF0.01: cuda vs cpu
     try:
         small = os.path.join(DATA, "sf0.01")
         queries = gen_sql_from_stream(stream_file("0.01"))
@@ -443,13 +968,16 @@ def main() -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("agreement")
 
-    # the kernels line: G = 1000 case, launches from the main-path run
-    src = "nds_tpu_torch/csrc/segment_agg.cu"
+    # the kernels line: K1-K3 at G = 1000, K5 at r = 102000; launches from
+    # the main-path runs (the power phase for K1-K3, the stream phase for
+    # K4/K5)
     line = []
     for name, replaces in KERNEL_META.items():
         recs = records.get(name) or [{}]
-        r = next((x for x in recs if x.get("G") == 1000), recs[0])
-        line.append({"name": name, "route": "cuda", "source": src,
+        r = next((x for x in recs if x.get("G") == 1000
+                  or x.get("r") == 102000), recs[0])
+        line.append({"name": name, "route": "cuda",
+                     "source": KERNEL_SOURCE[name],
                      "replaces": replaces, "launches": launches.get(name, 0),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "wrapper_ms": r.get("wrapper_ms"),
@@ -457,7 +985,7 @@ def main() -> int:
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by", "bytes"),
                      "library_ms": r.get("library_ms"),
-                     "n": r.get("n"), "G": r.get("G")})
+                     "n": r.get("n"), "G": r.get("G"), "r": r.get("r")})
     emit({"kernels": line})
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({"smi": smi, "kernels": line, "records": records,

@@ -52,6 +52,15 @@ class Encoding:
     base: int = 0                    # FOR: logical = base + stored
     values: np.ndarray | None = None  # dict: sorted logical values (host)
 
+    def wide_values(self, dtype) -> np.ndarray:
+        """The dict value table as ``dtype``: one host array per dtype, so
+        its device copy is cached by identity (``ops.host_table``)."""
+        cache = self.__dict__.setdefault("_wide", {})
+        key = np.dtype(dtype).str
+        if key not in cache:
+            cache[key] = self.values.astype(dtype)
+        return cache[key]
+
 
 def encs_equal(a: Encoding | None, b: Encoding | None) -> bool:
     """Value equality of two encodings (identity fast path) — the test
@@ -70,6 +79,15 @@ def encs_equal(a: Encoding | None, b: Encoding | None) -> bool:
 
 _WIDE_DTYPES = {"i32": "int32", "date": "int32", "i64": "int64",
                 "bool": "bool", "f64": "float64"}
+
+
+def enc_key(enc: Encoding | None):
+    """Hashable cache-key signature of an encoding (value tables are
+    validated separately by identity/content, like string dictionaries)."""
+    if enc is None:
+        return None
+    return (enc.mode, enc.base,
+            None if enc.values is None else len(enc.values))
 
 
 def _wide_dtype(kind: str):
@@ -111,8 +129,9 @@ class Column:
         if self.enc.mode == "for":
             data = self.data.to(wide) + int(self.enc.base)
         else:                                  # "dict": sorted value table
-            table = torch.as_tensor(self.enc.values.astype(
-                _wide_dtype(self.kind)), device=self.data.device)
+            from nds_tpu_torch.engine.ops import host_table
+            table = host_table(self.enc.wide_values(_wide_dtype(self.kind)),
+                               self.data.device)
             data = prim.take_clip(table, self.data)
         if self.valid is not None:
             data = torch.where(self.valid, data,
@@ -135,7 +154,11 @@ class Column:
         """Nulls among the first ``nrows`` rows (pass the table's logical
         count — host int or DeviceCount — for a bucket-padded column; pad
         slots carry garbage validity). This is a host read: it syncs, and
-        the sync is counted."""
+        the sync is counted. Inside a stream-bounds region the value is a
+        RECORDED scalar with a device-side staleness guard
+        (:func:`ops.guarded_scalar_read`): the first chunk's count replays
+        for every chunk, and a chunk whose live count differs flips the
+        pipeline's overflow flag (eager rerun)."""
         if self.valid is None:
             return 0
         from nds_tpu_torch.engine import ops as _ops
@@ -148,7 +171,7 @@ class Column:
                 or int(nrows) < int(self.data.shape[0])):
             invalid = invalid & _ops.live_mask(int(self.data.shape[0]),
                                                nrows, self.data.device)
-        return _ops.host_sync(invalid.sum())
+        return _ops.guarded_scalar_read("null_count", invalid.sum())
 
     def take(self, indices) -> "Column":
         # clip mode: out-of-range pad indices duplicate a real row, so pad
@@ -232,15 +255,11 @@ def _bucket_pad(a: np.ndarray, cap: int):
     return np.concatenate([a, np.zeros(cap - n, dtype=a.dtype)])
 
 
-def from_arrow_array(arr, canonical_type: str, cap: int | None = None,
-                     device=None) -> Column:
-    """One arrow column (Array or ChunkedArray) -> device Column on
-    ``device`` (default ``cuda``; raises without a GPU unless ``cpu`` is
-    asked for), physically padded to ``cap`` rows when given."""
-    from nds_tpu_torch import resolve_device
+def lower_arrow_array(arr, canonical_type: str, cap: int | None = None):
+    """One arrow column (Array or ChunkedArray) lowered on the host to the
+    device representation: ``(kind, data, valid | None, dict_values)`` as
+    numpy arrays physically padded to ``cap`` rows when given."""
     from nds_tpu_torch import types as _t
-
-    device = resolve_device(device)
 
     if isinstance(arr, pa.Array):
         arr = pa.chunked_array([arr])
@@ -270,10 +289,7 @@ def from_arrow_array(arr, canonical_type: str, cap: int | None = None,
         if values.size == 0:
             values = np.asarray([""], dtype=object)
             codes = np.zeros(n, dtype=np.int32)
-        col = Column("str", to_device(_bucket_pad(codes, cap), device),
-                     None if valid_np is None else to_device(valid_np, device),
-                     values)
-        return col
+        return "str", _bucket_pad(codes, cap), valid_np, values
 
     if kind.startswith("dec("):
         s = dec_scale(kind)
@@ -284,18 +300,29 @@ def from_arrow_array(arr, canonical_type: str, cap: int | None = None,
             data_np = np.asarray(pc.fill_null(arr, 0).combine_chunks().to_numpy(
                 zero_copy_only=False))
             data_np = np.round(data_np * (10 ** s)).astype(np.int64)
-        return Column(kind, to_device(_bucket_pad(data_np, cap), device),
-                      None if valid_np is None else to_device(valid_np, device))
+        return kind, _bucket_pad(data_np, cap), valid_np, None
 
     # plain numeric / date / bool
     if kind == "date":
         arr = pc.cast(arr, pa.int32())
     filled = pc.fill_null(arr, 0) if null_count else arr
     np_arr = np.asarray(filled.combine_chunks().to_numpy(zero_copy_only=False))
-    data = to_device(_bucket_pad(np_arr.astype(_NUMERIC_DTYPES[kind]), cap),
-                     device)
-    return Column(kind, data,
-                  None if valid_np is None else to_device(valid_np, device))
+    return (kind, _bucket_pad(np_arr.astype(_NUMERIC_DTYPES[kind]), cap),
+            valid_np, None)
+
+
+def from_arrow_array(arr, canonical_type: str, cap: int | None = None,
+                     device=None) -> Column:
+    """One arrow column (Array or ChunkedArray) -> device Column on
+    ``device`` (default ``cuda``; raises without a GPU unless ``cpu`` is
+    asked for), physically padded to ``cap`` rows when given."""
+    from nds_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    kind, data, valid, values = lower_arrow_array(arr, canonical_type, cap)
+    return Column(kind, to_device(data, device),
+                  None if valid is None else to_device(valid, device),
+                  values)
 
 
 def from_arrow(table: pa.Table, canonical_types: dict | None = None,

@@ -18,10 +18,10 @@ import numpy as np
 import torch
 
 from nds_tpu_torch.engine import prim
-from nds_tpu_torch.engine.column import Column, encs_equal, is_dec
+from nds_tpu_torch.engine.column import Column, dec_scale, encs_equal, is_dec
 from nds_tpu_torch.engine.ops import (device, host_table,
                                       ordered_codes_merged, plain_col,
-                                      to_host)
+                                      to_host, upload)
 
 I64 = torch.int64
 F64 = torch.float64
@@ -392,8 +392,8 @@ def cast(col: Column, target: str) -> Column:
             ok = np.asarray([_is_intstr(v) for v in col.dict_values],
                             dtype=np.bool_)
             data = _lookup(vals, col.data)
-            valid = col.valid_mask() & torch.as_tensor(
-                ok, device=col.data.device)[col.data.long()]
+            valid = col.valid_mask() & upload(
+                ok, col.data.device)[col.data.long()]
             return Column("i64", data, valid)
         return Column("i64", prim.f64_to_i64(_as_f64(col)) if col.kind == "f64"
                       else (col.data.to(I64) // (10 ** col.scale)), col.valid)
@@ -451,8 +451,7 @@ def cast(col: Column, target: str) -> Column:
 
         from nds_tpu_torch.engine.ops import timed_read
         inv, uniq = timed_read("cast_str", fetch)
-        return Column("str", torch.as_tensor(inv, device=col.data.device),
-                      col.valid, uniq)
+        return Column("str", upload(inv, col.data.device), col.valid, uniq)
     raise ValueError(f"unsupported cast target: {target}")
 
 
@@ -592,8 +591,8 @@ def fn_concat(cols) -> Column:
         valid = vs[0]
         for v in vs[1:]:
             valid = valid & v
-    return Column("str", torch.as_tensor(inv, device=cols[0].data.device),
-                  valid, uniq.astype(object))
+    return Column("str", upload(inv, cols[0].data.device), valid,
+                  uniq.astype(object))
 
 
 def like_to_regex(pattern: str) -> str:
@@ -663,3 +662,354 @@ def fn_ceil(col: Column) -> Column:
 
 def fn_sqrt(col: Column) -> Column:
     return Column("f64", torch.sqrt(_as_f64(col).clamp(min=0.0)), col.valid)
+
+
+# ---------------------------------------------------------------------------
+# fused chunk-scan predicate lowering (engine half of the shared rule in
+# analysis/kernel_spec.py — see DESIGN.md "Fused chunk kernels")
+# ---------------------------------------------------------------------------
+#
+# The streamed pipeline extracts, ONCE at record time, a chunk-invariant
+# spec of its chunk-local WHERE conjuncts for the K4 kernel
+# (engine/kernels.chunk_scan): ordered comparisons rebase into ENCODED space (FOR codes shift by
+# the base, sorted-dict values map to code indexes through bisect — the
+# exact rational threshold math lives in analysis/kernel_spec.py), string
+# equality resolves against the whole-table dictionary, and anything the
+# shared eligibility rule declines stays in the recorded per-chunk graph —
+# per conjunct, never all-or-nothing. The lowered semantics are bit for bit
+# the eager kernels above (compare/_encoded_compare_views/_eval_in_list/
+# is_null).
+
+
+def scan_class(kind: str) -> str | None:
+    """Device kind -> the coarse class the shared eligibility rule
+    speaks."""
+    if kind == "str":
+        return "str"
+    if kind == "date":
+        return "date"
+    if kind in ("i32", "i64", "f64") or is_dec(kind):
+        return "num"
+    if kind == "bool":
+        return "bool"
+    return None
+
+
+def _scan_resolve(cols_meta):
+    """ref -> column position resolver over the chunk's aliased columns
+    (planner suffix-match scoping: bare names must match exactly one)."""
+    def resolve(ref):
+        name = ref.name.lower()
+        if ref.table:
+            key = f"{ref.table.lower()}.{name}"
+            hits = [i for i, m in enumerate(cols_meta)
+                    if m["name"] == key]
+        else:
+            hits = [i for i, m in enumerate(cols_meta)
+                    if m["name"].split(".")[-1] == name]
+        return hits[0] if len(hits) == 1 else None
+    return resolve
+
+
+def _scan_float_meta(meta):
+    """(fmode, base, values-or-None, sdiv) of one column's float-lane
+    decode — exactly ``_as_f64(plain(col))``."""
+    kind, enc = meta["kind"], meta["enc"]
+    sdiv = float(10 ** dec_scale(kind)) if is_dec(kind) else 1.0
+    if enc is None:
+        return "id", 0, None, sdiv
+    if enc.mode == "for":
+        return "for", int(enc.base), None, sdiv
+    return "dict", 0, enc.values, sdiv
+
+
+def _scan_int_entry(entry, meta):
+    """Map a VALUE-space integer entry into the column's STORED space
+    (raw uploaded codes) — the encoded-space evaluation."""
+    from nds_tpu_torch.analysis.kernel_spec import dict_map, shift_for
+    enc = meta["enc"]
+    if enc is None:
+        return entry
+    if enc.mode == "for":
+        return shift_for(entry, int(enc.base))
+    return dict_map(entry, [int(v) for v in enc.values])
+
+
+def _scan_frac(value, scale: int):
+    """Exact rational of a numeric literal at the column's stored scale
+    (the engine's _align_decimals arithmetic, as a Fraction — Fraction
+    is exact for int, Decimal AND float inputs)."""
+    from fractions import Fraction
+    return Fraction(value) * (10 ** scale)
+
+
+def _lower_compare(op, lit, ci, meta):
+    from fractions import Fraction
+
+    from nds_tpu_torch.analysis import kernel_spec as KS
+    from nds_tpu_torch.sql import ast as A
+    kind = meta["kind"]
+    cls = scan_class(kind)
+    if cls == "str":
+        if not isinstance(lit, A.Literal) or lit.value is None:
+            return [("false", ci)]
+        # an equality maps to the literal's one code in the whole-table
+        # dictionary (absent literal -> constant False/True). The
+        # dictionary is in first-appearance order, not sorted, so the code
+        # is looked up, not bisected (the reference bisects here, which
+        # finds a wrong or no code on an unsorted dictionary)
+        if meta["dict_values"] is None or not len(meta["dict_values"]):
+            return [("false", ci)]
+        code = _dict_codes(meta["dict_values"]).get(str(lit.value))
+        if code is None:
+            return [("false" if op == "=" else "true", ci)]
+        return [("ieq" if op == "=" else "ine", ci, code)]
+    # date column vs date-ish literal -> integer days
+    if isinstance(lit, A.DateLiteral) or (cls == "date"
+                                          and isinstance(lit, A.Literal)
+                                          and isinstance(lit.value, str)):
+        text = lit.text if isinstance(lit, A.DateLiteral) else lit.value
+        days = KS.parse_days(text)
+        if isinstance(lit, A.DateLiteral) and days is None:
+            return None            # eager arm raises on a bad DateLiteral
+        if days is None:
+            return [("false", ci)]  # str cast -> invalid literal (engine)
+        ent = _scan_int_entry(KS.value_cmp(op, Fraction(days)), meta)
+        return [_with_ci(ent, ci)]
+    if lit.value is None:
+        return [("false", ci)]     # NULL literal: comparison never true
+    v = lit.value
+    if kind == "f64" or isinstance(v, float):
+        # the eager engine float-compares whenever either side is f64
+        # (_as_f64 both); the kernel's float lane decodes identically
+        fop = {"=": "feq", "<>": "fne", "<": "flt", "<=": "fle",
+               ">": "fgt", ">=": "fge"}[op]
+        return [(fop, ci, _f64_literal(v))]
+    q = _scan_frac(v, dec_scale(kind) if is_dec(kind) else 0)
+    ent = _scan_int_entry(KS.value_cmp(op, q), meta)
+    return [_with_ci(ent, ci)]
+
+
+def _dict_codes(dict_values) -> dict:
+    """value -> code of a string dictionary (first code of a value)."""
+    out: dict = {}
+    for i, v in enumerate(dict_values):
+        out.setdefault(str(v), i)
+    return out
+
+
+def _f64_literal(v) -> float:
+    """float64 value of a numeric literal exactly as X.literal +
+    _as_f64 would produce it (Decimal: scaled int divided by 10**s)."""
+    from decimal import Decimal
+    if isinstance(v, Decimal):
+        s = max(0, -v.as_tuple().exponent)
+        return int(v.scaleb(s)) / (10.0 ** s)
+    return float(v)
+
+
+def _with_ci(ent, ci):
+    """Insert the column index into a kernel_spec entry tuple."""
+    kind = ent[0]
+    if kind in ("true", "false"):
+        return (kind, ci)
+    if kind in ("ieq", "ine", "ile", "ige"):
+        return (kind, ci, ent[1])
+    if kind in ("irange", "nrange"):
+        return (kind, ci, ent[1], ent[2])
+    raise ValueError(f"unexpected entry {ent!r}")
+
+
+def _lower_between(c, ci, meta):
+    """Total over the eligible shapes (analysis/kernel_spec.py rejects
+    unparseable date bounds and negated-with-float-bounds up front):
+    int-lane bounds fuse into one (n)range entry in encoded space;
+    an f64 column (or a float bound) takes the float lane — a mixed
+    pair lowers to TWO entries under one conjunct (the engine
+    evaluates each side in its own lane; the entries AND exactly
+    like logical_and of the two compares)."""
+    from fractions import Fraction
+
+    from nds_tpu_torch.analysis import kernel_spec as KS
+    from nds_tpu_torch.sql import ast as A
+    kind = meta["kind"]
+
+    def bound_days(b):
+        text = b.text if isinstance(b, A.DateLiteral) else b.value
+        return KS.parse_days(text)
+
+    def is_float_bound(b):
+        return kind == "f64" or (isinstance(b, A.Literal)
+                                 and isinstance(b.value, float))
+
+    def bound_frac(b):
+        if isinstance(b, A.DateLiteral) or isinstance(b.value, str):
+            d = bound_days(b)
+            return None if d is None else Fraction(d)
+        return _scan_frac(b.value, dec_scale(kind) if is_dec(kind) else 0)
+
+    flo, fhi = is_float_bound(c.low), is_float_bound(c.high)
+    if flo and fhi:
+        lo = _f64_literal(c.low.value)
+        hi = _f64_literal(c.high.value)
+        return [("fnrange" if c.negated else "frange", ci, lo, hi)]
+    if flo or fhi:
+        if c.negated:
+            return None       # mixed-lane negation is not expressible
+        ents = []
+        for b, fl, fop, iop in ((c.low, flo, "fge", ">="),
+                                (c.high, fhi, "fle", "<=")):
+            if fl:
+                ents.append((fop, ci, _f64_literal(b.value)))
+            else:
+                q = bound_frac(b)
+                if q is None:
+                    return None
+                ents.append(_with_ci(
+                    _scan_int_entry(KS.value_cmp(iop, q), meta), ci))
+        return ents
+    qlo, qhi = bound_frac(c.low), bound_frac(c.high)
+    if qlo is None or qhi is None:
+        return None           # eligibility pre-checks parseability
+    ge = KS.value_cmp(">=", qlo)
+    le = KS.value_cmp("<=", qhi)
+    ent = _scan_int_entry(("irange", ge[1], le[1]), meta)
+    if c.negated:
+        # both codecs are order-preserving, so value BETWEEN [lo,hi]
+        # <=> code in the mapped range — negation flips in code space
+        ent = ("nrange", ent[1], ent[2])
+    return [_with_ci(ent, ci)]
+
+
+def _lower_in_list(c, ci, meta):
+    """Mirror Planner._eval_in_list exactly (Decimal scaling, fractional
+    drop, ANSI NOT IN with NULL, string dictionary membership)."""
+    import bisect
+    from decimal import Decimal
+    kind = meta["kind"]
+    vals = [it.value for it in c.items]
+    has_null = any(v is None for v in vals)
+    vals = [v for v in vals if v is not None]
+    if c.negated and has_null:
+        return [("false", ci)]     # ANSI: NOT IN with NULL never true
+    enc = meta["enc"]
+    if kind == "str":
+        index = _dict_codes(meta["dict_values"]) \
+            if meta["dict_values"] is not None else {}
+        codes = [index[str(v)] for v in vals if str(v) in index]
+        if not codes:
+            # no literal occurs in the dictionary: membership is
+            # all-false, so NOT IN is true for every non-null row
+            return [("true" if c.negated else "false", ci)]
+        return [("inotin" if c.negated else "iin", ci, tuple(codes))]
+    if kind == "f64":
+        fl = tuple(float(v) for v in vals)
+        if not fl:
+            return [("true" if c.negated else "false", ci)]
+        return [("fnotin" if c.negated else "fin", ci, fl)]
+    scale = dec_scale(kind) if is_dec(kind) else 0
+    nums = []
+    for v in vals:
+        if not isinstance(v, Decimal):
+            v = Decimal(str(v))
+        scaled = v.scaleb(scale)
+        if scaled == scaled.to_integral_value():
+            nums.append(int(scaled))
+    if not nums:
+        # every literal is fractional at this scale: membership is
+        # all-false (engine drops them), so NOT IN keeps non-null rows
+        return [("true" if c.negated else "false", ci)]
+    if enc is not None and enc.mode == "for":
+        stored = tuple(n - int(enc.base) for n in nums)
+    elif enc is not None:
+        tv = [int(x) for x in enc.values]
+        stored = []
+        for n in nums:
+            i = bisect.bisect_left(tv, n)
+            if i < len(tv) and tv[i] == n:
+                stored.append(i)
+        if not stored and not c.negated:
+            return [("false", ci)]
+        if not stored and c.negated:
+            return [("true", ci)]
+        stored = tuple(stored)
+    else:
+        stored = tuple(nums)
+    return [("inotin" if c.negated else "iin", ci, stored)]
+
+
+def lower_scan_spec(conjuncts, cols_meta, owned):
+    """(ScanSpec | None, kept conjuncts): lower every eligible
+    chunk-owned conjunct into the fused scan pass and return the rest
+    for the recorded per-chunk graph. ``cols_meta`` describes the chunk's
+    columns in flattened-buffer order (dicts with name/kind/enc/
+    dict_values/data_slot/valid_slot); ``owned(c)`` is the planner's
+    single-ownership test for the streamed part.
+
+    None means NO fused pass (nothing eligible, or an eligible conjunct
+    that the lowering declines — the whole pass then stands down, as in
+    the reference). An error inside the lowering raises."""
+    from nds_tpu_torch.analysis.kernel_spec import eligible_conjunct
+    from nds_tpu_torch.engine.kernels import ScanSpec
+
+    resolve = _scan_resolve(cols_meta)
+
+    def class_of(ref):
+        i = resolve(ref)
+        return None if i is None else scan_class(cols_meta[i]["kind"])
+
+    kept, entries, used = [], [], {}
+    tables = []
+    spec_cols = []
+
+    def col_index(i):
+        if i in used:
+            return used[i]
+        meta = cols_meta[i]
+        fmode, base, values, sdiv = _scan_float_meta(meta)
+        tbl = -1
+        if fmode == "dict":
+            tbl = len(tables)
+            tables.append(np.asarray(values).astype(np.int64))
+        spec_cols.append((meta["data_slot"], meta["valid_slot"],
+                          fmode, base, tbl, sdiv))
+        used[i] = len(spec_cols) - 1
+        return used[i]
+
+    n_lowered = 0
+    for c in conjuncts:
+        if not owned(c) or not eligible_conjunct(c, class_of):
+            kept.append(c)
+            continue
+        ents = _lower_one(c, resolve, cols_meta, col_index)
+        if ents is None:
+            return None, list(conjuncts)
+        entries.extend(ents)
+        n_lowered += 1
+    if not n_lowered:
+        return None, list(conjuncts)
+    return ScanSpec(entries, spec_cols, tables=tables,
+                    n_conjuncts=n_lowered), kept
+
+
+def _lower_one(c, resolve, cols_meta, col_index):
+    from nds_tpu_torch.analysis.kernel_spec import _ref_lit
+    from nds_tpu_torch.sql import ast as A
+    got = _ref_lit(c)
+    if got is not None:
+        ref, lit, op = got
+        i = resolve(ref)
+        return _lower_compare(op, lit, col_index(i), cols_meta[i])
+    if isinstance(c, A.Between):
+        i = resolve(c.expr)
+        return _lower_between(c, col_index(i), cols_meta[i])
+    if isinstance(c, A.InList):
+        i = resolve(c.expr)
+        return _lower_in_list(c, col_index(i), cols_meta[i])
+    if isinstance(c, A.IsNull):
+        i = resolve(c.expr)
+        ci = col_index(i)
+        if cols_meta[i]["valid_slot"] < 0 and not c.negated:
+            return [("false", ci)]   # no mask: nothing is null
+        return [("notnull" if c.negated else "isnull", ci)]
+    return None

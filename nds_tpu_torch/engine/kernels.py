@@ -1,9 +1,9 @@
 # Copyright (c) 2026, nds-tpu authors. Licensed under the Apache License, Version 2.0.
-"""Hand-written CUDA kernels of the grouped aggregations, with their plain
-PyTorch versions and launch counters.
+"""Hand-written CUDA kernels, with their plain PyTorch versions and launch
+counters.
 
-Every GROUP BY on the device-resident path ends in one of three grouped
-reductions; each is a CUDA C++ kernel in ``csrc/segment_agg.cu``:
+Every GROUP BY ends in one of three grouped reductions; each is a CUDA C++
+kernel in ``csrc/segment_agg.cu``:
 
 =====================  ================================================  ===========================
 wrapper                replaces (``nds_tpu/engine/kernels.py``)          computes per group
@@ -15,6 +15,18 @@ segment_minmax_f64     ``_segment_minmax_pallas`` (K3)                   float64
 
 A row takes part when ``0 <= gid < ngroups``; null or filtered rows carry
 gid -1 and pad rows a gid at or past ``ngroups``, and both are dropped.
+
+The streamed chunk pipeline (``engine/stream.py``) adds two per-chunk
+kernels:
+
+=====================  ================================================  ===========================
+wrapper                replaces (``nds_tpu/engine/kernels.py``)          computes per row
+=====================  ================================================  ===========================
+chunk_scan             ``fused_chunk_scan`` (K4), ``csrc/chunk_scan.cu``  survivor mask of the lowered
+                                                                         WHERE entries, routing hash
+join_probe             ``fused_probe`` (K5), ``csrc/join_probe.cu``       probe hash, candidate count
+                                                                         and start in the build table
+=====================  ================================================  ===========================
 
 What bounds them on an H100: one read of each row's value and group id
 (16 bytes a row) against device-memory bandwidth, plus the global atomics
@@ -42,6 +54,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 I64 = torch.int64
@@ -49,11 +62,11 @@ F64 = torch.float64
 
 # launches per kernel (plain integers; chip_smoke.py zeroes and reads them)
 LAUNCHES = {"segment_sum_i64": 0, "segment_sum_f64": 0,
-            "segment_minmax_f64": 0}
+            "segment_minmax_f64": 0, "chunk_scan": 0, "join_probe": 0}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("segment_agg.cu",)
+_SOURCES = ("segment_agg.cu", "chunk_scan.cu", "join_probe.cu")
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -91,27 +104,51 @@ def build_dir() -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/*.cu`` into the shared library (once per source
-    hash) and return its path. ``verbose`` adds ``-Xptxas -v`` and returns
-    with the compiler's report printed."""
+    hash) and return its path: one ``nvcc -c`` per source, all started
+    together, then one link. ``verbose`` adds ``-Xptxas -v`` and returns
+    with the compiler's report printed. No source is built with fast math
+    (K4 divides by 10^scale as IEEE does)."""
     out_dir = build_dir()
-    lib = os.path.join(out_dir, "libnds_segagg.so")
+    lib = os.path.join(out_dir, "libnds_kernels.so")
     if os.path.exists(lib) and not verbose:
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp] + [os.path.join(_CSRC, s) for s in _SOURCES]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
     t0 = time.perf_counter_ns()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs, objs = [], []
+    for src in _SOURCES:
+        obj = os.path.join(out_dir, f"{src}.{tag}.o")
+        cmd = [nvcc] + arch + ["-Xcompiler", "-fPIC", "-c", "-o", obj,
+                               os.path.join(_CSRC, src)]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs.append((src, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+        objs.append(obj)
+    errors, reports = [], []
+    for src, proc in procs:
+        _out, err = proc.communicate()
+        reports.append(err.strip())
+        if proc.returncode != 0:
+            errors.append(f"{src} ({proc.returncode}):\n{err}")
+    tmp = f"{lib}.{tag}.tmp"
+    if not errors:
+        res = subprocess.run([nvcc] + arch[:2] + ["-shared", "-o", tmp]
+                             + objs, capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"link ({res.returncode}):\n{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     from nds_tpu_torch.engine.ops import add_compile_ns
     add_compile_ns(time.perf_counter_ns() - t0)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     if verbose:
-        print(res.stderr.strip())
+        print("\n".join(r for r in reports if r))
     os.replace(tmp, lib)
     return lib
 
@@ -130,6 +167,17 @@ def _lib():
                 lib.nds_seg_minmax_f64.argtypes = [vp, vp, ll, ll, vp, vp,
                                                    vp, vp, vp]
                 lib.nds_seg_minmax_f64.restype = ctypes.c_int
+                for name, struct in (("nds_chunk_scan", _ScanArgs),
+                                     ("nds_join_probe", _ProbeArgs)):
+                    fn = getattr(lib, name)
+                    fn.argtypes = [ctypes.POINTER(struct), vp]
+                    fn.restype = ctypes.c_int
+                    size = getattr(lib, name + "_sizeof")
+                    size.restype = ctypes.c_int
+                    if size() != ctypes.sizeof(struct):
+                        raise RuntimeError(
+                            f"{name}: argument block is {size()} bytes in "
+                            f"CUDA, {ctypes.sizeof(struct)} in Python")
                 _LIB = lib
     return _LIB
 
@@ -296,15 +344,498 @@ def segment_minmax_f64(values: torch.Tensor, gids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K4: fused chunk scan (lowered WHERE entries + routing hash)
+# ---------------------------------------------------------------------------
+#
+# Entry opcodes (one or two entries per lowered conjunct; thresholds already
+# in STORED space — analysis/kernel_spec.py does the exact rational math):
+#
+#   ("ieq"|"ine"|"ile"|"ige", ci, T)     int lane, raw stored codes
+#   ("irange"|"nrange", ci, lo, hi)      BETWEEN (negated: "nrange")
+#   ("iin"|"inotin", ci, values)         IN-list membership
+#   ("isnull"|"notnull", ci)             validity only
+#   ("true"|"false", ci)                 constant contribution (& valid)
+#   ("feq"|"fne"|"flt"|"fle"|"fgt"|"fge", ci, L)
+#                                        float lane: decode per column meta,
+#                                        compare float64
+#   ("fin"|"fnotin", ci, values)         float-lane IN-list membership
+#   ("frange"|"fnrange", ci, lo, hi)     float-lane BETWEEN
+
+# opcode numbers shared with csrc/chunk_scan.cu
+_SCAN_OPS = {"false": 0, "true": 1, "isnull": 2, "notnull": 3, "ieq": 4,
+             "ine": 5, "ile": 6, "ige": 7, "irange": 8, "nrange": 9,
+             "iin": 10, "inotin": 11, "feq": 12, "fne": 13, "flt": 14,
+             "fle": 15, "fgt": 16, "fge": 17, "fin": 18, "fnotin": 19,
+             "frange": 20, "fnrange": 21}
+_FMODES = {"id": 0, "for": 1, "dict": 2}
+# dtype tags shared with csrc/chunk_scan.cu and csrc/join_probe.cu
+_TAGS = {torch.int8: 1, torch.int16: 2, torch.int32: 3, torch.int64: 4,
+         torch.float32: 5, torch.float64: 6, torch.uint8: 7, torch.bool: 7}
+_SCAN_MAX_COLS, _SCAN_MAX_KEYS = 16, 8
+
+
+class ScanSpec:
+    """Chunk-invariant description of one fused scan pass.
+
+    ``cols`` holds per-referenced-column metadata
+    ``(data_slot, valid_slot, fmode, base, tbl_idx, sdiv)`` — slots index
+    the pipeline's flattened chunk buffers (valid_slot -1 = no mask);
+    ``fmode``/``base``/``tbl_idx``/``sdiv`` describe the float-lane decode
+    ("id" | "for" | "dict", FOR base, dict table index, the 10**scale
+    divisor). ``tables`` are the sorted dict value tables the float lane
+    gathers (host arrays). ``key_slots`` are the chunk buffers the
+    partition hash folds (empty = no hash output)."""
+
+    __slots__ = ("entries", "n_conjuncts", "cols", "tables", "key_slots",
+                 "_blobs")
+
+    def __init__(self, entries, cols, tables=(), key_slots=(),
+                 n_conjuncts=None):
+        self.entries = tuple(entries)
+        # a conjunct may lower to SEVERAL entries (mixed-lane BETWEEN), so
+        # the stage count tracks CONJUNCTS
+        self.n_conjuncts = len(self.entries) if n_conjuncts is None \
+            else n_conjuncts
+        self.cols = tuple(cols)
+        self.tables = tuple(tables)
+        self.key_slots = tuple(key_slots)
+        self._blobs = {}
+
+    def stages(self) -> int:
+        """Fused stage count of one launch: one per lowered conjunct plus
+        the hash stage."""
+        return self.n_conjuncts + (1 if self.key_slots else 0)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _bits64(data: torch.Tensor) -> torch.Tensor:
+    """A key buffer as int64 bits: integers sign-extend, float64 keeps its
+    bit pattern, float32 sign-extends its bits through int32."""
+    if data.dtype == F64:
+        return data.view(I64)
+    if data.dtype == torch.float32:
+        return data.view(torch.int32).to(I64)
+    return data.to(I64)
+
+
+def hash_mix(h: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Fold one key column into the per-row partition hash — THE
+    partition routing hash (the K4 kernel computes the same bits). ``h``
+    holds uint32 values in int64; low ``log2(P)`` bits pick the
+    partition."""
+    x = _bits64(data)
+    lo = x & _M32
+    hi = (x >> 32) & _M32
+    h = ((h ^ lo) * 2654435761) & _M32
+    h = h ^ (h >> 16)
+    h = ((h ^ hi) * 2246822519) & _M32
+    return h ^ (h >> 13)
+
+
+def fold_hash(keybufs) -> torch.Tensor:
+    """The routing hash over ``keybufs`` as int32 holding the uint32 bits
+    (the dtype the K4 kernel writes)."""
+    h = torch.full(keybufs[0].shape, 2166136261, dtype=I64,
+                   device=keybufs[0].device)
+    for kb in keybufs:
+        h = hash_mix(h, kb)
+    return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
+
+
+def _eval_entries(spec: ScanSpec, datas, valids, tables):
+    """Survivor mask: AND of every lowered conjunct's contribution (the
+    plain version of the K4 kernel body; all boolean logic mirrors the
+    eager engine's ``mask & data & valid_mask`` WHERE contract)."""
+    shape, dev = datas[0].shape, datas[0].device
+    m = torch.ones(shape, dtype=torch.bool, device=dev)
+
+    def vmask(ci):
+        v = valids[ci]
+        return torch.ones(shape, dtype=torch.bool, device=dev) \
+            if v is None else v
+
+    for e in spec.entries:
+        kind, ci = e[0], e[1]
+        if kind == "false":
+            m = torch.zeros(shape, dtype=torch.bool, device=dev)
+            continue
+        if kind in ("true", "notnull"):
+            m = m & vmask(ci)
+            continue
+        if kind == "isnull":
+            m = m & ~vmask(ci)
+            continue
+        if kind[0] == "i" or kind == "nrange":
+            x = datas[ci].to(I64)
+            if kind == "ieq":
+                c = x == e[2]
+            elif kind == "ine":
+                c = x != e[2]
+            elif kind == "ile":
+                c = x <= e[2]
+            elif kind == "ige":
+                c = x >= e[2]
+            elif kind == "irange":
+                c = (x >= e[2]) & (x <= e[3])
+            elif kind == "nrange":
+                c = ~((x >= e[2]) & (x <= e[3]))
+            elif kind == "iin":
+                c = torch.zeros(shape, dtype=torch.bool, device=dev)
+                for v in e[2]:
+                    c = c | (x == v)
+            elif kind == "inotin":
+                c = torch.ones(shape, dtype=torch.bool, device=dev)
+                for v in e[2]:
+                    c = c & (x != v)
+            else:
+                raise ValueError(f"unknown scan entry {kind!r}")
+            m = m & c & vmask(ci)
+            continue
+        if kind[0] == "f":
+            _ds, _vs, fmode, base, tbl, sdiv = spec.cols[ci]
+            d = datas[ci]
+            if fmode == "for":
+                val = (d.to(I64) + base).to(F64)
+            elif fmode == "dict":
+                t = tables[tbl]
+                val = t[d.to(I64).clamp(0, t.shape[0] - 1)].to(F64)
+            else:
+                val = d.to(F64)
+            if sdiv != 1.0:
+                val = val / sdiv
+            if kind in ("fin", "fnotin"):
+                c = torch.zeros(shape, dtype=torch.bool, device=dev)
+                for v in e[2]:
+                    c = c | (val == v)
+                if kind == "fnotin":
+                    c = ~c
+            elif kind in ("frange", "fnrange"):
+                c = (val >= e[2]) & (val <= e[3])
+                if kind == "fnrange":
+                    c = ~c
+            elif kind == "feq":
+                c = val == e[2]
+            elif kind == "fne":
+                c = val != e[2]
+            elif kind == "flt":
+                c = val < e[2]
+            elif kind == "fle":
+                c = val <= e[2]
+            elif kind == "fgt":
+                c = val > e[2]
+            elif kind == "fge":
+                c = val >= e[2]
+            else:
+                raise ValueError(f"unknown scan entry {kind!r}")
+            m = m & c & vmask(ci)
+            continue
+        raise ValueError(f"unknown scan entry {kind!r}")
+    return m
+
+
+def _scan_inputs(chunk_flat, spec: ScanSpec):
+    datas = [chunk_flat[c[0]] for c in spec.cols]
+    valids = [None if c[1] < 0 else chunk_flat[c[1]] for c in spec.cols]
+    keybufs = [chunk_flat[s] for s in spec.key_slots]
+    return datas, valids, keybufs
+
+
+def chunk_scan_plain(chunk_flat, n_dev, spec: ScanSpec):
+    """Plain version of :func:`chunk_scan`."""
+    datas, valids, keybufs = _scan_inputs(chunk_flat, spec)
+    dev = datas[0].device
+    tables = [torch.as_tensor(np.asarray(t, dtype=np.int64), device=dev)
+              for t in spec.tables]
+    mask = _eval_entries(spec, datas, valids, tables)
+    mask = mask & (torch.arange(datas[0].shape[0], device=dev) < n_dev)
+    return mask, (fold_hash(keybufs) if keybufs else None)
+
+
+class _ScanArgs(ctypes.Structure):
+    """The argument block of ``nds_chunk_scan`` (csrc/chunk_scan.cu
+    ``NdsScanArgs``, field for field)."""
+    _fields_ = [("data", ctypes.c_void_p * _SCAN_MAX_COLS),
+                ("valid", ctypes.c_void_p * _SCAN_MAX_COLS),
+                ("keys", ctypes.c_void_p * _SCAN_MAX_KEYS),
+                ("data_tag", ctypes.c_int * _SCAN_MAX_COLS),
+                ("key_tag", ctypes.c_int * _SCAN_MAX_KEYS),
+                ("ncols", ctypes.c_int), ("nentries", ctypes.c_int),
+                ("nkeys", ctypes.c_int), ("pad_", ctypes.c_int),
+                ("ent", ctypes.c_void_p), ("fent", ctypes.c_void_p),
+                ("colmeta", ctypes.c_void_p), ("sdiv", ctypes.c_void_p),
+                ("ivals", ctypes.c_void_p), ("fvals", ctypes.c_void_p),
+                ("tables", ctypes.c_void_p), ("n_dev", ctypes.c_void_p),
+                ("plen", ctypes.c_longlong), ("mask", ctypes.c_void_p),
+                ("hash", ctypes.c_void_p)]
+
+
+def _clamp_i64(v) -> int:
+    return max(min(int(v), (1 << 63) - 1), -(1 << 63))
+
+
+def _scan_blob(spec: ScanSpec, dev) -> dict:
+    """The spec flattened into device arrays, once per (spec, device):
+    chunk-invariant, so no chunk uploads it again."""
+    key = str(dev)
+    blob = spec._blobs.get(key)
+    if blob is not None:
+        return blob
+    ent, fent, ivals, fvals = [], [], [], []
+    for e in spec.entries:
+        kind, ci = e[0], e[1]
+        a = b = off = ln = 0
+        fa = fb = 0.0
+        if kind in ("iin", "inotin"):
+            off, ln = len(ivals), len(e[2])
+            ivals.extend(_clamp_i64(v) for v in e[2])
+        elif kind in ("fin", "fnotin"):
+            off, ln = len(fvals), len(e[2])
+            fvals.extend(float(v) for v in e[2])
+        elif kind in ("frange", "fnrange"):
+            fa, fb = float(e[2]), float(e[3])
+        elif kind[0] == "f":
+            fa = float(e[2])
+        elif kind in ("irange", "nrange"):
+            a, b = _clamp_i64(e[2]), _clamp_i64(e[3])
+        elif kind in ("ieq", "ine", "ile", "ige"):
+            a = _clamp_i64(e[2])
+        ent.extend((_SCAN_OPS[kind], ci, a, b, off, ln))
+        fent.extend((fa, fb))
+    colmeta, sdiv, tables, toff = [], [], [], []
+    for t in spec.tables:
+        toff.append(len(tables))
+        tables.extend(int(v) for v in np.asarray(t, dtype=np.int64))
+    for (_ds, _vs, fmode, base, tbl, sd) in spec.cols:
+        has_tbl = fmode == "dict"
+        colmeta.extend((_FMODES[fmode], int(base),
+                        toff[tbl] if has_tbl else 0,
+                        len(spec.tables[tbl]) if has_tbl else 0))
+        sdiv.append(float(sd))
+
+    from nds_tpu_torch.engine.ops import upload
+
+    def dev_i64(x):
+        return upload(x or [0], dev, I64)
+
+    def dev_f64(x):
+        return upload(x or [0.0], dev, F64)
+
+    blob = {"ent": dev_i64(ent), "fent": dev_f64(fent),
+            "colmeta": dev_i64(colmeta), "sdiv": dev_f64(sdiv),
+            "ivals": dev_i64(ivals), "fvals": dev_f64(fvals),
+            "tables": dev_i64(tables)}
+    spec._blobs[key] = blob
+    return blob
+
+
+def _tag(name, t):
+    tag = _TAGS.get(t.dtype)
+    if tag is None:
+        raise ValueError(f"{name}: unsupported dtype {t.dtype}")
+    return tag
+
+
+def _cuda_1d(name, t, dev, n, dtypes=None):
+    if t.device != dev or t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{name}: buffers must be 1-D of length {n} on "
+                         f"{dev}, got {tuple(t.shape)} on {t.device}")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    return t.contiguous()
+
+
+def _scan_args(chunk_flat, n_dev, spec: ScanSpec):
+    """(argument block, keep-alive tensors, mask, hash) of one K4 launch."""
+    datas, valids, keybufs = _scan_inputs(chunk_flat, spec)
+    dev = datas[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"chunk_scan: kernel needs CUDA tensors, got {dev}")
+    if len(datas) > _SCAN_MAX_COLS or len(keybufs) > _SCAN_MAX_KEYS:
+        raise ValueError(f"chunk_scan: at most {_SCAN_MAX_COLS} columns and "
+                         f"{_SCAN_MAX_KEYS} keys")
+    if not (torch.is_tensor(n_dev) and n_dev.dtype == I64
+            and n_dev.numel() == 1 and n_dev.device == dev):
+        raise ValueError("chunk_scan: n_dev must be an int64 scalar on the "
+                         "chunk's device")
+    plen = int(datas[0].shape[0])
+    a = _ScanArgs()
+    keep = []
+    for i, (d, v) in enumerate(zip(datas, valids)):
+        d = _cuda_1d("chunk_scan", d, dev, plen)
+        a.data[i] = d.data_ptr()
+        a.data_tag[i] = _tag("chunk_scan", d)
+        keep.append(d)
+        if v is not None:
+            v = _cuda_1d("chunk_scan", v, dev, plen, (torch.bool,))
+            a.valid[i] = v.data_ptr()
+            keep.append(v)
+    for i, k in enumerate(keybufs):
+        k = _cuda_1d("chunk_scan", k, dev, plen)
+        a.keys[i] = k.data_ptr()
+        a.key_tag[i] = _tag("chunk_scan", k)
+        keep.append(k)
+    blob = _scan_blob(spec, dev)
+    a.ncols, a.nentries, a.nkeys = len(datas), len(spec.entries), \
+        len(keybufs)
+    for f in ("ent", "fent", "colmeta", "sdiv", "ivals", "fvals", "tables"):
+        setattr(a, f, blob[f].data_ptr())
+    n_dev = n_dev.reshape(())
+    keep.append(n_dev)
+    a.n_dev = n_dev.data_ptr()
+    a.plen = plen
+    mask = torch.empty(plen, dtype=torch.bool, device=dev)
+    h = torch.empty(plen, dtype=torch.int32, device=dev) if keybufs \
+        else None
+    a.mask = mask.data_ptr()
+    a.hash = None if h is None else h.data_ptr()
+    return a, keep, mask, h
+
+
+def chunk_scan(chunk_flat, n_dev, spec: ScanSpec):
+    """``(mask, hash)`` of one padded chunk: the AND of the spec's lowered
+    WHERE entries on the stored codes, & ``row < n_dev``; and the routing
+    hash over ``spec.key_slots`` (int32 holding uint32 bits; None without
+    key slots). ``chunk_flat`` is the pipeline's flattened chunk (data,
+    validity per column), ``n_dev`` the live row count as a 0-d int64
+    tensor on the chunk's device."""
+    first = chunk_flat[spec.cols[0][0]]
+    if first.device.type == "cpu":
+        return chunk_scan_plain(chunk_flat, n_dev, spec)
+    args, keep, mask, h = _scan_args(chunk_flat, n_dev, spec)
+    rc = _lib().nds_chunk_scan(ctypes.byref(args), _stream(mask))
+    _check("chunk_scan", rc)
+    LAUNCHES["chunk_scan"] += 1
+    return mask, h
+
+
+# ---------------------------------------------------------------------------
+# K5: bound-bucket join probe
+# ---------------------------------------------------------------------------
+
+
+def join_probe_plain(views, valids, n_valid, excluded, rh_sorted):
+    """Plain version of :func:`join_probe`."""
+    from nds_tpu_torch.engine import prim
+    from nds_tpu_torch.engine.ops import _key_hash_impl, unsigned_order
+    lh = unsigned_order(_key_hash_impl(tuple(views), tuple(valids), 0,
+                                       False, n_valid, excluded))
+    lo = prim.searchsorted(rh_sorted, lh)
+    hi = prim.searchsorted(rh_sorted, lh, right=True)
+    return hi - lo, lo
+
+
+class _ProbeArgs(ctypes.Structure):
+    """The argument block of ``nds_join_probe`` (csrc/join_probe.cu
+    ``NdsProbeArgs``, field for field)."""
+    _fields_ = [("views", ctypes.c_void_p * _SCAN_MAX_KEYS),
+                ("valid", ctypes.c_void_p * _SCAN_MAX_KEYS),
+                ("view_tag", ctypes.c_int * _SCAN_MAX_KEYS),
+                ("nkeys", ctypes.c_int), ("pad_", ctypes.c_int),
+                ("excluded", ctypes.c_void_p),
+                ("n_valid_ptr", ctypes.c_void_p),
+                ("n_valid_host", ctypes.c_longlong),
+                ("rh_sorted", ctypes.c_void_p), ("r", ctypes.c_longlong),
+                ("n", ctypes.c_longlong), ("counts", ctypes.c_void_p),
+                ("lo", ctypes.c_void_p)]
+
+
+_PROBE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
+                 torch.uint8, torch.bool)
+
+
+def _probe_args(views, valids, n_valid, excluded, rh_sorted):
+    """(argument block, keep-alive tensors, counts, lo) of one K5
+    launch."""
+    dev = rh_sorted.device
+    if dev.type != "cuda":
+        raise ValueError(f"join_probe: kernel needs CUDA tensors, got {dev}")
+    if not views or len(views) > _SCAN_MAX_KEYS:
+        raise ValueError(f"join_probe: 1 to {_SCAN_MAX_KEYS} key views")
+    if rh_sorted.dtype != I64 or rh_sorted.dim() != 1:
+        raise ValueError("join_probe: rh_sorted must be 1-D int64")
+    n = int(views[0].shape[0])
+    a = _ProbeArgs()
+    keep = [rh_sorted.contiguous()]
+    for i, (v, ok) in enumerate(zip(views, valids)):
+        v = _cuda_1d("join_probe", v, dev, n, _PROBE_DTYPES)
+        a.views[i] = v.data_ptr()
+        a.view_tag[i] = _tag("join_probe", v)
+        keep.append(v)
+        if ok is not None:
+            ok = _cuda_1d("join_probe", ok, dev, n, (torch.bool,))
+            a.valid[i] = ok.data_ptr()
+            keep.append(ok)
+    a.nkeys = len(views)
+    if excluded is not None:
+        excluded = _cuda_1d("join_probe", excluded, dev, n, (torch.bool,))
+        a.excluded = excluded.data_ptr()
+        keep.append(excluded)
+    if torch.is_tensor(n_valid):
+        if n_valid.device != dev or n_valid.numel() != 1:
+            raise ValueError("join_probe: n_valid must be a scalar on "
+                             f"{dev}")
+        n_valid = n_valid.reshape(()).to(I64)
+        a.n_valid_ptr = n_valid.data_ptr()
+        keep.append(n_valid)
+    else:
+        a.n_valid_host = int(n_valid)
+    a.rh_sorted = keep[0].data_ptr()
+    a.r = int(rh_sorted.shape[0])
+    a.n = n
+    counts = torch.empty(n, dtype=I64, device=dev)
+    lo = torch.empty(n, dtype=I64, device=dev)
+    a.counts, a.lo = counts.data_ptr(), lo.data_ptr()
+    return a, keep, counts, lo
+
+
+def join_probe(views, valids, n_valid, excluded, rh_sorted):
+    """``(counts, lo)`` of the stream-bounds join probe: per probe row,
+    the key hash of ``ops._key_hash_impl`` with side salt 0 (null, pad
+    and excluded rows take their unmatchable per-row sentinel), then the
+    number of equal entries in ``rh_sorted`` and the position of the
+    first. ``views`` are integer key views, ``valids`` their masks (None
+    entries allowed), ``n_valid`` the live probe rows (int or device
+    scalar), ``excluded`` a bool mask or None, ``rh_sorted`` the
+    build-side hashes in the order ``ops.unsigned_order`` sorts them."""
+    if rh_sorted.device.type == "cpu":
+        return join_probe_plain(views, valids, n_valid, excluded, rh_sorted)
+    args, keep, counts, lo = _probe_args(views, valids, n_valid, excluded,
+                                         rh_sorted)
+    rc = _lib().nds_join_probe(ctypes.byref(args), _stream(counts))
+    _check("join_probe", rc)
+    LAUNCHES["join_probe"] += 1
+    return counts, lo
+
+
+# ---------------------------------------------------------------------------
 # device-time measurement
 # ---------------------------------------------------------------------------
 
 
-def launcher(name: str, values, gids: torch.Tensor, ngroups: int):
+def launcher(name: str, *args):
     """A function that launches kernel ``name`` (a key of ``LAUNCHES``)
     once on outputs allocated here, with no input check, allocation or
     count per call: what a measurement of the kernel's own device time
-    calls in a loop. Sums accumulate across calls; nothing reads them."""
+    calls in a loop. ``args`` are the wrapper's arguments. Sums
+    accumulate across calls; nothing reads them."""
+    if name in ("chunk_scan", "join_probe"):
+        build_args, fn_name = {"chunk_scan": (_scan_args, "nds_chunk_scan"),
+                               "join_probe": (_probe_args,
+                                              "nds_join_probe")}[name]
+        block, keep, out, out2 = build_args(*args)
+        fn = getattr(_lib(), fn_name)
+        ref, stream = ctypes.byref(block), _stream(out)
+
+        def launch():
+            _check(name, fn(ref, stream))
+            return keep, out, out2
+        return launch
+    return _segment_launcher(name, *args)
+
+
+def _segment_launcher(name: str, values, gids: torch.Tensor, ngroups: int):
     _check_inputs(name, values, gids, F64 if name.endswith("f64") else I64)
     values, gids = values.contiguous(), gids.contiguous()
     dev, n = gids.device, gids.numel()

@@ -72,21 +72,67 @@ def device() -> torch.device:
 
 
 class _OnDevice:
-    def __init__(self, dev):
+    def __init__(self, dev, conf=None):
         self.dev = torch.device(dev)
+        self.conf = conf
 
     def __enter__(self):
-        self._prev = getattr(_sync_tls, "device", None)
+        self._prev = (getattr(_sync_tls, "device", None),
+                      getattr(_sync_tls, "conf", None))
         _sync_tls.device = self.dev
+        if self.conf is not None:
+            _sync_tls.conf = self.conf
         return self.dev
 
     def __exit__(self, *exc):
-        _sync_tls.device = self._prev
+        _sync_tls.device, _sync_tls.conf = self._prev
 
 
-def on_device(dev):
-    """Context: run the enclosed operators on ``dev``."""
-    return _OnDevice(dev)
+def on_device(dev, conf=None):
+    """Context: run the enclosed operators on ``dev``, with the session's
+    ``conf`` answering :func:`setting` (the caller's conf stays when
+    ``conf`` is None)."""
+    return _OnDevice(dev, conf)
+
+
+# The streamed path's settings: ``Session(conf=...)`` keys and their
+# defaults. Read per statement through :func:`setting`, never from the
+# environment.
+STREAM_DEFAULTS = {
+    # "compiled": the chunk pipeline (engine/stream.py); "eager": the
+    # per-chunk planner loop only
+    "stream_exec": "compiled",
+    # re-raise a record/drive failure that is not StreamSyncError or
+    # ReplayMismatch instead of falling back to the eager loop
+    "stream_strict": False,
+    # pin the partition count of partitionable graphs (None: the proof
+    # chooses; <= 1 disables)
+    "stream_partitions": None,
+    # hard per-partition survivor-accumulator ceiling (None: proof-sized)
+    "stream_acc_rows": None,
+    # stream-bounds join pair-bucket allowance (power of two)
+    "stream_fanout": 4,
+    # hash-skew safety factor of the per-partition bound
+    "stream_skew": 2,
+    # chunks the prefetch worker may run ahead of the driver (0: inline)
+    "prefetch_depth": 2,
+    # device-memory capacity model in bytes (None: the card's own memory
+    # on cuda, the reference's 16 GiB on the CPU)
+    "hbm_bytes": None,
+}
+
+
+def setting(name: str):
+    """The calling statement's value of a streamed-path setting (a string
+    from a property file is read as the default's type)."""
+    conf = getattr(_sync_tls, "conf", None) or {}
+    default = STREAM_DEFAULTS[name]
+    v = conf.get(name, default)
+    if not isinstance(v, str) or isinstance(default, str):
+        return v
+    if isinstance(default, bool):
+        return v.strip().lower() in ("1", "true", "yes")
+    return int(float(v))
 
 
 def add_syncs(n: int = 1) -> None:
@@ -140,11 +186,243 @@ def _sync_site() -> str:
     return "?"
 
 
+# --------------------------------------------------------------------------
+# record / replay: every host read the engine performs routes through
+# host_read(), so a statement fragment can be RECORDED once (an eager run
+# that logs its host decisions) and then REPLAYED with the log answering
+# every host read, touching no device value on the host. The streamed
+# chunk pipeline (engine/stream.py) records its per-chunk join graph on the
+# first chunk and replays it on every chunk.
+# --------------------------------------------------------------------------
+
+
+class ReplayMismatch(RuntimeError):
+    """The replay consumed host reads in a different order than the
+    recording — the fragment is not replay-safe; callers fall back eager."""
+
+
+# --------------------------------------------------------------------------
+# stream-bounds mode: the streamed executor replays ONE per-chunk program
+# for every chunk of a ChunkedTable, so the program must be CHUNK-INVARIANT
+# — no host decision may depend on a chunk's data. Inside a stream-bounds
+# region:
+#   * host scalar syncs raise StreamSyncError (the executor falls back to
+#     the eager chunk loop — correctness never depends on streamability);
+#   * joins size their pair buckets from STATIC bounds instead of a
+#     data-dependent sizing sync, registering a device-side overflow
+#     predicate via stream_overflow() that the executor checks once at the
+#     pipeline's single materializing sync (overflow => rerun eager);
+#   * lazy compaction never takes the adaptive resolve.
+# Host reads against NON-streamed inputs (dimension key maps/ranges) stay
+# legal: they are chunk-invariant and ride the replay log.
+# --------------------------------------------------------------------------
+
+
+class StreamSyncError(RuntimeError):
+    """A chunk-data-dependent host sync was reached inside a stream-bounds
+    region; the statement's join graph is not streamable through the
+    chunk pipeline."""
+
+
+def stream_bounds_on() -> bool:
+    return getattr(_sync_tls, "stream_bounds", False)
+
+
+class _StreamBoundsSession:
+    def __enter__(self):
+        self._prev = (stream_bounds_on(),
+                      getattr(_sync_tls, "stream_flags", None))
+        _sync_tls.stream_bounds = True
+        self.flags: list = []
+        _sync_tls.stream_flags = self.flags
+        return self
+
+    def __exit__(self, *exc):
+        _sync_tls.stream_bounds, _sync_tls.stream_flags = self._prev
+
+
+def stream_bounds():
+    """Context: execute with chunk-invariant (bound-derived) shape
+    decisions; ``.flags`` collects the device-side overflow predicates the
+    region registered."""
+    return _StreamBoundsSession()
+
+
+def stream_overflow(pred) -> None:
+    """Register a device bool scalar that is True when a bound-sized
+    bucket overflowed (rows silently dropped). The streaming executor ORs
+    every flag into its accumulated overflow bit; outside a stream-bounds
+    region this is a no-op."""
+    flags = getattr(_sync_tls, "stream_flags", None)
+    if flags is not None:
+        flags.append(pred)
+
+
+class _OuterMatchCollector:
+    """Collects the per-dispatch matched-build-row masks an outer-build
+    join registers: the streamed pipeline ORs them into a device-resident
+    unmatched-key accumulator so the outer-extras rows can be emitted
+    once, at materialize time."""
+
+    def __enter__(self):
+        self._prev = getattr(_sync_tls, "stream_outer", None)
+        self.masks: list = []
+        _sync_tls.stream_outer = self.masks
+        return self
+
+    def __exit__(self, *exc):
+        _sync_tls.stream_outer = self._prev
+
+
+def outer_match_collector():
+    return _OuterMatchCollector()
+
+
+def stream_outer_matched(mask) -> None:
+    """Register the device bool vector of build-side rows the current
+    outer-build join dispatch matched. No-op outside a collector region."""
+    lst = getattr(_sync_tls, "stream_outer", None)
+    if lst is not None:
+        lst.append(mask)
+
+
+class _SuspendStreamRecord:
+    """Escape hatch for CHUNK-INVARIANT inner plans reached from inside a
+    streamed pipeline's record phase (subquery residuals): restores plain
+    eager execution — replay log detached, stream-bounds off (the inner
+    plan runs ONCE, not per chunk, and may sync), and a FRESH pending
+    count/check list so the inner's batched resolutions never drain counts
+    the outer record phase still owes its log."""
+
+    def __enter__(self):
+        t = _sync_tls
+        self._saved = (
+            replay_mode(), getattr(t, "replay_log", None),
+            getattr(t, "replay_cursor", 0),
+            getattr(t, "replay_operands", None),
+            stream_bounds_on(), getattr(t, "stream_flags", None),
+            getattr(t, "stream_outer", None),
+            getattr(t, "pending", None), getattr(t, "checks", None))
+        t.replay_mode = "off"
+        t.replay_log = None
+        t.replay_cursor = 0
+        t.replay_operands = None
+        t.stream_bounds = False
+        t.stream_flags = None
+        t.stream_outer = None
+        t.pending = []
+        t.checks = []
+        return self
+
+    def __exit__(self, *exc):
+        t = _sync_tls
+        (t.replay_mode, t.replay_log, t.replay_cursor, t.replay_operands,
+         t.stream_bounds, t.stream_flags, t.stream_outer,
+         t.pending, t.checks) = self._saved
+
+
+def suspend_stream_record():
+    return _SuspendStreamRecord()
+
+
+def guarded_scalar_read(tag: str, dev_scalar) -> int:
+    """A CHUNK-DERIVED host scalar inside the streamed pipeline: outside a
+    stream-bounds region an ordinary counted host read. Inside one, the
+    value read on the FIRST chunk is recorded and replayed for every later
+    chunk — with a device-side staleness guard registered on the overflow
+    channel, so a chunk whose live value differs flips the pipeline's
+    overflow flag and the statement re-runs eagerly, bit for bit."""
+
+    def fetch():
+        add_syncs()
+        t0 = time.perf_counter_ns()
+        out = int(dev_scalar.item()) if torch.is_tensor(dev_scalar) \
+            else int(dev_scalar)
+        add_sync_wait(time.perf_counter_ns() - t0)
+        return out
+
+    if not stream_bounds_on():
+        return host_read(tag, fetch)
+    # replay serves the recorded value without touching fetch; record
+    # fetches (one counted sync, first chunk only) and logs it
+    val = host_read(tag, fetch)
+    stream_overflow(dev_scalar != val)
+    return val
+
+
+def replay_mode() -> str:
+    return getattr(_sync_tls, "replay_mode", "off")
+
+
+class _ReplaySession:
+    def __init__(self, mode: str, log, operands=None):
+        self.mode, self.log = mode, log
+        self.operands = operands
+
+    def __enter__(self):
+        self._prev = (replay_mode(), getattr(_sync_tls, "replay_log", None),
+                      getattr(_sync_tls, "replay_cursor", 0),
+                      getattr(_sync_tls, "replay_operands", None))
+        _sync_tls.replay_mode = self.mode
+        _sync_tls.replay_log = self.log
+        _sync_tls.replay_cursor = 0
+        _sync_tls.replay_operands = self.operands
+        return self.log
+
+    def __exit__(self, *exc):
+        (_sync_tls.replay_mode, _sync_tls.replay_log,
+         _sync_tls.replay_cursor, _sync_tls.replay_operands) = self._prev
+
+
+def recording(log=None):
+    """Context: run eagerly while logging every host read."""
+    return _ReplaySession("record", [] if log is None else log)
+
+
+def replaying(log, operands=None):
+    """Context: serve every host read from ``log`` (no device value is
+    read on the host); ``operands`` resolves any lifted :class:`ArgRef`
+    entries to the device tensors uploaded once for the log."""
+    return _ReplaySession("replay", log, operands)
+
+
+class ArgRef:
+    """Placeholder in a replay log for an array lifted into a device
+    OPERAND (uploaded once when the pipeline is built, instead of once per
+    replay; see replay.py)."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+def _resolve_refs(val):
+    ops = getattr(_sync_tls, "replay_operands", None)
+    if isinstance(val, ArgRef):
+        return ops[val.index]
+    if isinstance(val, tuple) and any(isinstance(x, ArgRef) for x in val):
+        return tuple(ops[x.index] if isinstance(x, ArgRef) else x
+                     for x in val)
+    return val
+
+
 def host_read(tag: str, fetch):
-    """The single host-read choke point: run ``fetch`` and emit a
-    sync-site event naming its engine call site. Attribution is
-    re-entrancy-exact: a fetch that re-enters host_read charges each site
-    only its OWN syncs."""
+    """The single host-read choke point. Off: fetch. Record: fetch and
+    log. Replay: pop the recorded value — no device contact.
+
+    A fetch that charged host syncs emits a sync-site event naming its
+    engine call site. Attribution is re-entrancy-exact: a fetch that
+    re-enters host_read charges each site only its OWN syncs."""
+    mode = replay_mode()
+    if mode == "replay":
+        log = _sync_tls.replay_log
+        i = _sync_tls.replay_cursor
+        if i >= len(log) or log[i][0] != tag:
+            got = log[i][0] if i < len(log) else "<end>"
+            raise ReplayMismatch(f"expected {got!r}, hit {tag!r} at {i}")
+        _sync_tls.replay_cursor = i + 1
+        return _resolve_refs(log[i][1])
     s0, w0 = sync_count(), sync_wait_ns()
     a_s0, a_w0 = _trace.attributed()
     val = fetch()
@@ -153,6 +431,8 @@ def host_read(tag: str, fetch):
     if own > 0:
         own_wait = max((sync_wait_ns() - w0) - (a_w1 - a_w0), 0)
         _trace.note_sync(tag, own, own_wait, _sync_site())
+    if mode == "record":
+        _sync_tls.replay_log.append((tag, val))
     return val
 
 
@@ -173,6 +453,9 @@ def timed_read(tag: str, fetch):
 
 def host_sync(value) -> int:
     """Read a device scalar on host, counting the sync."""
+    if stream_bounds_on():
+        raise StreamSyncError(
+            "host scalar sync inside a stream-bounds region")
 
     def fetch():
         add_syncs()
@@ -182,6 +465,20 @@ def host_sync(value) -> int:
         return out
 
     return host_read("sync", fetch)
+
+
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """A host array or list as a tensor on ``device``. On cuda the copy
+    goes from page-locked memory without a host wait (a pageable copy
+    waits for the device); the caching host allocator holds the pinned
+    block until the copy is done. A tensor already there passes through."""
+    dev = torch.device(device)
+    if torch.is_tensor(x) and x.device.type == dev.type:
+        return x if dtype is None else x.to(dtype)
+    t = torch.as_tensor(x, dtype=dtype)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -209,6 +506,11 @@ class DeviceCount:
         _pending_counts().append(self)
 
     def to_int(self) -> int:
+        if self._host is None and stream_bounds_on():
+            # a chunk-data-dependent count must never reach the host
+            # inside the per-chunk program (engine/stream.py)
+            raise StreamSyncError(
+                "DeviceCount resolution inside a stream-bounds region")
         if self._host is None:
             resolve_counts()
         if self._host is None:
@@ -256,6 +558,11 @@ def resolve_counts() -> None:
         lst.clear()
         _run_deferred_checks()
         return
+    if stream_bounds_on():
+        # the pending counts belong to the per-chunk program: their
+        # values differ chunk to chunk, so no log entry may stand for them
+        raise StreamSyncError("count resolution inside a stream-bounds "
+                              "region")
 
     def fetch():
         t0 = time.perf_counter_ns()
@@ -368,7 +675,7 @@ def compact_table(table: DeviceTable, mask: torch.Tensor,
     idx = prim.nonzero_sized(m, cap, max(table.plen, 1))
     n = DeviceCount(m.sum(), min(count_bound(table.nrows), cap))
     out = take_padded(table, idx, n)
-    if cap > LAZY_SHRINK_ROWS:
+    if cap > LAZY_SHRINK_ROWS and not stream_bounds_on():
         # past this bucket size the downstream sorts a fat bucket drags
         # through cost more than one (batched) round trip: resolve now
         return resolve_table(out)
@@ -424,10 +731,17 @@ _IDENTITY_LOCK = threading.Lock()
 
 
 def _identity_cache(cache: dict, max_size: int, key_arrays: tuple, compute,
-                    static_key=()):
+                    static_key=(), reads_host: bool = False):
     """Bounded FIFO cache keyed by the identity of host arrays or tensors
     (plus an optional hashable ``static_key``). The entry holds references
-    to the keyed objects so a recycled id() can never alias a freed one."""
+    to the keyed objects so a recycled id() can never alias a freed one.
+
+    A cache whose ``compute`` reads the host (``reads_host``) is BYPASSED
+    under record/replay: record and replay must consume the same host-read
+    sequence, and a record-time hit from an earlier statement would skip a
+    read that a replay on fresh intermediate tensors performs."""
+    if reads_host and replay_mode() != "off":
+        return compute()
     key = (static_key,) + tuple(id(a) for a in key_arrays)
     hit = cache.get(key)
     if hit is not None and all(h is a for h, a in zip(hit[0], key_arrays)):
@@ -452,7 +766,7 @@ def host_table(arr: np.ndarray, dev) -> torch.Tensor:
     """Device copy of a cached HOST lookup table (dictionary ranks, merged
     maps), itself cached per (array identity, device)."""
     return _identity_cache(_dev_cache, 2048, (arr,),
-                           lambda: torch.as_tensor(arr, device=dev),
+                           lambda: upload(arr, dev),
                            static_key=str(dev))
 
 
@@ -1001,6 +1315,26 @@ def _probe_candidates(left_keys, right_keys, null_safe=False,
                                        count_arr(n_right), r_excl))
     order = prim.argsort_stable(rh)
     rh_sorted = rh[order]
+    if stream_bounds_on():
+        # chunk-invariant program: no data-dependent sizing sync. The
+        # caller sizes its pair bucket from static bounds and registers a
+        # device-side overflow flag (checked at the pipeline's single
+        # materializing sync). An integer probe side takes the
+        # bound-bucket probe kernel (K5: the probe-side hash of
+        # _key_hash_impl and both searchsorted sides in one pass);
+        # float keys and null-safe probes keep the hash + searchsorted
+        # below. Candidate counts are identical either way.
+        if not null_safe and not any(v.dtype.is_floating_point
+                                     for v in lviews):
+            from nds_tpu_torch.engine.kernels import join_probe
+            counts, lo = join_probe(lviews, lvalids, count_arr(n_left),
+                                    l_excl, rh_sorted)
+            return counts, lo, order, None
+        lh = unsigned_order(_key_hash_impl(lviews, lvalids, 0, null_safe,
+                                           count_arr(n_left), l_excl))
+        lo = prim.searchsorted(rh_sorted, lh)
+        hi = prim.searchsorted(rh_sorted, lh, right=True)
+        return hi - lo, lo, order, None
     lh = unsigned_order(_key_hash_impl(lviews, lvalids, 0, null_safe,
                                        count_arr(n_left), l_excl))
     lo = prim.searchsorted(rh_sorted, lh)
@@ -1046,15 +1380,30 @@ def join_indices(left_keys, right_keys, how: str = "inner",
     counts, lo, order, total = probe if probe is not None else \
         _probe_candidates(left_keys, right_keys, null_safe,
                           n_left, n_right, l_excl, r_excl)
-    if total > 0:
-        cand = bucket_len(total)
-        pair_live = live_mask(cand, total, dev)
+    if total is None or total > 0:
+        if total is None:
+            # stream-bounds join: the candidate total stays on device, so
+            # the pair bucket is sized from STATIC bounds (probe-side
+            # bucket x a power-of-two fanout allowance). A chunk whose
+            # true candidate count exceeds it would silently drop pairs,
+            # so the excess registers as a device-side overflow flag the
+            # streaming executor checks at its single materializing sync.
+            total_dev = counts.sum()
+            cand = min(bucket_len(count_bound(n_left)) * stream_fanout(),
+                       bucket_len(PAIR_BUDGET))
+            stream_overflow(total_dev > cand)
+            pair_live = torch.arange(cand, device=dev) < total_dev
+            n_pairs_bound = cand
+        else:
+            cand = bucket_len(total)
+            pair_live = live_mask(cand, total, dev)
+            n_pairs_bound = total
         l_idx, r_idx = _pair_indices(counts, lo, order, cand, plen_r)
         ok = _verify_pairs(l_idx, r_idx, left_keys, right_keys, null_safe)
         ok = ok & pair_live
         # NO pair-count sync: verified pairs compact to the prefix of the
         # candidate bucket and the exact count rides as a DeviceCount
-        n_pairs = DeviceCount(ok.sum(), total)
+        n_pairs = DeviceCount(ok.sum(), n_pairs_bound)
         keep = prim.nonzero_sized(ok, cand, cand)
         l_idx = prim.take_fill(l_idx, keep, plen_l)
         r_idx = prim.take_fill(r_idx, keep, plen_r)
@@ -1218,10 +1567,10 @@ def _dense_dim_info(dim_key: Column, n_dim: int):
         if got is None:
             return None
         mn, pos = got
-        return mn, torch.as_tensor(pos, device=dim_key.data.device)
+        return mn, upload(pos, dim_key.data.device)
 
     return _identity_cache(_dense_dim_cache, 64, (dim_key.data,), compute,
-                           static_key=n_dim)
+                           static_key=n_dim, reads_host=True)
 
 
 def _pk_gather_dense_impl(fkey, fvalid, dkey, dvalid, pos_map, base,
@@ -1325,7 +1674,7 @@ def pk_gather_join_multi(fact_keys, dim_keys, n_fact, n_dim,
 
     plan = _identity_cache(_dim_span_cache, 128,
                            tuple(c.data for c in dim_keys), compute,
-                           static_key=n_dim)
+                           static_key=n_dim, reads_host=True)
     if plan is None:
         return None
     offsets, widths, spans = plan
@@ -1351,6 +1700,19 @@ def _null_column_like(col: Column, n: int) -> Column:
 # candidate-pair budget of one materialized join chunk: beyond it the inner
 # join splits the probe side into capacity-bounded spans
 PAIR_BUDGET = 1 << 22
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(int(n) - 1, 1).bit_length() if n > 2 else 2
+
+
+def stream_fanout() -> int:
+    """Stream-bounds pair-bucket fanout: inside the streamed chunk
+    pipeline a hash join cannot sync for its candidate total, so the
+    bucket is the probe side's bound times this power-of-two allowance;
+    overflow falls back to the eager loop. The ``stream_fanout`` setting,
+    rounded up to a power of two."""
+    return _pow2_ceil(int(setting("stream_fanout")))
 
 
 def _chunk_spans(counts_np, budget):
@@ -1424,7 +1786,10 @@ def join_tables(left: DeviceTable, right: DeviceTable, left_on, right_on,
         probe = _probe_candidates(left_keys, right_keys,
                                   n_left=left.nrows, n_right=right.nrows,
                                   l_excl=l_excl, r_excl=r_excl)
-        if probe[3] > PAIR_BUDGET:
+        # probe[3] is None under stream-bounds: the span-by-span join
+        # syncs per span, so the streamed path always takes the
+        # bound-bucket monolithic arm below
+        if probe[3] is not None and probe[3] > PAIR_BUDGET:
             return _chunked_inner_join(left, right, left_keys, right_keys,
                                        probe, residual_fn)
     l_idx, r_idx, n_pairs, l_extra, n_lx, r_extra, n_rx = join_indices(

@@ -4,8 +4,10 @@
 Holds the table catalog and its device, parses and executes SQL, and
 exposes collect()/write() result surfaces. Tables live on the session's
 device (``cuda`` unless the caller asks for ``cpu``); a table bigger than
-``NDS_TPU_STREAM_BYTES`` would need the streamed path, which this package
-does not have yet, and is refused.
+the ``stream_bytes`` setting (default ``NDS_TPU_STREAM_BYTES``, else 8 GiB)
+stays on the host as a ``ChunkedTable`` that statements stream through in
+chunks of ``stream_chunk_rows`` rows (engine/stream.py). The streamed
+path's other settings are ``conf`` keys too (``ops.STREAM_DEFAULTS``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import pyarrow as pa
 from nds_tpu_torch import resolve_device
 from nds_tpu_torch.engine import ops as E
 from nds_tpu_torch.engine.column import from_arrow
-from nds_tpu_torch.engine.table import DeviceTable
+from nds_tpu_torch.engine.table import ChunkedTable, DeviceTable
 from nds_tpu_torch.obs import trace as _obs
 from nds_tpu_torch.sql import ast as A
 from nds_tpu_torch.sql.parser import parse
@@ -75,7 +77,7 @@ class Session:
         uniqueness; re-registration through a non-base path revokes it.
         ``arrow`` optionally passes the host-side source table so load-time
         statistics need no device->host read. A DeviceTable must already
-        lie on the session's device."""
+        lie on the session's device; a ChunkedTable stays on the host."""
         if isinstance(table, pa.Table):
             arrow = table if arrow is None else arrow
             table = from_arrow(table, device=self.device)
@@ -147,10 +149,7 @@ class Session:
         from nds_tpu_torch.io import read_raw_table
         start = time.perf_counter()
         arrow = read_raw_table(path, fields)
-        self._check_resident(name, arrow)
-        canonical = {f.name: f.type for f in fields}
-        self.create_temp_view(name, from_arrow(arrow, canonical, self.device),
-                              base=True, arrow=arrow)
+        self._register_base(name, arrow, {f.name: f.type for f in fields})
         return time.perf_counter() - start
 
     def read_columnar_view(self, name: str, path: str, fmt: str = "parquet",
@@ -158,23 +157,26 @@ class Session:
         from nds_tpu_torch.io import read_table
         start = time.perf_counter()
         arrow = read_table(path, fmt)
-        self._check_resident(name, arrow)
-        self.create_temp_view(name, from_arrow(arrow, canonical_types,
-                                               self.device),
-                              base=True, arrow=arrow)
+        self._register_base(name, arrow, canonical_types)
         return time.perf_counter() - start
 
-    def _check_resident(self, name: str, arrow) -> None:
+    def _register_base(self, name: str, arrow, canonical_types) -> None:
+        """The streaming decision: a table past the ``stream_bytes``
+        threshold stays host-resident as a ChunkedTable that the planner
+        binds chunk by chunk; anything smaller uploads whole."""
         # float() first: operators write thresholds like "1.5e9"
         limit = int(float(self.conf.get(
             "stream_bytes",
             os.environ.get("NDS_TPU_STREAM_BYTES", str(8 << 30)))))
         if arrow.nbytes > limit:
-            raise NotImplementedError(
-                f"table {name!r} holds {arrow.nbytes} bytes, above "
-                f"NDS_TPU_STREAM_BYTES={limit}: the streamed path "
-                "(ChunkedTable, prefetch, stream; ROADMAP Queue 1 item 9) is "
-                "not ported to nds_tpu_torch yet")
+            self.create_temp_view(
+                name, ChunkedTable(arrow, canonical_types,
+                                   self.conf.get("stream_chunk_rows")),
+                base=True)
+        else:
+            self.create_temp_view(name, from_arrow(arrow, canonical_types,
+                                                   self.device),
+                                  base=True, arrow=arrow)
 
     # -- SQL ----------------------------------------------------------------
 
@@ -190,7 +192,7 @@ class Session:
         # statement-end barrier: lazy scalar-subquery checks must raise
         # inside the statement that registered them
         try:
-            with E.on_device(self.device):
+            with E.on_device(self.device, self.conf):
                 out = self._sql_dispatch(stmt, planner)
         except BaseException:
             E.discard_deferred_checks()

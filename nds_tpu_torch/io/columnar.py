@@ -14,6 +14,136 @@ import os
 import pyarrow as pa
 import pyarrow.dataset as pads
 
+# ---------------------------------------------------------------------------
+# encoded columnar execution: per-column narrow-upload codecs
+# ---------------------------------------------------------------------------
+#
+# The streamed scan path (engine/table.py padded_chunks) uploads int-path
+# columns in a narrow ENCODED representation chosen here, once per table,
+# from whole-table stats — chunk-invariant by construction, exactly like
+# the whole-table string dictionaries (per "GPU Acceleration of SQL
+# Analytics on Compressed Data", PAPERS.md):
+#
+#   * frame-of-reference ("for"): store value - base as int16/int32 where
+#     the table's value span proves the narrow width (dates and surrogate
+#     keys span tiny windows; decimal(7,2) always fits int32 by type);
+#   * sorted dictionary ("dict"): int16 codes into a sorted host value
+#     table for low-cardinality ints whose span is too wide for FOR.
+#
+# Both are order-preserving, so predicates/joins/group-bys evaluate on
+# encoded values inside the per-chunk program and decode happens only at
+# materialize (engine/column.py). A column whose span fits no narrow width
+# stays unencoded — the narrow-width overflow guard.
+
+
+# max distinct values for the sorted-dictionary codec (int16 codes with
+# headroom; past this the value-table gather stops paying for itself)
+DICT_MAX_VALUES = 4096
+
+
+def plan_column_codec(arr, canonical_type: str):
+    """``(narrow whole-table codes, valid | None, Encoding)`` for one
+    arrow column, or None when the column is not narrowably encodable
+    (non-int kind, empty table, or value span past every narrow width —
+    the overflow guard; an ALL-NULL int column encodes as trivial FOR so
+    the static width model never under-prices it). ``arr`` is the WHOLE
+    table's column (Array or ChunkedArray): stats and codes are computed
+    once, so the encoding is identical for every chunk sliced from it.
+
+    The width rules (the 2^15 / 2^31 - 1 spans, dict refusal past
+    DICT_MAX_VALUES, all-null/empty trivial FOR) are the reference's, so
+    both engines encode every column identically."""
+    import numpy as np
+
+    from nds_tpu_torch import types as _t
+    from nds_tpu_torch.engine.column import Encoding, _decimal_to_int64
+
+    kind = _t.device_kind(canonical_type)
+    if kind not in ("i32", "i64", "date") and not kind.startswith("dec("):
+        return None
+    if isinstance(arr, pa.Array):
+        arr = pa.chunked_array([arr])
+    n = len(arr)
+    if n == 0:
+        # empty table: same trivial-FOR rule as all-null below
+        return np.zeros(0, dtype=np.int16), None, Encoding("for", 0, None)
+    import pyarrow.compute as pc
+    valid = None
+    if arr.null_count:
+        valid = ~np.asarray(pc.is_null(arr).combine_chunks().to_numpy(
+            zero_copy_only=False))
+    # logical device values (the exact representation engine/column.py
+    # lowers to): dates as int32 days, decimals as scaled int64
+    if kind.startswith("dec("):
+        from nds_tpu_torch.engine.column import dec_scale
+        s = dec_scale(kind)
+        if pa.types.is_decimal(arr.type):
+            filled = pc.fill_null(arr, pa.scalar(0, arr.type)) \
+                if arr.null_count else arr
+            vals = _decimal_to_int64(filled, arr.type.scale, s)
+        else:
+            vals = np.asarray(pc.fill_null(arr, 0).combine_chunks()
+                              .to_numpy(zero_copy_only=False))
+            vals = np.round(vals * (10 ** s)).astype(np.int64)
+    else:
+        if kind == "date":
+            arr = pc.cast(arr, pa.int32())
+        filled = pc.fill_null(arr, 0) if arr.null_count else arr
+        vals = np.asarray(filled.combine_chunks().to_numpy(
+            zero_copy_only=False)).astype(np.int64)
+    live = vals if valid is None else vals[valid]
+    if live.size == 0:
+        # all-null column: trivially FOR-encodable (every slot invalid)
+        return (np.zeros(n, dtype=np.int16), valid,
+                Encoding("for", 0, None))
+    lo, hi = int(live.min()), int(live.max())
+    span = hi - lo
+    logical_bytes = 4 if kind in ("i32", "date") else 8
+    # frame-of-reference first (cheapest decode: one fused add)
+    if span < (1 << 15):
+        dtype = np.int16
+    elif span < (1 << 31) - 1 and logical_bytes == 8:
+        dtype = np.int32
+    else:
+        dtype = None
+    if dtype is None:
+        # no FOR width fits: a sorted dictionary is the only narrow
+        # option (wide-span low-cardinality columns). Distinct-count a
+        # SAMPLE first — a full np.unique sorts the whole fact column on
+        # host, and sequence-like keys always blow past DICT_MAX_VALUES
+        if live.size > (1 << 16) and \
+                len(np.unique(live[:1 << 16])) > DICT_MAX_VALUES:
+            return None                  # narrow-width overflow guard
+        uniq = np.unique(live)
+        if len(uniq) <= DICT_MAX_VALUES:
+            codes = np.searchsorted(uniq, vals).astype(np.int16)
+            codes = np.clip(codes, 0, len(uniq) - 1)
+            if valid is not None:
+                codes = np.where(valid, codes, np.int16(0))
+            return codes, valid, Encoding("dict", 0, uniq.astype(np.int64))
+        return None                      # narrow-width overflow guard
+    codes = (vals - lo).astype(dtype)
+    if valid is not None:
+        codes = np.where(valid, codes, dtype(0))
+    return codes, valid, Encoding("for", lo, None)
+
+
+def plan_table_codecs(table: pa.Table, canonical_types: dict | None = None):
+    """name -> (codes, valid, Encoding) for every encodable column of an
+    arrow table — the per-table encoding plan ``ChunkedTable`` caches and
+    ``padded_chunks`` slices per chunk."""
+    from nds_tpu_torch import types as _t
+    out = {}
+    for name in table.column_names:
+        ct = (canonical_types or {}).get(name) or _t.arrow_to_canonical(
+            table.schema.field(name).type)
+        got = plan_column_codec(table[name], ct)
+        if got is not None:
+            out[name] = got
+    return out
+
+
+# The 7 date-partitioned fact tables (ref: nds/nds_transcode.py:45-53)
 TABLE_PARTITIONING = {
     "catalog_sales": "cs_sold_date_sk",
     "catalog_returns": "cr_returned_date_sk",

@@ -95,3 +95,79 @@ class Manager:
                 return
         for l in targets:
             l.notify(where, reason, fatal)
+
+
+@dataclass
+class StreamEvent:
+    """Accounting record for one streamed scan execution: which path served
+    it (the chunk pipeline or the eager chunk loop), how many chunks flowed,
+    and how many host syncs it charged. Drained per query by the Power Run
+    into the per-query summaries (``streamedScans``)."""
+
+    where: str                 # e.g. "store_sales"
+    chunks: int
+    syncs: int                 # host syncs charged while the scan executed
+    path: str                  # "compiled" | "eager"
+    reason: str = ""           # why the pipeline was not taken
+    rows: int = -1             # survivor rows the pipeline kept (-1 =
+    #                            unknown: the eager loop)
+    partitions: int = 1        # grace-style partition count (1 = none)
+    part_rows: tuple = ()      # per-partition survivor counts
+    bytes_h2d: int = -1        # host->device bytes the scan uploaded
+    scan_launches: int = 0     # K4 chunk_scan launches of the drive
+    probe_launches: int = 0    # K5 join_probe launches of the drive
+    kernel_fused_stages: int = 0  # lowered conjuncts (+ the hash stage)
+    #                            per K4 launch; 0 = no fused scan pass
+    prefetch_stall_ms: float = -1.0  # driver ms BLOCKED on the prefetch
+    #                            ring (ring off: the inline slice + encode
+    #                            + upload time); -1 = unknown
+
+
+_stream_tls = threading.local()
+
+
+def record_stream_event(where: str, chunks: int, syncs: int, path: str,
+                        reason: str = "", rows: int = -1,
+                        partitions: int = 1, part_rows=(),
+                        bytes_h2d: int = -1, scan_launches: int = 0,
+                        probe_launches: int = 0,
+                        kernel_fused_stages: int = 0,
+                        prefetch_stall_ms: float = -1.0) -> None:
+    """Engine-side hook (engine/stream.py, sql/planner.py): record how a
+    streamed scan executed. Thread-scoped like the sync counters."""
+    lst = getattr(_stream_tls, "events", None)
+    if lst is None:
+        lst = _stream_tls.events = deque(maxlen=1000)
+    lst.append(StreamEvent(where, chunks, syncs, path, reason, rows,
+                           partitions, tuple(part_rows), bytes_h2d,
+                           scan_launches, probe_launches,
+                           kernel_fused_stages, prefetch_stall_ms))
+
+
+def drain_stream_events() -> list:
+    """Return and clear the calling thread's streamed-scan events
+    (oldest first; the ring keeps the newest 1000)."""
+    lst = getattr(_stream_tls, "events", None)
+    if not lst:
+        return []
+    out = list(lst)
+    lst.clear()
+    return out
+
+
+def stream_event_json(e: StreamEvent) -> dict:
+    """The JSON shape of a StreamEvent in the Power Run's summaries
+    (``streamedScans``)."""
+    return {
+        "table": e.where, "chunks": e.chunks, "syncs": e.syncs,
+        "path": e.path, "partitions": e.partitions,
+        "scanLaunches": e.scan_launches, "probeLaunches": e.probe_launches,
+        **({"rows": e.rows} if e.rows >= 0 else {}),
+        **({"partRows": list(e.part_rows)} if e.partitions > 1 else {}),
+        **({"bytesH2d": e.bytes_h2d} if e.bytes_h2d >= 0 else {}),
+        **({"kernelStages": e.kernel_fused_stages}
+           if e.kernel_fused_stages else {}),
+        **({"prefetchStallMs": round(e.prefetch_stall_ms, 3)}
+           if e.prefetch_stall_ms >= 0 else {}),
+        **({"reason": e.reason} if e.reason else {}),
+    }

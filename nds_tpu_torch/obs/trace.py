@@ -207,7 +207,24 @@ def span(name: str, **attrs):
             sp.set(rows=n)
 
     Zero host syncs by construction: enter/exit read the host clock and
-    the thread's existing sync/wait/compile counters, nothing else."""
+    the thread's existing sync/wait/compile counters, nothing else. Under
+    a replay (the streamed pipeline's per-chunk program) it is a no-op:
+    the replay's phases are the pipeline's own ``stream.*`` spans."""
+    if _ops().replay_mode() == "replay":
+        return NULL_SPAN
     return SpanRecord(name, attrs)
+
+
+def annotate(**attrs) -> None:
+    """Set attributes on the innermost OPEN span of the calling thread
+    (no-op when none is open, and under a replay) — lets a callee deep in
+    the engine label the span its caller opened (the streaming executor
+    stamping its path and chunk counts on the planner's ``stream``
+    span)."""
+    if _ops().replay_mode() == "replay":
+        return
+    st = getattr(_tls, "stack", None)
+    if st:
+        st[-1].attrs.update(attrs)
 
 

@@ -26,6 +26,7 @@ from collections import OrderedDict
 
 from nds_tpu_torch.check import (check_json_summary_folder,
                                  check_query_subset_exists)
+from nds_tpu_torch.listener import drain_stream_events, stream_event_json
 from nds_tpu_torch.queries import split_special_query
 from nds_tpu_torch.report import BenchReport
 from nds_tpu_torch.schema import get_schemas
@@ -178,6 +179,7 @@ def run_query_stream(input_prefix: str,
         print(f"====== Run {query_name} ======")
         q_report = BenchReport(session)
         _obs_trace.drain_spans()  # setup leftovers must not charge query 1
+        drain_stream_events()
         syncs_before = _ops.sync_count()
         wait_before = _ops.sync_wait_ns()
         fetch_before = _ops.fetch_bytes()
@@ -202,6 +204,13 @@ def run_query_stream(input_prefix: str,
         q_report.summary["kernelLaunches"] = {
             k: v - launches_before.get(k, 0) for k, v in _K.LAUNCHES.items()}
         q_report.summary["device"] = str(session.device)
+        # streamed scans (engine/stream.py): which path served each
+        # ChunkedTable-bound scan — the chunk pipeline or the eager loop —
+        # with its chunks, partitions, syncs and K4/K5 launches
+        stream_events = drain_stream_events()
+        if stream_events:
+            q_report.summary["streamedScans"] = [
+                stream_event_json(e) for e in stream_events]
         trace_records = _obs_trace.drain_spans()
         if trace_records:
             roll = _obs_export.rollup(trace_records)

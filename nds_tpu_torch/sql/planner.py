@@ -52,9 +52,104 @@ class EvalCtx:
     post_agg: bool = False
 
 
+class _StreamedScan:
+    """A streamed (bigger than device memory) base-table scan inside a join
+    graph: the host-resident
+    ChunkedTable plus its FROM alias. :func:`Planner._stream_join_parts`
+    binds its device chunks one at a time."""
+
+    def __init__(self, chunked, alias: str):
+        self.chunked = chunked
+        self.alias = alias
+
+    @property
+    def nbytes(self) -> int:
+        return self.chunked.nbytes
+
+    @property
+    def column_names(self):
+        return [f"{self.alias.lower()}.{n.split('.')[-1].lower()}"
+                for n in self.chunked.column_names]
+
+    def device_chunks(self, planner):
+        # the device is read here, on the calling thread: the chunks are
+        # produced on the prefetch worker, which has no device of its own
+        chunks = self.chunked.device_chunks(E.device())
+        return (planner._alias_table(c, self.alias) for c in chunks)
+
+    def bind_whole(self, planner):
+        return planner._alias_table(self.chunked.materialize(E.device()),
+                                    self.alias)
+
+
+class _OuterProbe:
+    """A deferred LEFT join whose PRESERVED side holds the >HBM chunked
+    scan (q40/q78/q80/q93: ``fact left join returns on returns-PK``).
+    The join rides INTO the streamed graph: every chunk applies the
+    sync-free PK gather against the whole probe table inside the per-chunk
+    program (``Planner._apply_outer``), so nothing materializes
+    whole and the per-chunk unmatched rows — which distribute over the
+    preserved side's chunks — null-extend in place."""
+
+    def __init__(self, table: DeviceTable, condition, conjuncts, src):
+        self.table = table          # alias-qualified device table
+        self.condition = condition  # the original ON expression (AST)
+        self.conjuncts = list(conjuncts)
+        self.src = src              # pristine catalog name (PK provenance)
+
+    @property
+    def column_names(self):
+        return self.table.column_names
+
+
+class _OuterBuild:
+    """A deferred LEFT join whose NULL-INTRODUCING side holds the chunked
+    scan (q5: ``returns left join sales on sales-PK``). Each chunk emits
+    its matched pairs through an inner bound-bucket join and registers the
+    matched-build-row mask (``ops.stream_outer_matched``); the pipeline
+    ORs the masks into an on-device unmatched-key accumulator and the
+    outer extras — build rows no chunk matched — are emitted ONCE at
+    materialize time, null-extended to the joined schema."""
+
+    def __init__(self, table: DeviceTable, condition, conjuncts, src):
+        self.table = table
+        self.condition = condition
+        self.conjuncts = list(conjuncts)
+        self.src = src
+
+    @property
+    def column_names(self):
+        return self.table.column_names
+
+
+def outer_extras_table(build: DeviceTable, idx, n_extras,
+                       template: DeviceTable) -> DeviceTable:
+    """The outer-extras rows of a deferred outer-build join: unmatched
+    build rows gathered by ``idx``, null-extended to the joined output
+    schema of ``template`` (columns the build side does not provide come
+    back NULL, exactly like the extras arm of a materialized left join)."""
+    cols = {}
+    cap = int(idx.shape[0])
+    for n in template.column_names:
+        t = template[n]
+        if n in build.columns:
+            cols[n] = build[n].take(idx)
+        else:
+            dev = idx.device
+            data = torch.zeros((cap,) + tuple(t.data.shape[1:]),
+                               dtype=t.data.dtype, device=dev)
+            cols[n] = Column(t.kind, data,
+                             torch.zeros(cap, dtype=torch.bool, device=dev),
+                             t.dict_values, t.enc)
+    return DeviceTable(cols, n_extras, plen=cap)
+
+
 def _table_bytes(t) -> int:
-    """Resident byte size of a catalog table — the scanBytes term of the
-    per-query roofline accounting."""
+    """Resident byte size of a catalog table (device columns or a
+    host-resident ChunkedTable) — the scanBytes term of the per-query
+    roofline accounting."""
+    if hasattr(t, "nbytes"):               # ChunkedTable
+        return int(t.nbytes)
     return sum(c.data.nbytes + (0 if c.valid is None else c.valid.nbytes)
                for c in t.columns.values())
 
@@ -76,8 +171,13 @@ class Planner:
         self.scanned: dict[str, int] = {}
         # per-statement registry of planned subquery residuals
         # (device-resident inner results keyed by the subquery's
-        # structural expr_key): a repeated subquery is planned once
+        # structural expr_key): a repeated subquery is planned once, and
+        # the streamed pipeline's per-chunk program consumes each as an
+        # ordinary device table instead of re-planning it per chunk
         self._subquery_residuals: dict = {}
+        # while a pipeline records, the residual keys the record phase
+        # touched (registry hits included) — the pipeline's operand list
+        self._residuals_touched: list | None = None
 
     # ------------------------------------------------------------------ query
 
@@ -344,6 +444,18 @@ class Planner:
             in_cte = any(name_l in scope for scope in self.cte_stack)
             is_base = not in_cte and name_l in self.base_tables
             raw = self._lookup_table(from_.name)
+            from nds_tpu_torch.engine.table import ChunkedTable
+            if isinstance(raw, ChunkedTable):
+                # streamed scan: stays host-resident; _join_parts binds
+                # device chunks one at a time. Projection pushdown prunes
+                # the arrow columns, so only referenced bytes ever upload.
+                if self._needed_names is not None:
+                    keep = [n for n in raw.column_names
+                            if n.lower() in self._needed_names]
+                    if keep and len(keep) < len(raw.column_names):
+                        raw = raw.select(keep)
+                part = _StreamedScan(raw, alias)
+                return [part], [], [name_l if is_base else None]
             t = self._alias_table(raw, alias)
             if self._needed_names is not None:
                 # projection pushdown: drop scan columns nothing in the
@@ -368,16 +480,54 @@ class Planner:
                 return lp + rp, lj + rj + cond, ls + rs
             # outer join: materialize it, pushing WHERE conjuncts owned by
             # the null-preserving side below the join first (for LEFT, a
-            # predicate over left columns only commutes with the join)
+            # predicate over left columns only commutes with the join) —
+            # UNLESS one side binds a >HBM chunked scan and the join fits
+            # one of the multi-pass streamed shapes, in which case the
+            # join defers INTO the streamed graph (_OuterProbe /
+            # _OuterBuild) instead of materializing the chunked side whole
             lp, lj, ls = self._flatten_from(
                 from_.left, where if from_.kind == "left" else None,
                 top=False)
+            conjs = ([h for c in self._split_conjuncts(from_.condition)
+                      for h in self._hoist_or_conjuncts(c)]
+                     if from_.condition is not None else [])
+            l_chunk = any(isinstance(p, _StreamedScan) for p in lp)
+            if from_.kind == "left" and l_chunk and conjs:
+                # mechanism (b1): chunked scan on the PRESERVED side.
+                # Leave WHERE alone — left-side filters push down inside
+                # the streamed graph; conjuncts over probe columns apply
+                # after the per-chunk gather (_join_parts_outer).
+                rp, rj, rs = self._flatten_from(from_.right, top=False)
+                if self._probe_eligible(conjs, lp, rp, rj, rs):
+                    return (lp + [_OuterProbe(rp[0], from_.condition,
+                                              conjs, rs[0])],
+                            lj, ls + [rs[0]])
+                # ineligible after flattening: today's materialize path,
+                # reusing the already-flattened right side
+                lw = self._consume_pushable(where, lp)
+                left = self._join_parts(lp, lj, lw, ls)
+                right = self._join_parts(rp, rj, [], rs)
+                right_src = rs[0] if len(rs) == 1 else None
+                joined = self._binary_join(left, right, from_.kind,
+                                           from_.condition,
+                                           right_src=right_src)
+                return [joined], [], [None]
             lw = self._consume_pushable(where, lp) \
                 if from_.kind == "left" else []
             left = self._join_parts(lp, lj, lw, ls)
             rp, rj, rs = self._flatten_from(
                 from_.right, where if from_.kind == "right" else None,
                 top=False)
+            if from_.kind == "left" and top and conjs and \
+                    self._build_eligible(conjs, lp, rp, rj, where):
+                # mechanism (b2): chunked scan on the NULL-INTRODUCING
+                # side — the materialized left side becomes the BUILD
+                # operand of the streamed graph; extras emit at
+                # materialize time from the unmatched-key accumulator
+                build_src = ls[0] if len(ls) == 1 else None
+                return ([rp[0], _OuterBuild(left, from_.condition, conjs,
+                                            build_src)],
+                        [], [rs[0], None])
             rw = self._consume_pushable(where, rp) \
                 if from_.kind == "right" else []
             right = self._join_parts(rp, rj, rw, rs)
@@ -389,6 +539,64 @@ class Planner:
                                        from_.condition, right_src=right_src)
             return [joined], [], [None]
         raise ExecError(f"unsupported FROM clause {type(from_).__name__}")
+
+    def _probe_eligible(self, conjs, lp, rp, rj, rs) -> bool:
+        """Mechanism (b1) shape test: the right side must be one pristine
+        device scan whose ON keys are exactly its declared (composite)
+        primary key, every ON conjunct a plain cross-side equi pair — the
+        shape the per-chunk gather serves with zero steady-state syncs
+        (composite keys must be numeric to pack, mirroring
+        ``_pk_gather_plan``). Mirrored by ``exec_audit._deferred_left``."""
+        from nds_tpu_torch.schema import COMPOSITE_PRIMARY_KEYS, PRIMARY_KEYS
+        if len(rp) != 1 or rj or not rs or rs[0] is None or \
+                not isinstance(rp[0], DeviceTable):
+            return False
+        lcols = set()
+        for p in lp:
+            lcols |= set(p.column_names)
+        rcols = set(rp[0].column_names)
+        rkeys = []
+        for c in conjs:
+            if self._has_subquery(c):
+                return False
+            pair = self._equi_pair(c, lcols, rcols)
+            if pair is None:
+                return False
+            rkeys.append(pair[1])
+        pk = COMPOSITE_PRIMARY_KEYS.get(rs[0])
+        if pk is None and rs[0] in PRIMARY_KEYS:
+            pk = (PRIMARY_KEYS[rs[0]],)
+        if pk is None or {k.split(".")[-1] for k in rkeys} != set(pk):
+            return False
+        if len(pk) > 1 and any(
+                rp[0][k].kind in ("str", "f64") or
+                rp[0][k].kind.startswith("dec") for k in rkeys):
+            return False                 # composite pack is int-only
+        return True
+
+    def _build_eligible(self, conjs, lp, rp, rj, where) -> bool:
+        """Mechanism (b2) shape test: single chunked scan on the right,
+        single device part on the left (the build side), plain equi ON,
+        and NO remaining WHERE conjunct at all — post-join structure
+        (including a ref-less ``1 = 0``) would need the extras (emitted
+        only at materialize) to flow through it. The caller additionally
+        requires the join to be the SELECT's whole FROM (``top``): a
+        parent join would wrap the deferral the same way. Mirrored by
+        ``exec_audit._deferred_left``."""
+        if len(rp) != 1 or rj or not isinstance(rp[0], _StreamedScan):
+            return False
+        if len(lp) != 1 or any(isinstance(p, (_StreamedScan, _OuterProbe,
+                                              _OuterBuild)) for p in lp):
+            return False
+        if where:
+            return False
+        lcols = set(lp[0].column_names)
+        rcols = set(rp[0].column_names)
+        for c in conjs:
+            if self._has_subquery(c) or \
+                    self._equi_pair(c, lcols, rcols) is None:
+                return False
+        return True
 
     def _refs_touch(self, e, cols) -> bool:
         """True when any column reference of ``e`` resolves in ``cols``.
@@ -849,6 +1057,228 @@ class Planner:
             return table
         return E.compact_table(table, self._conjunct_mask(table, conjuncts))
 
+    def _stream_join_parts(self, parts, join_preds, where_conjuncts,
+                           sources):
+        """Streamed execution of a join graph containing streamed scans: bind
+        the largest streamed part's device chunks one at a time and run
+        the join graph per chunk (pushed-down filters and joins shrink the
+        chunk before anything is kept), keeping the survivor union.
+        Downstream aggregation runs on the union, which is correct because
+        joins and filters distribute over row-wise union. Other streamed
+        parts materialize whole (one streaming axis per graph).
+
+        Default path: the chunk pipeline (engine/stream.py) — one recorded
+        per-chunk program replayed over every padded chunk with prefetch,
+        on-device survivor accumulation and a single materializing sync.
+        The per-chunk eager loop below is the automatic fallback for
+        graphs that are not chunk-invariant and the ``stream_exec =
+        "eager"`` setting."""
+        streamed = [i for i, p in enumerate(parts)
+                    if isinstance(p, _StreamedScan)]
+        keep = max(streamed, key=lambda i: parts[i].nbytes)
+        parts = list(parts)
+        for i in streamed:
+            if i != keep:
+                parts[i] = parts[i].bind_whole(self)
+        # the span opens exactly where the StreamEvent sync window opens,
+        # so its sync delta equals the event's
+        with _obs.span("stream", table=parts[keep].alias):
+            syncs0 = E.sync_count()
+            reason = None
+            if str(E.setting("stream_exec")).lower() != "eager":
+                from nds_tpu_torch.engine.stream import stream_execute
+                got, reason = stream_execute(self, parts, keep, join_preds,
+                                             where_conjuncts, list(sources))
+                if got is not None:
+                    return got
+            else:
+                reason = "stream_exec=eager"
+            outs = []
+            n_chunks = 0
+            h2d = 0
+            # a bound-bucket overflow discards a COMPLETED pipeline run: the
+            # rerun gets its own span name, apart from ordinary eager
+            # fallbacks (which never drove the pipeline at all)
+            eager_span = "stream.overflow-rerun" \
+                if reason == "bound-bucket overflow" else "stream.eager"
+            builds = [p for p in parts if isinstance(p, _OuterBuild)]
+            bitmaps = None
+            # the eager loop pulls its chunks through the same bounded
+            # prefetch ring the pipeline uses (engine/prefetch): the arrow
+            # slice + device conversion of chunk k+1 runs on the worker
+            # while chunk k's join graph executes here; depth 0 is the
+            # inline loop, bit for bit. The ring closes in the finally so
+            # a mid-loop planner exception never leaks the worker thread.
+            from nds_tpu_torch.engine.prefetch import chunk_ring
+            ring = chunk_ring(parts[keep].device_chunks(self),
+                              name="nds-prefetch-eager")
+            with _obs.span(eager_span,
+                           reason=reason or "replay-nested"):
+                try:
+                    while True:
+                        chunk = ring.next_chunk()
+                        if chunk is None:
+                            break
+                        n_chunks += 1
+                        # actual prefetch bytes of this scan (buffer
+                        # metadata, no sync): the eager loop uploads
+                        # unencoded chunks
+                        h2d += sum(
+                            c.data.nbytes
+                            + (0 if c.valid is None else c.valid.nbytes)
+                            for c in chunk.columns.values())
+                        sub = list(parts)
+                        sub[keep] = chunk
+                        with E.outer_match_collector() as omc:
+                            out = self._join_parts(sub, join_preds,
+                                                   where_conjuncts,
+                                                   list(sources))
+                        if builds:
+                            # OR each chunk's matched-build-row masks:
+                            # the outer extras (unmatched across EVERY
+                            # chunk) append once, after the loop
+                            bitmaps = list(omc.masks) if bitmaps is None \
+                                else [a | b for a, b in zip(bitmaps,
+                                                            omc.masks)]
+                        if E.count_bound(out.nrows) or not outs:
+                            outs.append(out)
+                    stall_ms = ring.stall_ms()
+                finally:
+                    ring.close()
+                result = E.concat_tables(outs) if len(outs) > 1 else outs[0]
+                if builds and bitmaps is not None:
+                    result = self._append_outer_extras(result, builds,
+                                                       bitmaps)
+            if reason is not None:
+                # recorded AFTER the loop: the event's syncs charge the whole
+                # eager path (failed record attempt + per-chunk loop). reason
+                # None = replay-nested fallback, accounted by the outer pass.
+                from nds_tpu_torch.listener import record_stream_event
+                record_stream_event(parts[keep].alias, n_chunks,
+                                    E.sync_count() - syncs0, "eager", reason,
+                                    bytes_h2d=h2d,
+                                    prefetch_stall_ms=stall_ms)
+                _obs.annotate(path="eager", chunks=n_chunks, reason=reason,
+                              bytesH2d=h2d, prefetchStallMs=stall_ms)
+            return result
+
+    def _append_outer_extras(self, result, builds, bitmaps):
+        """Eager-loop twin of the pipeline's materialize-time extras:
+        null-extended unmatched build rows of every deferred outer-build
+        join, appended once after the chunk union."""
+        parts = [result]
+        for w, bm in zip(builds, bitmaps):
+            miss = ~bm & E.live_mask(w.table.plen, w.table.nrows)
+            n_miss = E.host_sync(miss.sum())
+            if not n_miss:
+                continue
+            idx = E.compact_indices(miss, n_miss)
+            parts.append(outer_extras_table(w.table, idx, n_miss, result))
+        return E.concat_tables(parts) if len(parts) > 1 else result
+
+    def _join_parts_outer(self, parts, join_preds, where_conjuncts,
+                          sources, outer_idx):
+        """One multi-pass outer-join step: runs per chunk inside the
+        streamed pipeline (the chunk slot is a bound DeviceTable here) and
+        per chunk on the eager loop. Joins the parts connected to the
+        chunk side by outer-free conjuncts first, applies each deferred
+        LEFT join, then joins any leftover parts/conjuncts that needed
+        the probe columns (q93: ``reason`` joins the returns side of the
+        gather). WHERE semantics make the post split always correct —
+        deferring a conjunct past the outer join only delays a filter."""
+        wrappers = [parts[i] for i in outer_idx]
+        inner = [p for i, p in enumerate(parts) if i not in outer_idx]
+        inner_src = [s for i, s in enumerate(sources) if i not in outer_idx]
+        outer_cols = set()
+        for w in wrappers:
+            outer_cols |= set(w.column_names)
+        conjuncts = list(join_preds) + list(where_conjuncts)
+        post = [c for c in conjuncts if self._refs_touch(c, outer_cols)]
+        pre = [c for c in conjuncts if not any(c is x for x in post)]
+        # union-find the inner parts along pre-conjunct ownership; the
+        # components providing the wrappers' ON columns join BEFORE the
+        # deferred joins, everything else after
+        groups = list(range(len(inner)))
+
+        def find(i):
+            while groups[i] != i:
+                groups[i] = groups[groups[i]]
+                i = groups[i]
+            return i
+
+        part_colsets = [set(p.column_names) for p in inner]
+
+        def owners_of(e):
+            return [i for i, cs in enumerate(part_colsets)
+                    if self._refs_touch(e, cs)]
+
+        for c in pre:
+            own = owners_of(c)
+            for o in own[1:]:
+                groups[find(own[0])] = find(o)
+        anchors = set()
+        for w in wrappers:
+            for c in w.conjuncts:
+                for o in owners_of(c):
+                    anchors.add(find(o))
+        if not anchors and inner:
+            anchors = {find(0)}
+        pre_idx = [i for i in range(len(inner)) if find(i) in anchors]
+        post_idx = [i for i in range(len(inner)) if find(i) not in anchors]
+        pre_set = set(pre_idx)
+        pre_here = [c for c in pre
+                    if set(owners_of(c)) <= pre_set]
+        leftover = [c for c in conjuncts
+                    if not any(c is x for x in pre_here)]
+        out = self._join_parts(
+            [inner[i] for i in pre_idx],
+            [c for c in join_preds if any(c is x for x in pre_here)],
+            [c for c in where_conjuncts if any(c is x for x in pre_here)],
+            [inner_src[i] for i in pre_idx])
+        for w in wrappers:
+            out = self._apply_outer(out, w)
+        if post_idx or leftover:
+            out = self._join_parts(
+                [out] + [inner[i] for i in post_idx], [], leftover,
+                [None] + [inner_src[i] for i in post_idx])
+        return out
+
+    def _apply_outer(self, left: DeviceTable, w) -> DeviceTable:
+        """Apply one deferred LEFT join to a (per-chunk) joined table."""
+        if isinstance(w, _OuterProbe):
+            # preserved chunk side: PK gather against the whole probe
+            # table — sync-free, keeps the chunk's physical rows, misses
+            # null-extend in place (_binary_join's gather arm)
+            return self._binary_join(left, w.table, "left", w.condition,
+                                     right_src=w.src)
+        # _OuterBuild: build ⟕ chunk — emit THIS dispatch's matched pairs
+        # through an inner bound-bucket join and register the matched
+        # build rows; the unmatched build rows (the outer extras) emit
+        # ONCE at materialize time from the OR of every dispatch's mask
+        build = w.table
+        lcols = set(left.column_names)
+        bcols = set(build.column_names)
+        lkeys, bkeys = [], []
+        for c in w.conjuncts:
+            pair = self._equi_pair(c, lcols, bcols)
+            if pair is None:
+                raise ExecError("outer-build join requires plain equi keys")
+            lkeys.append(left[pair[0]])
+            bkeys.append(build[pair[1]])
+        # probe FROM the chunk side: the pair bucket stays chunk-sized
+        l_idx, r_idx, n_pairs, _, _, _, _ = E.join_indices(
+            lkeys, bkeys, "inner", n_left=left.nrows, n_right=build.nrows)
+        matched = prim.scatter_set(torch.zeros(
+            build.plen, dtype=torch.bool, device=r_idx.device), r_idx, True)
+        E.stream_outer_matched(matched)
+        cols = dict(E.gather_table_rows(build, r_idx, n_pairs).columns)
+        for n, c in E.gather_table_rows(left, l_idx, n_pairs).columns.items():
+            # chunk-side columns must be NULLABLE in the output template:
+            # the extras rows null-extend them at materialize time
+            cols.setdefault(n, Column(c.kind, c.data, c.valid_mask(),
+                                      c.dict_values, c.enc))
+        return DeviceTable(cols, n_pairs)
+
     def _join_parts(self, parts, join_preds, where_conjuncts, sources=None):
         """Join-graph execution: push single-table predicates down, then join
         parts connected by equi edges, deferring unconnected parts
@@ -859,6 +1289,14 @@ class Planner:
         star-join shape that dominates the TPC-DS corpus."""
         if sources is None:
             sources = [None] * len(parts)
+        if any(isinstance(p, _StreamedScan) for p in parts):
+            return self._stream_join_parts(parts, join_preds,
+                                           where_conjuncts, sources)
+        outer_idx = [i for i, p in enumerate(parts)
+                     if isinstance(p, (_OuterProbe, _OuterBuild))]
+        if outer_idx:
+            return self._join_parts_outer(parts, join_preds, where_conjuncts,
+                                          sources, outer_idx)
         sources = list(sources)
         conjuncts = list(join_preds) + list(where_conjuncts)
         # split into single-table filters / equi edges / complex residual
@@ -1673,8 +2111,7 @@ class Planner:
             return out.astype(np.int32)
 
         out = E.timed_read("month_arith", fetch)
-        return Column("date", torch.as_tensor(out, device=base.data.device),
-                      base.valid)
+        return Column("date", E.upload(out, base.data.device), base.valid)
 
     def _eval_in_list(self, e: A.InList, ctx: EvalCtx) -> Column:
         col = self.eval_expr(e.expr, ctx)
@@ -1698,9 +2135,8 @@ class Planner:
         if col.kind == "str":
             res = X.fn_in_strings(col, [str(v) for v in values])
         elif col.kind == "f64":
-            data = torch.isin(col.data, torch.tensor(
-                [float(v) for v in values], dtype=torch.float64,
-                device=col.data.device))
+            data = torch.isin(col.data, E.upload(
+                [float(v) for v in values], col.data.device, torch.float64))
             res = Column("bool", data, col.valid)
         else:
             from decimal import Decimal
@@ -1721,8 +2157,8 @@ class Planner:
                     len(col), dtype=torch.bool, device=col.data.device),
                     col.valid)
             else:
-                data = torch.isin(col.data.to(torch.int64), torch.tensor(
-                    nums, dtype=torch.int64, device=col.data.device))
+                data = torch.isin(col.data.to(torch.int64), E.upload(
+                    nums, col.data.device, torch.int64))
                 res = Column("bool", data, col.valid)
         return X.logical_not(res) if e.negated else res
 
@@ -1811,9 +2247,8 @@ class Planner:
                     out = dom
             return out.astype(np.int64)
 
-        return Column("i64", torch.as_tensor(
-            E.timed_read("date_part", fetch), device=col.data.device),
-            col.valid)
+        return Column("i64", E.upload(E.timed_read("date_part", fetch),
+                                      col.data.device), col.valid)
 
     def _const_int(self, e) -> int:
         if isinstance(e, A.Literal) and isinstance(e.value, int):
@@ -1833,7 +2268,15 @@ class Planner:
             try:
                 cols = self._lookup_table(from_.name).column_names
             except ExecError:
-                return out
+                # the per-chunk planner of the streamed pipeline has an
+                # EMPTY catalog; its correlation analysis must still
+                # resolve subquery scopes exactly like the record phase
+                # did, so the pipeline seeds a NAMES-ONLY snapshot of the
+                # record-time catalog
+                nc = getattr(self, "name_catalog", None)
+                cols = (nc or {}).get(from_.name.lower())
+                if cols is None:
+                    return out
             for c in cols:
                 out.add(f"{alias}.{c.split('.')[-1].lower()}")
         elif isinstance(from_, A.SubqueryRef):
@@ -1884,17 +2327,36 @@ class Planner:
                                 self._split_conjuncts(where), srcs)
 
     def _residual_table(self, payload) -> DeviceTable:
-        """The device-resident residual of one uncorrelated subquery,
-        planned at most once per statement."""
+        """The device-resident residual of one chunk-invariant subquery,
+        planned at most once per statement. Inside a streamed record phase
+        the inner plan runs under ``ops.suspend_stream_record()`` — its
+        host reads must never interleave with the outer recording, and
+        freed of the stream-bounds guard it may sync (once) or stream
+        through its own pipeline. Inside the per-chunk replay the registry
+        is pre-seeded from the pipeline's operands; a miss there means the
+        pipeline cannot serve the statement (StreamSyncError => eager
+        fallback)."""
         key = self._residual_key(payload)
         hit = self._subquery_residuals.get(key)
         if hit is None:
-            # the residual stays LAZY (a q9-class projection subquery must
-            # keep its no-sync broadcast arm); the registry dedupes
-            # repeated subqueries
-            rt = self._plan_residual(payload)
+            if E.stream_bounds_on():
+                if E.replay_mode() == "replay":
+                    raise E.StreamSyncError(
+                        f"unplanned subquery residual {key[:80]}")
+                with E.suspend_stream_record():
+                    rt = E.resolve_table(self._plan_residual(payload))
+            else:
+                # outside a pipeline the residual stays LAZY (a q9-class
+                # projection subquery must keep its no-sync broadcast
+                # arm); the registry dedupes repeated subqueries and
+                # caches across eager chunks
+                rt = self._plan_residual(payload)
             hit = (payload, rt)
             self._subquery_residuals[key] = hit
+        if self._residuals_touched is not None and \
+                E.stream_bounds_on() and E.replay_mode() == "record" and \
+                all(k != key for (k, _p, _t) in self._residuals_touched):
+            self._residuals_touched.append((key, hit[0], hit[1]))
         return hit[1]
 
     def _find_correlation(self, q: A.Query, ctx: EvalCtx):
@@ -2112,7 +2574,9 @@ class Planner:
                                             device=l_idx.device), l_idx, 1)
         # pad pairs drop out of the scatter, so max(hits) alone detects a
         # non-scalar subquery; one counted, batch-draining host read
-        if E.DeviceCount(hits.max(), n).to_int() > 1:
+        if E.stream_bounds_on():
+            E.stream_overflow(hits.max() > 1)
+        elif E.DeviceCount(hits.max(), n).to_int() > 1:
             raise ExecError("correlated scalar subquery returned more than one "
                             "row per outer row")
         dev = l_idx.device

@@ -167,13 +167,20 @@ def test_from_reference_arrays_is_bit_identical_to_from_arrow():
 
 
 def test_session_refuses_cuda_without_a_gpu_and_big_tables(monkeypatch):
+    """Without a GPU a cuda session is refused. A table above the
+    ``stream_bytes`` threshold stays on the host as a ChunkedTable that
+    statements stream through; a smaller one uploads whole."""
+    from nds_tpu_torch.engine.table import ChunkedTable
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             PortSession()
     s = PortSession(device="cpu")
     s.conf["stream_bytes"] = "100"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s._check_resident("big", _table(n=64))
+    s._register_base("big", _table(n=64), None)
+    assert isinstance(s.catalog["big"], ChunkedTable)
+    s.conf["stream_bytes"] = "1e12"
+    s._register_base("small", _table(n=64), None)
+    assert not isinstance(s.catalog["small"], ChunkedTable)
 
 
 def _ref_cols(t):

@@ -1,0 +1,219 @@
+# Copyright (c) 2026, nds-tpu authors. Licensed under the Apache License, Version 2.0.
+"""The port's CUDA kernels against their plain PyTorch versions on a card:
+K1-K3 (grouped aggregation), K4 ``chunk_scan`` and K5 ``join_probe``. Every
+test here is ``gpu``-marked and skips without a CUDA device. The module
+imports neither jax nor the reference package, so it also runs where only
+the port's requirements are installed::
+
+    python -m pytest tests/test_torch_gpu.py -m gpu
+
+The input builders double as the cases of ``tests/test_torch_scan.py``,
+which holds the plain versions against the reference on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+from nds_tpu_torch.engine import kernels as K
+
+torch.set_num_threads(1)   # tiny tensors: spare the other workers' cores
+
+I64_MAX = np.iinfo(np.int64).max
+I64_MIN = np.iinfo(np.int64).min
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _gids(rng, n, G, pads=True):
+    """Group ids with nulls (-1), pads (>= G) and some empty groups."""
+    g = rng.integers(0, G, size=n)
+    if G > 4:
+        g = np.where(g == 3, 2, g)                      # group 3 stays empty
+    u = rng.random(n)
+    g = np.where(u < 0.1, -1, g)
+    if pads:
+        g = np.where((u >= 0.1) & (u < 0.15), G + (g % 3), g)
+    return g.astype(np.int64)
+
+
+def _scan_case(name):
+    """(numpy chunk buffers, live rows, entries, cols, tables, key_slots)
+    of one K4 case."""
+    rng = np.random.default_rng(_SCAN_CASES.index(name))
+    if name == "all_survivors":
+        cap = 1024
+        return ((np.arange(cap, dtype=np.int64), None), 700,
+                [("ige", 0, 0)], [(0, -1, "id", 0, -1, 1.0)], (), ())
+    if name == "zero_survivors":
+        cap = 512
+        return ((np.arange(cap, dtype=np.int64), None), cap,
+                [("ige", 0, 3), ("false", 0), ("ile", 0, 400)],
+                [(0, -1, "id", 0, -1, 1.0)], (), ())
+    if name == "tile_boundary_rows":
+        vals = np.zeros(2048, dtype=np.int64)
+        vals[[510, 511, 512, 513, 1029, 1030]] = 7
+        return ((vals, None), 1030, [("ieq", 0, 7)],
+                [(0, -1, "id", 0, -1, 1.0)], (), ())
+    if name == "dict_code_out_of_range":
+        codes = np.array([0, 1, 2, 2, 0, -3, 9, 1], dtype=np.int16)
+        table = np.asarray([10, 20, 30], dtype=np.int64)
+        return ((codes, None), 8,
+                [("ige", 0, 3), ("fge", 0, 15.0), ("ile", 0, -1)],
+                [(0, -1, "dict", 0, 0, 1.0)], (table,), ())
+    if name == "validity_and_hash":
+        cap = 1024
+        d = rng.integers(0, 100, cap).astype(np.int64)
+        v = rng.random(cap) > 0.3
+        k2 = rng.integers(-(1 << 40), 1 << 40, cap).astype(np.int64)
+        return ((d, v, k2, None), cap, [("ige", 0, 0)],
+                [(0, 1, "id", 0, -1, 1.0)], (), (0, 2))
+    if name == "rich_predicates":
+        cap = 2048
+        q16 = rng.integers(-200, 3000, cap).astype(np.int16)   # FOR codes
+        qv = rng.random(cap) > 0.1
+        p32 = rng.integers(0, 1 << 20, cap).astype(np.int32)   # FOR codes
+        dc = rng.integers(-2, 12, cap).astype(np.int16)        # dict codes
+        dv = rng.random(cap) > 0.2
+        s32 = rng.integers(0, 6, cap).astype(np.int32)         # str codes
+        table = np.asarray([-500, 7, 99, 1000, 1001, 4096, 123456, 10 ** 9,
+                            10 ** 12, 2 ** 40], dtype=np.int64)
+        entries = [
+            ("irange", 0, -50, 2500), ("nrange", 1, 1000, 2000),
+            ("iin", 2, (0, 3, 5)), ("inotin", 3, (1, 4)),
+            ("notnull", 0), ("true", 1),
+            ("fge", 2, 0.5), ("flt", 2, 1.2e7), ("fne", 1, 12.34),
+            ("fin", 2, (0.07, 1000.0, 9.99e4)), ("frange", 1, -1.0, 9e4),
+            ("fnotin", 0, (1.5, 2.5)), ("fnrange", 0, 100.0, 200.0),
+            ("fle", 0, 25.0), ("fgt", 1, 0.0), ("feq", 3, 3.0),
+            ("ine", 3, 2), ("ile", 1, 900000), ("ige", 0, -100),
+        ]
+        cols = [(0, 1, "for", -1000, -1, 100.0),
+                (2, -1, "for", 12345, -1, 100.0),
+                (4, 5, "dict", 0, 0, 100.0),
+                (6, -1, "id", 0, -1, 1.0)]
+        return ((q16, qv, p32, None, dc, dv, s32, None), 1900, entries,
+                cols, (table,), (2, 6))
+    if name == "float_lane_nan_and_signed_zero":
+        vals = np.array([np.nan, -0.0, 0.0, 1.5, -np.inf, np.inf, -1e-300,
+                         2.0] * 64, dtype=np.float64)
+        v = np.tile(np.array([1, 1, 1, 0, 1, 1, 1, 1], dtype=bool), 64)
+        f32 = vals.astype(np.float32)
+        entries = [("fne", 0, 1.5), ("fle", 0, np.inf),
+                   ("fnotin", 0, (2.0, float("nan"))),
+                   ("fnrange", 0, 1.0, 1.9)]
+        return ((vals, v, f32, None), 500, entries,
+                [(0, 1, "id", 0, -1, 1.0)], (), (0, 2))
+    if name == "narrow_codes_sign_extend":
+        c8 = np.arange(-128, 128, dtype=np.int8).repeat(2)
+        return ((c8, None), 512, [("ile", 0, -1), ("iin", 0, (-128, -1, 5))],
+                [(0, -1, "id", 0, -1, 1.0)], (), (0,))
+    raise KeyError(name)
+
+
+_SCAN_CASES = ["all_survivors", "zero_survivors", "tile_boundary_rows",
+               "dict_code_out_of_range", "validity_and_hash",
+               "rich_predicates", "float_lane_nan_and_signed_zero",
+               "narrow_codes_sign_extend"]
+
+
+
+def _probe_case(n, r, nkeys, seed):
+    rng = np.random.default_rng(seed)
+    lk = [rng.integers(0, 90, n).astype(np.int64 if k == 0 else np.int32)
+          for k in range(nkeys)]
+    lv = [rng.random(n) > 0.1 if k == 0 else None for k in range(nkeys)]
+    excl = rng.random(n) > 0.8
+    rk = [rng.integers(0, 100, r).astype(np.int64 if k == 0 else np.int32)
+          for k in range(nkeys)]
+    rv = [None if k == 0 else rng.random(r) > 0.05 for k in range(nkeys)]
+    return lk, lv, excl, rk, rv
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 1000, 100000])
+def test_cuda_kernels_match_plain(cuda, G):
+    rng = np.random.default_rng(G)
+    n = 1 << 20
+    g = _t(_gids(rng, n, G)).to(cuda)
+    iv = _t(rng.integers(I64_MIN, I64_MAX, size=n, dtype=np.int64)).to(cuda)
+    fv = _t(rng.random(n) * 1000).to(cuda)
+    a, b = K.segment_sum_i64(iv, g, G), K.segment_sum_i64_plain(iv, g, G)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    a, b = K.segment_sum_f64(fv, g, G), K.segment_sum_f64_plain(fv, g, G)
+    assert torch.equal(a[1], b[1])
+    torch.testing.assert_close(a[0], b[0], rtol=1e-9, atol=0)
+    fv[::1000] = float("nan")
+    a, b = (K.segment_minmax_f64(fv, g, G),
+            K.segment_minmax_f64_plain(fv, g, G))
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+
+
+@pytest.mark.gpu
+def test_launcher_matches_the_wrapper_and_counts_nothing(cuda):
+    rng = np.random.default_rng(3)
+    n, G = 1 << 16, 100
+    g = _t(_gids(rng, n, G)).to(cuda)
+    iv = _t(rng.integers(-1000, 1000, size=n, dtype=np.int64)).to(cuda)
+    fv = _t(rng.random(n)).to(cuda)
+    want = {"segment_sum_i64": K.segment_sum_i64(iv, g, G),
+            "segment_sum_f64": K.segment_sum_f64(fv, g, G),
+            "segment_minmax_f64": K.segment_minmax_f64(fv, g, G)}
+    before = dict(K.LAUNCHES)
+    for name, vals in (("segment_sum_i64", iv), ("segment_sum_f64", fv),
+                       ("segment_minmax_f64", fv)):
+        outs = K.launcher(name, vals, g, G)()
+        got = (outs[1][0], outs[1][1]) if name == "segment_minmax_f64" \
+            else outs
+        for x, y in zip(got, want[name]):
+            torch.testing.assert_close(x, y, rtol=1e-12, atol=0,
+                                       equal_nan=True)
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _SCAN_CASES)
+def test_cuda_chunk_scan_matches_plain(cuda, name):
+    bufs, n, entries, cols, tables, key_slots = _scan_case(name)
+    spec = K.ScanSpec(entries, cols, tables=tables, key_slots=key_slots)
+    flat = tuple(None if b is None else _t(b).to(cuda) for b in bufs)
+    nd = torch.tensor(n, dtype=torch.int64, device=cuda)
+    before = K.LAUNCHES["chunk_scan"]
+    m, h = K.chunk_scan(flat, nd, spec)
+    assert K.LAUNCHES["chunk_scan"] == before + 1
+    pm, ph = K.chunk_scan_plain(flat, nd, spec)
+    assert torch.equal(m, pm)
+    assert (h is None) == (ph is None)
+    if h is not None:
+        assert torch.equal(h, ph)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,r,nkeys,n_valid", [
+    (600, 200, 1, 580), (1 << 16, 102_000, 1, 60000), (900, 5000, 2, 900)])
+def test_cuda_join_probe_matches_plain(cuda, n, r, nkeys, n_valid):
+    from nds_tpu_torch.engine import ops as PO
+    lk, lv, excl, rk, rv = _probe_case(n, r, nkeys, n + r)
+    ph = PO.unsigned_order(PO._key_hash_impl(
+        tuple(_t(x).to(cuda) for x in rk),
+        tuple(None if x is None else _t(x).to(cuda) for x in rv), 1, False,
+        r, None))
+    ph_sorted = torch.sort(ph).values
+    args = (tuple(_t(x).to(cuda) for x in lk),
+            tuple(None if x is None else _t(x).to(cuda) for x in lv),
+            torch.tensor(n_valid, dtype=torch.int64, device=cuda),
+            _t(excl).to(cuda), ph_sorted)
+    c, lo = K.join_probe(*args)
+    pc, plo = K.join_probe_plain(*args)
+    assert torch.equal(c, pc) and torch.equal(lo, plo)
+    c2, lo2 = K.join_probe(*args[:2], n_valid, *args[3:])   # host n_valid
+    assert torch.equal(c2, pc) and torch.equal(lo2, plo)

@@ -2,8 +2,8 @@
 """The grouped-aggregation kernels of the torch port (K1-K3) against the
 reference: each plain version against ``nds_tpu.engine.kernels`` run under
 ``NDS_TPU_PALLAS=interpret`` and against the Pallas-off arm
-(``ops._agg_*_impl``). The CUDA kernels themselves run only on a GPU (the
-``gpu``-marked tests at the end)."""
+(``ops._agg_*_impl``). The CUDA kernels themselves run only on a GPU
+(``tests/test_torch_gpu.py``)."""
 
 import numpy as np
 import pytest
@@ -174,6 +174,14 @@ def test_k3_matches_off_arm_with_nan_and_signed_zero(monkeypatch, is_max):
     assert np.signbit(pmin.numpy()[7]) and not np.signbit(pmax.numpy()[7])
 
 
+def test_launcher_refuses_host_tensors():
+    """The raw launcher times a kernel alone: it never takes the plain
+    version, so host tensors are refused."""
+    g = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.launcher("segment_sum_i64", torch.zeros(8, dtype=torch.int64), g, 2)
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -184,7 +192,8 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     K.segment_sum_f64(torch.ones(5, dtype=torch.float64), g, 3)
     K.segment_minmax_f64(torch.ones(5, dtype=torch.float64), g, 3)
     assert K.LAUNCHES == {"segment_sum_i64": 0, "segment_sum_f64": 0,
-                          "segment_minmax_f64": 0}
+                          "segment_minmax_f64": 0, "chunk_scan": 0,
+                          "join_probe": 0}
 
 
 def test_build_is_lazy_and_keyed_by_source_hash():
@@ -192,63 +201,3 @@ def test_build_is_lazy_and_keyed_by_source_hash():
     # hash of the CUDA sources
     assert K._LIB is None
     assert K.source_hash() in K.build_dir()
-
-
-# ---------------------------------------------------------------- GPU only
-
-
-@pytest.fixture()
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("G", [1, 1000, 100000])
-def test_cuda_kernels_match_plain(cuda, G):
-    rng = np.random.default_rng(G)
-    n = 1 << 20
-    g = _t(_gids(rng, n, G)).to(cuda)
-    iv = _t(rng.integers(I64_MIN, I64_MAX, size=n, dtype=np.int64)).to(cuda)
-    fv = _t(rng.random(n) * 1000).to(cuda)
-    a, b = K.segment_sum_i64(iv, g, G), K.segment_sum_i64_plain(iv, g, G)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    a, b = K.segment_sum_f64(fv, g, G), K.segment_sum_f64_plain(fv, g, G)
-    assert torch.equal(a[1], b[1])
-    torch.testing.assert_close(a[0], b[0], rtol=1e-9, atol=0)
-    fv[::1000] = float("nan")
-    a, b = (K.segment_minmax_f64(fv, g, G),
-            K.segment_minmax_f64_plain(fv, g, G))
-    for x, y in zip(a, b):
-        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
-
-
-def test_launcher_refuses_host_tensors():
-    """The raw launcher times a kernel alone: it never takes the plain
-    version, so host tensors are refused."""
-    g = torch.zeros(8, dtype=torch.int64)
-    with pytest.raises(ValueError, match="CUDA"):
-        K.launcher("segment_sum_i64", torch.zeros(8, dtype=torch.int64), g, 2)
-
-
-@pytest.mark.gpu
-def test_launcher_matches_the_wrapper_and_counts_nothing(cuda):
-    rng = np.random.default_rng(3)
-    n, G = 1 << 16, 100
-    g = _t(_gids(rng, n, G)).to(cuda)
-    iv = _t(rng.integers(-1000, 1000, size=n, dtype=np.int64)).to(cuda)
-    fv = _t(rng.random(n)).to(cuda)
-    want = {"segment_sum_i64": K.segment_sum_i64(iv, g, G),
-            "segment_sum_f64": K.segment_sum_f64(fv, g, G),
-            "segment_minmax_f64": K.segment_minmax_f64(fv, g, G)}
-    before = dict(K.LAUNCHES)
-    for name, vals in (("segment_sum_i64", iv), ("segment_sum_f64", fv),
-                       ("segment_minmax_f64", fv)):
-        outs = K.launcher(name, vals, g, G)()
-        got = (outs[1][0], outs[1][1]) if name == "segment_minmax_f64" \
-            else outs
-        for x, y in zip(got, want[name]):
-            torch.testing.assert_close(x, y, rtol=1e-12, atol=0,
-                                       equal_nan=True)
-    assert K.LAUNCHES == before

@@ -63,7 +63,8 @@ def test_power_cli_writes_time_log_and_summaries(stream_and_data, tmp_path):
         assert s["syncWaitMs"] >= 0 and s["fetchBytes"] > 0
         # the CPU tensors take the kernels' plain versions: no launches
         assert set(s["kernelLaunches"]) == {
-            "segment_sum_i64", "segment_sum_f64", "segment_minmax_f64"}
+            "segment_sum_i64", "segment_sum_f64", "segment_minmax_f64",
+            "chunk_scan", "join_probe"}
         assert not any(s["kernelLaunches"].values())
         assert "trace" in s
         # on the CPU the profile has no device kernels
@@ -83,3 +84,43 @@ def test_power_cli_defaults_to_cuda_and_refuses_without_a_gpu(
                 "raw", "--sub_queries", "query3"])
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
+
+
+def test_power_cli_streams_tables_past_the_property_threshold(
+        stream_and_data, tmp_path):
+    """A property file's ``stream_bytes`` makes the big tables stream
+    through the chunk pipeline: each summary's ``streamedScans`` names the
+    path, chunks, partitions, syncs and K4/K5 launches, and the results
+    equal an all-resident run's."""
+    data, stream = stream_and_data
+    props = tmp_path / "stream.properties"
+    props.write_text("stream_bytes=1.5e6\nstream_chunk_rows=4096\n"
+                     "stream_strict=true\n")
+    outs = {}
+    for arm, extra in (("resident", []),
+                       ("streamed", ["--property_file", str(props)])):
+        js = tmp_path / f"json_{arm}"
+        res = _run([data, stream, str(tmp_path / f"{arm}.csv"),
+                    "--input_format", "raw", "--device", "cpu",
+                    "--json_summary_folder", str(js),
+                    "--sub_queries", "query3,query96",
+                    "--output_prefix", str(tmp_path / f"out_{arm}"),
+                    "--output_format", "csv"] + extra)
+        assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+        outs[arm] = {}
+        for fn in sorted(glob.glob(str(js / "*.json"))):
+            with open(fn) as f:
+                s = json.load(f)
+            outs[arm][s["query"]] = s
+    for q, s in outs["streamed"].items():
+        assert s["queryStatus"] == ["Completed"]
+        scans = s["streamedScans"]
+        assert scans and all(x["path"] == "compiled" for x in scans), scans
+        assert all(x["chunks"] > 1 and x["partitions"] == 1
+                   and "scanLaunches" in x and "probeLaunches" in x
+                   for x in scans)
+        assert "streamedScans" not in outs["resident"][q]
+    for q in ("query3", "query96"):
+        a = sorted(glob.glob(str(tmp_path / "out_resident" / q / "*")))
+        b = sorted(glob.glob(str(tmp_path / "out_streamed" / q / "*")))
+        assert [open(x).read() for x in a] == [open(x).read() for x in b]
