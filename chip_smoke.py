@@ -22,18 +22,23 @@ and suppresses the final ``ok`` line):
                against r in {1000, 102000, 2^20} build rows: bit-exact
                against their plain versions, with kernel, wrapper, plain
                and bound ms (and, for K5, the ``torch.searchsorted`` pair);
-4. data        builds ``native/ndsgen`` and writes SF1 (parallel children)
-               and SF0.01 raw data under ``.smoke_data/``;
+4. data        builds ``native/ndsgen`` and writes SF0.01, SF1 and SF10
+               raw data (parallel children) under ``.smoke_data/``, in
+               the background while the earlier phases run; SF10 is
+               waited for only by the stream phase;
 5. power       the 25 CI statements at SF1 through the port's Power Run
                entry on ``cuda``, plus one MIN/MAX-of-double statement;
                per-query ms, syncs and kernel launches;
-6. stream      SF1 transcoded to parquet (the port's ``write_table``); a
-               cuda session that streams every table above 1.5e8 bytes
-               in 2^19-row chunks (store_sales: 6 chunks) against an
+6. stream      SF10 transcoded to parquet (the port's ``write_table``); a
+               cuda session that streams every table above 1.5e9 bytes
+               in 2^22-row chunks (store_sales: 7 chunks) against an
                all-resident one: the 14 streamed A/B statements of
                ``tests/test_synccount.py`` (and the partitioned subset at 2
-               partitions) and the 25 CI statements through the Power Run
-               entry with ``--input_format parquet``; streamed rows equal
+               partitions; the three that join two fact tables on the
+               item alone run on SF1 in 2^19-row chunks, since at SF10
+               their joins outgrow the card) and the 25 CI statements
+               through the Power Run entry with ``--input_format
+               parquet``; streamed rows equal
                resident rows, every ``must_stream`` statement runs
                ``compiled`` within 6 syncs, K4/K5 launch, and no
                synchronizing CUDA call happens inside the chunk loop
@@ -97,11 +102,24 @@ KERNEL_SOURCE = {
 # a small dimension, SF10 item, and 2^20 rows
 SCAN_ROWS = 1 << 22
 PROBE_BUILD_ROWS = (1000, 102000, 1 << 20)
-# the stream phase's cut: SF1 (store_sales 2,880,404 rows) instead of the
-# reference's SF10, so generation plus transcode fit the call; chunks and
-# threshold scaled so store_sales still runs 6 chunks
-STREAM_CHUNK_ROWS = 1 << 19
-STREAM_BYTES = 1.5e8
+# the stream phase: the reference's SF10 run (streaming threshold 1.5e9
+# bytes, 2^22-row chunks: store_sales 28,800,501 rows in 7 chunks)
+STREAM_SCALE = 10
+STREAM_CHUNK_ROWS = 1 << 22
+STREAM_BYTES = 1.5e9
+# the A/B statements that join store_sales to store_returns on the item
+# alone. At SF10 about 28 returns match each sale, so their joins hold up
+# to 8e8 pairs: more than the 80 GB card holds, resident or streamed (the
+# streamed path bounds the scanned table, not a join's output). They run
+# on SF1 instead, streamed above 1.5e8 bytes in 2^19-row chunks
+# (store_sales 6 chunks), against SF1 all-resident.
+STREAM_AB_FANOUT = (7, 8, 13)
+FANOUT_SCALE = 1
+FANOUT_CHUNK_ROWS = 1 << 19
+FANOUT_STREAM_BYTES = 1.5e8
+# tables transcoded at once (pyarrow releases the GIL while it parses and
+# writes)
+TRANSCODE_THREADS = 4
 
 
 def emit(obj) -> None:
@@ -361,12 +379,17 @@ def ndsgen_binary() -> str:
     return os.path.join(src, "ndsgen")
 
 
+# seconds each scale's generation took, for the data and stream records
+GEN_S = {}
+
+
 def gen_data(binary, scale, out_dir, parallel):
     """Raw '|' data at ``scale`` in ``out_dir/<table>/`` directories, with
     ``parallel`` generator children running at once."""
     marker = os.path.join(out_dir, ".complete")
     if os.path.exists(marker):
         return out_dir
+    t0 = time.time()
     shutil.rmtree(out_dir, ignore_errors=True)
     tmp = out_dir + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
@@ -386,6 +409,7 @@ def gen_data(binary, scale, out_dir, parallel):
     os.replace(tmp, out_dir)
     with open(marker, "w"):
         pass
+    GEN_S[str(scale)] = round(time.time() - t0, 3)
     return out_dir
 
 
@@ -501,24 +525,36 @@ def contains_rows(big, small) -> bool:
 
 
 def transcode(raw_dir, out_dir):
-    """The raw SF1 tables as parquet through the port's ``write_table``
-    (fact tables date-partitioned, as the Load Test writes them)."""
+    """The raw tables as parquet through the port's ``write_table``, one
+    file per table, ``TRANSCODE_THREADS`` tables at once, largest first.
+    Returns the seconds each table took."""
+    import concurrent.futures as cf
     from nds_tpu_torch.io import read_raw_table
     from nds_tpu_torch.io.columnar import write_table
     from nds_tpu_torch.schema import get_schemas
-    marker = os.path.join(out_dir, ".complete")
-    if os.path.exists(marker):
-        return out_dir
     shutil.rmtree(out_dir, ignore_errors=True)
-    for tname, fields in get_schemas(use_decimal=True).items():
+
+    def raw_path(tname):
         path = os.path.join(raw_dir, tname)
-        if not os.path.exists(path):
-            path += ".dat"
-        arrow = read_raw_table(path, fields)
+        return path if os.path.exists(path) else path + ".dat"
+
+    def size(path):
+        if os.path.isfile(path):
+            return os.path.getsize(path)
+        return sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+
+    def one(tname, fields):
+        t = time.time()
+        arrow = read_raw_table(raw_path(tname), fields)
         write_table(arrow, os.path.join(out_dir, tname), "parquet")
-    with open(marker, "w"):
-        pass
-    return out_dir
+        return round(time.time() - t, 3)
+
+    schemas = sorted(get_schemas(use_decimal=True).items(),
+                     key=lambda kv: -size(raw_path(kv[0])))
+    with cf.ThreadPoolExecutor(TRANSCODE_THREADS) as pool:
+        futs = {t: pool.submit(one, t, f) for t, f in schemas}
+        return {t: f.result() for t, f in futs.items()}
 
 
 def watch_chunk_loop(torch, S, PF):
@@ -598,32 +634,40 @@ def sync_detector_works(torch) -> bool:
                str(w.message).lower() for w in seen)
 
 
-def stream_phase(torch, K, raw_sf1, queries):
-    """The streamed path at SF1 against an all-resident session."""
+def stream_phase(torch, K, raw_dir, raw_fanout, queries):
+    """The streamed path at ``STREAM_SCALE`` against an all-resident
+    session; the fan-out A/B statements at ``FANOUT_SCALE``."""
     from nds_tpu_torch.engine import ops as E
     from nds_tpu_torch.engine import prefetch as PF
     from nds_tpu_torch.engine import stream as S
     from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.engine.table import ChunkedTable
     from nds_tpu_torch.listener import drain_stream_events
     from nds_tpu_torch.power import (run_query_stream, setup_tables,
                                      strip_stream_markers)
     t0 = time.time()
-    pq = transcode(raw_sf1, os.path.join(DATA, "sf1_parquet"))
+    pq = os.path.join(DATA, f"sf{STREAM_SCALE}_parquet")
+    transcode_tables = transcode(raw_dir, pq)
     transcode_s = time.time() - t0
+    pq_fanout = os.path.join(DATA, f"sf{FANOUT_SCALE}_parquet")
+    transcode(raw_fanout, pq_fanout)
     stream_conf = {"stream_bytes": STREAM_BYTES,
-                   "stream_chunk_rows": STREAM_CHUNK_ROWS,
-                   "stream_strict": True}
+                   "stream_chunk_rows": STREAM_CHUNK_ROWS}
 
-    def session(conf):
+    def session(path, conf):
         s = Session(conf, device="cuda")
-        setup_tables(s, pq, "parquet", True, [])
+        setup_tables(s, path, "parquet", True, [])
         return s
 
-    resident = session({"stream_bytes": 1e15})
-    streamed = session(dict(stream_conf))
-    from nds_tpu_torch.engine.table import ChunkedTable
-    chunked = {k: v.num_chunks() for k, v in streamed.catalog.items()
-               if isinstance(v, ChunkedTable)}
+    def chunks(s):
+        return {k: v.num_chunks() for k, v in s.catalog.items()
+                if isinstance(v, ChunkedTable)}
+
+    t0 = time.time()
+    resident = session(pq, {"stream_bytes": 1e15})
+    streamed = session(pq, dict(stream_conf))
+    load_s = time.time() - t0
+    chunked = chunks(streamed)
     syncs_in_loop = watch_chunk_loop(torch, S, PF)
 
     def timed(s, sql):
@@ -643,8 +687,13 @@ def stream_phase(torch, K, raw_sf1, queries):
                 for e in events]
 
     dup = duplicate_key_matches(pq)
+    emit({"phase": "stream_setup", "scale": STREAM_SCALE,
+          "gen_s": GEN_S.get(str(STREAM_SCALE)),
+          "transcode_s": round(transcode_s, 3),
+          "transcode_table_s": transcode_tables, "load_s": round(load_s, 3),
+          "chunked_tables": chunked, "duplicate_key_matches": dup})
 
-    def check(i, got, want):
+    def check(i, got, want, streamed):
         """None when the streamed rows of statement ``i`` are right, else
         why not. ab10 holds the resident rows plus one row per duplicate
         key match, and the eager chunk loop's rows exactly."""
@@ -665,43 +714,60 @@ def stream_phase(torch, K, raw_sf1, queries):
 
     K.reset_launches()
     records, failures = [], []
-    for i, sql in enumerate(STREAM_AB):
-        want, res_ms, _s, _e = timed(resident, sql)
-        got, ms, syncs, events = timed(streamed, sql)
-        why = check(i, got, want)
-        # the pipeline ran every scan — or ran it, found a bound-sized pair
-        # bucket too small for this data (the overflow flag) and reran it
-        # through the eager loop, by design; any other path fails
-        compiled = bool(events) and all(e.path == "compiled"
-                                        for e in events)
-        reran = bool(events) and not compiled and all(
-            e.path == "compiled" or e.reason == "bound-bucket overflow"
-            for e in events)
-        rec = {"statement": f"ab{i}", "ms": round(ms, 3),
-               "resident_ms": round(res_ms, 3), "syncs": syncs,
-               "rows": got.num_rows, "scans": scans(events),
-               "equal": why is None, "overflow_rerun": reran}
-        if why or not (compiled or reran) or \
-                (compiled and syncs > STREAM_SYNC_BUDGET):
-            failures.append(f"ab{i}: {why or ''} compiled={compiled} "
-                            f"syncs={syncs}")
-        records.append(rec)
-    streamed.conf["stream_partitions"] = 2
-    for i in STREAM_AB_PARTITIONED:
-        want, _ms, _s, _e = timed(resident, STREAM_AB[i])
-        got, ms, syncs, events = timed(streamed, STREAM_AB[i])
-        why = check(i, got, want)
-        parts = [e.partitions for e in events]
-        reran = [e.reason for e in events] == ["bound-bucket overflow"]
-        rows_ok = all(sum(e.part_rows) == e.rows for e in events)
-        records.append({"statement": f"ab{i}/p2", "ms": round(ms, 3),
-                        "syncs": syncs, "rows": got.num_rows,
-                        "scans": scans(events), "equal": why is None,
-                        "overflow_rerun": reran})
-        if why or not (reran or (parts == [2] and rows_ok and
-                                 syncs <= STREAM_SYNC_BUDGET)):
-            failures.append(f"ab{i}/p2: {why or ''} partitions={parts}")
+
+    def run_ab(resident, streamed, indices, scale):
+        """The A/B statements ``indices``, then those of them in the
+        partitioned subset again at 2 partitions."""
+        for i in indices:
+            want, res_ms, _s, _e = timed(resident, STREAM_AB[i])
+            got, ms, syncs, events = timed(streamed, STREAM_AB[i])
+            why = check(i, got, want, streamed)
+            # the pipeline ran every scan — or ran it, found a bound-sized
+            # pair bucket too small for this data (the overflow flag) and
+            # reran it through the eager loop, by design; any other path
+            # fails
+            compiled = bool(events) and all(e.path == "compiled"
+                                            for e in events)
+            reran = bool(events) and not compiled and all(
+                e.path == "compiled" or e.reason == "bound-bucket overflow"
+                for e in events)
+            records.append({"statement": f"ab{i}", "scale": scale,
+                            "ms": round(ms, 3),
+                            "resident_ms": round(res_ms, 3),
+                            "syncs": syncs, "rows": got.num_rows,
+                            "scans": scans(events), "equal": why is None,
+                            "overflow_rerun": reran})
+            if why or not (compiled or reran) or \
+                    (compiled and syncs > STREAM_SYNC_BUDGET):
+                failures.append(f"ab{i}: {why or ''} compiled={compiled} "
+                                f"syncs={syncs}")
+        streamed.conf["stream_partitions"] = 2
+        for i in (i for i in STREAM_AB_PARTITIONED if i in indices):
+            want, _ms, _s, _e = timed(resident, STREAM_AB[i])
+            got, ms, syncs, events = timed(streamed, STREAM_AB[i])
+            why = check(i, got, want, streamed)
+            parts = [e.partitions for e in events]
+            reran = [e.reason for e in events] == ["bound-bucket overflow"]
+            rows_ok = all(sum(e.part_rows) == e.rows for e in events)
+            records.append({"statement": f"ab{i}/p2", "scale": scale,
+                            "ms": round(ms, 3), "syncs": syncs,
+                            "rows": got.num_rows, "scans": scans(events),
+                            "equal": why is None, "overflow_rerun": reran})
+            if why or not (reran or (parts == [2] and rows_ok and
+                                     syncs <= STREAM_SYNC_BUDGET)):
+                failures.append(f"ab{i}/p2: {why or ''} partitions={parts}")
+        streamed.conf.pop("stream_partitions")
+
+    run_ab(resident, streamed, [i for i in range(len(STREAM_AB))
+                                if i not in STREAM_AB_FANOUT], STREAM_SCALE)
     del streamed
+    fanout_streamed = session(pq_fanout, {
+        "stream_bytes": FANOUT_STREAM_BYTES,
+        "stream_chunk_rows": FANOUT_CHUNK_ROWS})
+    fanout_chunked = chunks(fanout_streamed)
+    fanout_resident = session(pq_fanout, {"stream_bytes": 1e15})
+    run_ab(fanout_resident, fanout_streamed, STREAM_AB_FANOUT, FANOUT_SCALE)
+    del fanout_streamed, fanout_resident
     # the 25 CI statements through the Power Run entry, parquet input
     props = os.path.join(OUT, "stream.properties")
     with open(props, "w") as f:
@@ -722,7 +788,8 @@ def stream_phase(torch, K, raw_sf1, queries):
         want, res_ms, _s, _e = timed(resident, sql)
         got = power_s.sql(sql).to_arrow()
         why = tables_agree(got, want)
-        records.append({"statement": q, "ms": js["queryTimes"][-1],
+        records.append({"statement": q, "scale": STREAM_SCALE,
+                        "ms": js["queryTimes"][-1],
                         "resident_ms": round(res_ms, 3),
                         "syncs": js["hostSyncs"],
                         "status": js["queryStatus"][-1],
@@ -738,9 +805,18 @@ def stream_phase(torch, K, raw_sf1, queries):
     if syncs_in_loop or not detector_ok:
         failures.append(f"{len(syncs_in_loop)} synchronizing calls inside "
                         f"the chunk loop (detector works: {detector_ok})")
-    return {"phase": "stream", "ok": not failures, "scale": 1,
+    return {"phase": "stream", "ok": not failures, "scale": STREAM_SCALE,
             "chunk_rows": STREAM_CHUNK_ROWS, "stream_bytes": STREAM_BYTES,
-            "chunked_tables": chunked, "transcode_s": round(transcode_s, 3),
+            "chunked_tables": chunked,
+            "fanout": {"statements": [f"ab{i}" for i in STREAM_AB_FANOUT],
+                       "scale": FANOUT_SCALE,
+                       "chunk_rows": FANOUT_CHUNK_ROWS,
+                       "stream_bytes": FANOUT_STREAM_BYTES,
+                       "chunked_tables": fanout_chunked},
+            "gen_s": GEN_S.get(str(STREAM_SCALE)),
+            "transcode_s": round(transcode_s, 3),
+            "transcode_table_s": transcode_tables,
+            "load_s": round(load_s, 3),
             "duplicate_key_matches": dup,
             "launches": launches,
             "syncs_in_chunk_loop": len(syncs_in_loop),
@@ -828,6 +904,9 @@ def main() -> int:
     data_f = pool.submit(lambda: (
         gen_data(ndsgen, "0.01", os.path.join(DATA, "sf0.01"), 1),
         gen_data(ndsgen, 1, os.path.join(DATA, "sf1"), max(cpus - 2, 1))))
+    stream_raw = os.path.join(DATA, f"sf{STREAM_SCALE}")
+    stream_f = pool.submit(gen_data, ndsgen, STREAM_SCALE, stream_raw,
+                           max(cpus - 2, 1))
 
     # 2. build
     t0 = time.time()
@@ -870,7 +949,8 @@ def main() -> int:
     try:
         data_f.result()
         emit({"phase": "data", "ok": True, "wait_s": round(time.time() - t0,
-                                                           3)})
+                                                           3),
+              "gen_s": dict(GEN_S)})
     except Exception as e:
         emit({"phase": "data", "ok": False, "error": repr(e)[:2000]})
         return 1
@@ -922,11 +1002,15 @@ def main() -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("power")
 
-    # 6. the streamed path at SF1, against all-resident
+    # 6. the streamed path at STREAM_SCALE, against all-resident
     try:
+        t0 = time.time()
+        stream_f.result()
+        wait_s = round(time.time() - t0, 3)
         K.reset_launches()
-        res = stream_phase(torch, K, os.path.join(DATA, "sf1"),
-                           gen_sql_from_stream(stream_file(1)))
+        res = stream_phase(torch, K, stream_raw, os.path.join(DATA, "sf1"),
+                           gen_sql_from_stream(stream_file(STREAM_SCALE)))
+        res["data_wait_s"] = wait_s
         for k in ("chunk_scan", "join_probe"):
             launches[k] = res["launches"][k]
         with open(os.path.join(OUT, "stream.json"), "w") as f:

@@ -595,7 +595,7 @@ def _scan_blob(spec: ScanSpec, dev) -> dict:
             fvals.extend(float(v) for v in e[2])
         elif kind in ("frange", "fnrange"):
             fa, fb = float(e[2]), float(e[3])
-        elif kind[0] == "f":
+        elif kind in ("feq", "fne", "flt", "fle", "fgt", "fge"):
             fa = float(e[2])
         elif kind in ("irange", "nrange"):
             a, b = _clamp_i64(e[2]), _clamp_i64(e[3])

@@ -102,9 +102,6 @@ STREAM_DEFAULTS = {
     # "compiled": the chunk pipeline (engine/stream.py); "eager": the
     # per-chunk planner loop only
     "stream_exec": "compiled",
-    # re-raise a record/drive failure that is not StreamSyncError or
-    # ReplayMismatch instead of falling back to the eager loop
-    "stream_strict": False,
     # pin the partition count of partitionable graphs (None: the proof
     # chooses; <= 1 disables)
     "stream_partitions": None,

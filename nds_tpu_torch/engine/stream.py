@@ -64,7 +64,7 @@ materializing read fetches every partition's count and flag and the
 histogram together.
 
 Settings (``Session(conf=...)`` keys, ``ops.STREAM_DEFAULTS``):
-``stream_exec``, ``stream_strict``, ``stream_partitions``,
+``stream_exec``, ``stream_partitions``,
 ``stream_acc_rows``, ``stream_fanout``, ``stream_skew``,
 ``prefetch_depth``, ``hbm_bytes``.
 """
@@ -101,13 +101,6 @@ def _acc_ceiling() -> int | None:
     accumulator ceiling."""
     got = E.setting("stream_acc_rows")
     return None if got is None else int(got)
-
-
-def _strict() -> bool:
-    """The ``stream_strict`` setting: re-raise any record/drive failure
-    that is not a StreamSyncError/ReplayMismatch instead of falling back to
-    the eager loop."""
-    return bool(E.setting("stream_strict"))
 
 
 def _hbm_bytes() -> int:
@@ -755,16 +748,11 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
     try:
         out, ran, evidence = pipe.run(host_iter, first, parts_flat,
                                       resid_flat)
-    except (E.ReplayMismatch, E.StreamSyncError, ValueError, TypeError,
-            NotImplementedError) as exc:
+    except (E.ReplayMismatch, E.StreamSyncError) as exc:
         # the replay diverged from the recording: unstreamable after all.
-        # The reason carries the exception CLASS so a fallback caused by an
-        # engine bug (ValueError/TypeError/...) stays distinguishable from
-        # the two routing exceptions; stream_strict re-raises those.
+        # Anything else (an engine bug, a kernel refusing its launch)
+        # raises: it must not hide behind the eager loop.
         _evict(key)
-        if _strict() and not isinstance(exc, (E.StreamSyncError,
-                                              E.ReplayMismatch)):
-            raise
         log.info("streamed pipeline fell back to eager: %s", exc)
         return None, f"replay diverged [{type(exc).__name__}]: {exc}"
     finally:

@@ -284,11 +284,6 @@ class ChunkedTable:
                 rows = slice(s, s + live)
             yield HostChunk(live, cap, cols)
 
-    def padded_chunks(self, device):
-        """The :meth:`host_chunks` uploaded to ``device``, inline."""
-        for hc in self.host_chunks():
-            yield upload_chunk(hc, device)
-
     def materialize(self, device) -> DeviceTable:
         from nds_tpu_torch.engine.column import from_arrow
         return from_arrow(self.arrow, self.canonical_types, device)

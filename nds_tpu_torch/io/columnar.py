@@ -18,7 +18,7 @@ import pyarrow.dataset as pads
 # encoded columnar execution: per-column narrow-upload codecs
 # ---------------------------------------------------------------------------
 #
-# The streamed scan path (engine/table.py padded_chunks) uploads int-path
+# The streamed scan path (engine/table.py host_chunks) uploads int-path
 # columns in a narrow ENCODED representation chosen here, once per table,
 # from whole-table stats — chunk-invariant by construction, exactly like
 # the whole-table string dictionaries (per "GPU Acceleration of SQL
@@ -131,7 +131,7 @@ def plan_column_codec(arr, canonical_type: str):
 def plan_table_codecs(table: pa.Table, canonical_types: dict | None = None):
     """name -> (codes, valid, Encoding) for every encodable column of an
     arrow table — the per-table encoding plan ``ChunkedTable`` caches and
-    ``padded_chunks`` slices per chunk."""
+    ``host_chunks`` slices per chunk."""
     from nds_tpu_torch import types as _t
     out = {}
     for name in table.column_names:

@@ -94,8 +94,7 @@ def test_power_cli_streams_tables_past_the_property_threshold(
     equal an all-resident run's."""
     data, stream = stream_and_data
     props = tmp_path / "stream.properties"
-    props.write_text("stream_bytes=1.5e6\nstream_chunk_rows=4096\n"
-                     "stream_strict=true\n")
+    props.write_text("stream_bytes=1.5e6\nstream_chunk_rows=4096\n")
     outs = {}
     for arm, extra in (("resident", []),
                        ("streamed", ["--property_file", str(props)])):

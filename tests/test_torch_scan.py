@@ -65,6 +65,42 @@ def test_chunk_scan_cases_are_not_trivial():
     assert 0 < int(m.sum()) < n
 
 
+def test_scan_blob_flattens_every_entry_kind():
+    """The spec the CUDA kernel reads: one row of (op, column, a, b,
+    offset, length) and one (fa, fb) pair per entry, whatever the kind —
+    a ``false`` entry included, which carries no operand."""
+    entries = [("false", 0), ("true", 1), ("isnull", 0), ("notnull", 1),
+               ("ieq", 0, 5), ("ine", 0, -5), ("ile", 0, 2 ** 70),
+               ("ige", 0, -2 ** 70), ("irange", 0, 1, 9),
+               ("nrange", 0, 3, 4), ("iin", 0, (1, 2, 3)),
+               ("inotin", 0, (7,)), ("feq", 1, 0.5), ("fne", 1, -0.0),
+               ("flt", 1, 1.5), ("fle", 1, 2.5), ("fgt", 1, 3.5),
+               ("fge", 1, 4.5), ("fin", 1, (0.25, 0.75)),
+               ("fnotin", 1, (9.0,)), ("frange", 1, 1.0, 2.0),
+               ("fnrange", 1, -1.0, 1.0)]
+    spec = K.ScanSpec(entries, [(0, -1, "id", 0, -1, 1.0),
+                                (2, 3, "for", 10, -1, 100.0)])
+    blob = K._scan_blob(spec, torch.device("cpu"))
+    ent = blob["ent"].reshape(-1, 6).tolist()
+    fent = blob["fent"].reshape(-1, 2).tolist()
+    big = (1 << 63) - 1
+    assert [r[0] for r in ent] == list(range(22))
+    assert [r[1] for r in ent] == [e[1] for e in entries]
+    assert [r[2:4] for r in ent[4:10]] == [
+        [5, 0], [-5, 0], [big, 0], [-big - 1, 0], [1, 9], [3, 4]]
+    assert [r[4:] for r in ent[10:12]] == [[0, 3], [3, 1]]
+    assert blob["ivals"].tolist() == [1, 2, 3, 7]
+    assert [r[4:] for r in ent[18:20]] == [[0, 2], [2, 1]]
+    assert blob["fvals"].tolist() == [0.25, 0.75, 9.0]
+    assert fent[12:18] == [[0.5, 0.0], [-0.0, 0.0], [1.5, 0.0],
+                           [2.5, 0.0], [3.5, 0.0], [4.5, 0.0]]
+    assert fent[20:] == [[1.0, 2.0], [-1.0, 1.0]]
+    assert all(r[2:] == [0, 0, 0, 0] for r in ent[:4])
+    assert fent[:12] == [[0.0, 0.0]] * 12
+    assert blob["colmeta"].tolist() == [0, 0, 0, 0, 1, 10, 0, 0]
+    assert blob["sdiv"].tolist() == [1.0, 100.0]
+
+
 def test_hash_mix_matches_reference_partition_pass():
     rng = np.random.default_rng(5)
     d = rng.integers(-(1 << 62), 1 << 62, 4096).astype(np.int64)

@@ -22,7 +22,7 @@ from tests.test_synccount import (_STREAM_AB_PARTITIONED,
 from nds_tpu_torch.engine import kernels as K
 from nds_tpu_torch.engine import ops as E
 from nds_tpu_torch.engine.session import Session
-from nds_tpu_torch.engine.table import ChunkedTable
+from nds_tpu_torch.engine.table import ChunkedTable, upload_chunk
 from nds_tpu_torch.listener import drain_stream_events
 
 torch.set_num_threads(1)   # tiny tensors: spare the other workers' cores
@@ -82,9 +82,8 @@ def reference_rows():
 @pytest.fixture(scope="module")
 def port_sessions():
     return {
-        "compiled": _port_star(42, {"stream_strict": True}),
-        "partitioned": _port_star(42, {"stream_strict": True,
-                                       "stream_partitions": 2}),
+        "compiled": _port_star(42, {}),
+        "partitioned": _port_star(42, {"stream_partitions": 2}),
         "eager": _port_star(42, {"stream_exec": "eager"}),
     }
 
@@ -154,8 +153,7 @@ def case_sessions():
     from nds_tpu.engine.table import ChunkedTable as RefChunked
     sales, items, dates = _tables()
     ref = RefSession()
-    streamed = Session(conf={"hbm_bytes": _HBM, "stream_strict": True},
-                       device="cpu")
+    streamed = Session(conf={"hbm_bytes": _HBM}, device="cpu")
     resident = Session(device="cpu")
     for s in (ref, streamed, resident):
         s.create_temp_view("items", items, base=True)
@@ -228,8 +226,8 @@ def rich_sessions():
     from nds_tpu.engine.session import Session as RefSession
     t = _lineitem(np.random.default_rng(11))
     ref, resident = RefSession(), Session(device="cpu")
-    streamed = Session(conf={"hbm_bytes": _HBM, "stream_strict": True,
-                             "stream_bytes": 1}, device="cpu")
+    streamed = Session(conf={"hbm_bytes": _HBM, "stream_bytes": 1},
+                       device="cpu")
     for s in (ref, resident):
         s.create_temp_view("lineitem", t, base=True)
     streamed.create_temp_view("lineitem", ChunkedTable(t, chunk_rows=1024),
@@ -265,7 +263,7 @@ def test_chunked_table_matches_reference_chunks():
     t = _lineitem(np.random.default_rng(3), n=2500)
     ours, theirs = ChunkedTable(t, chunk_rows=700), RefChunked(
         t, chunk_rows=700)
-    got = list(ours.padded_chunks("cpu"))
+    got = [upload_chunk(hc, "cpu") for hc in ours.host_chunks()]
     want = list(theirs.padded_chunks())
     assert ours.num_chunks() == theirs.num_chunks() == len(got) == 4
     assert ours.chunk_cap == theirs.chunk_cap == 1024
@@ -342,7 +340,7 @@ def test_prefetch_statement_rows_do_not_depend_on_depth(port_sessions):
     q = _STREAM_AB_QUERIES[0][0]
     want = port_sessions["compiled"].sql(q).collect()
     for depth in (0, 1, 3):
-        s = _port_star(42, {"stream_strict": True, "prefetch_depth": depth})
+        s = _port_star(42, {"prefetch_depth": depth})
         rows, _syncs, events = _run(s, q)
         assert rows == want and events[0].path == "compiled"
 
@@ -409,3 +407,21 @@ def test_pipeline_whose_replay_reads_the_host_falls_back(monkeypatch):
     assert rows == want
     assert [e.path for e in events] == ["eager"]
     assert "StreamSyncError" in events[0].reason
+
+
+def test_pipeline_engine_error_raises(monkeypatch):
+    """An error inside the drive that is not one of the two replay
+    exceptions (an engine bug, a kernel refusing its launch) raises to the
+    caller: the statement does not rerun through the eager loop."""
+    from nds_tpu_torch.engine import stream as S
+    s = _port_star(7, {})
+    q = _STREAM_AB_QUERIES[0][0]
+
+    def failing_body(self, *a, **k):
+        raise ValueError("kernel refused its launch")
+
+    monkeypatch.setattr(S.StreamPipeline, "_body", failing_body)
+    drain_stream_events()
+    with pytest.raises(ValueError, match="refused its launch"):
+        s.sql(q).collect()
+    assert not [e for e in drain_stream_events() if e.path == "eager"]
