@@ -10,25 +10,35 @@ and suppresses the final ``ok`` line):
 2. build       the CUDA kernels of ``nds_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernels     each grouped-aggregation kernel against its plain PyTorch
                version at n = 2,880,404 rows (SF1 store_sales) and
-               G in {1, 1000, 100000}, with int64 extremes, NaN, signed
-               zeros, empty groups, null (-1) and pad (>= G) group ids;
-               the kernel's own time (raw launches on preallocated
-               outputs), the wrapper's, the plain version's and the
-               library call's, and the bytes bound;
+               G in {1, 1000, 100000} (K1 also at 16, 256 and 4096), with
+               int64 extremes, NaN, signed zeros, empty groups, null (-1)
+               and pad (>= G) group ids; the kernel's own time (raw
+               launches on preallocated outputs; for K1 at G = 1 and 1000
+               also with a cold L2), the wrapper's, the plain version's
+               and the library call's, and the bytes bound; the build's
+               ptxas report (spills) and the shared atomics' SASS;
+   k1 sweep    K1's two paths across G and blocks an SM, bit-exact, with
+               ``index_add_`` beside them: the evidence for
+               ``kernels.PRIV_PER_SM`` and for running the private path
+               up to ``G_PRIV``, the shared-memory cap;
    scan/probe  K4 ``chunk_scan`` at n = 2^22 rows (one default chunk) with
                a store_sales-like spec (FOR int16/int32 codes, a dict
                float column, an IN-list, validity, the routing hash over
                two keys) and K5 ``join_probe`` at n = 2^22 probe rows
-               against r in {1000, 102000, 2^20} build rows: bit-exact
-               against their plain versions, with kernel, wrapper, plain
-               and bound ms (and, for K5, the ``torch.searchsorted`` pair);
+               against r in {1000, 102000, 2^20} build rows, a
+               duplicate-heavy build side (fanout 4, one key 1,000 times)
+               and a sparse one (2^20 rows, all null but 16):
+               bit-exact against their plain versions, with kernel
+               (warm and cold L2), wrapper, plain and bound ms (and, for
+               K5, the ``torch.searchsorted`` pair);
 4. data        builds ``native/ndsgen`` and writes SF0.01, SF1 and SF10
                raw data (parallel children) under ``.smoke_data/``, in
                the background while the earlier phases run; SF10 is
                waited for only by the stream phase;
 5. power       the 25 CI statements at SF1 through the port's Power Run
                entry on ``cuda``, plus one MIN/MAX-of-double statement;
-               per-query ms, syncs and kernel launches;
+               per-query ms, syncs and kernel launches; a line before it
+               counts K1's launches by group count and path;
 6. stream      SF10 transcoded to parquet (the port's ``write_table``); a
                cuda session that streams every table above 1.5e9 bytes
                in 2^22-row chunks (store_sales: 7 chunks) against an
@@ -79,6 +89,15 @@ SEED = 19620718
 SF1_ROWS = 2880404            # store_sales rows at SF1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM published device-memory rate
 KERNEL_GROUPS = (1, 1000, 100000)
+K1_GROUPS = (16, 256, 4096)          # K1 alone, beside KERNEL_GROUPS
+K1_COLD_GROUPS = (1, 1000)
+# the K1 sweep: group counts across both paths, blocks an SM on the
+# private one (14528 groups fill a block's 227 KB)
+SWEEP_GROUPS = (1, 2, 16, 256, 1000, 4096, 8192, 14528)
+SWEEP_PER_SM = (1, 2, 3, 4)
+# a cold-L2 time writes this much (more than the H100's 50 MB L2) before
+# each launch
+L2_FLUSH_BYTES = 128 << 20
 # a kernel's own time: raw launches on preallocated outputs, enough of them
 # back to back that the host's launch cost hides behind the device's work
 KERNEL_REPS = 100
@@ -102,6 +121,8 @@ KERNEL_SOURCE = {
 # a small dimension, SF10 item, and 2^20 rows
 SCAN_ROWS = 1 << 22
 PROBE_BUILD_ROWS = (1000, 102000, 1 << 20)
+PROBE_DUP_ROWS = 102000          # the duplicate-heavy build side
+PROBE_SPARSE_ROWS = 1 << 20      # a build side of nulls but 16 rows
 # the stream phase: the reference's SF10 run (streaming threshold 1.5e9
 # bytes, 2^22-row chunks: store_sales 28,800,501 rows in 7 chunks)
 STREAM_SCALE = 10
@@ -149,6 +170,17 @@ def cuda_ms(torch, fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(torch, fn, reps=20):
+    """(ms of ``fn`` with a cold L2, ms of the flush alone): each call
+    follows a write of ``L2_FLUSH_BYTES``; the write's own mean time,
+    taken alone the same way, is subtracted."""
+    buf = torch.empty(L2_FLUSH_BYTES // 8, dtype=torch.int64, device="cuda")
+    flush = cuda_ms(torch, buf.zero_, reps)
+    both = cuda_ms(torch, lambda: (buf.zero_(), fn()), reps)
+    del buf
+    return both - flush, flush
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -183,6 +215,35 @@ def bits_equal(torch, a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def k1_record(torch, K, n, G, gids, ivals, lib_gids, bound_ms):
+    """K1 against its plain version at one G, with its times."""
+    s, c = K.segment_sum_i64(ivals, gids, G)
+    ps, pc = K.segment_sum_i64_plain(ivals, gids, G)
+    torch.cuda.synchronize()
+    good = bits_equal(torch, s, ps) and bits_equal(torch, c, pc)
+    err = 0.0 if good else float((s - ps).abs().max())
+    launch = K.launcher("segment_sum_i64", ivals, gids, G)
+    rec = dict(
+        G=G, n=n, ok=good, max_abs_err=err, tol="bit-exact",
+        path=K.segment_plan(n, G, K._sm_count(gids.device)).path,
+        ms=cuda_ms(torch, launch, reps=KERNEL_REPS),
+        wrapper_ms=cuda_ms(torch, lambda: K.segment_sum_i64(ivals, gids,
+                                                            G)),
+        plain_ms=cuda_ms(torch, lambda: K.segment_sum_i64_plain(
+            ivals, gids, G)),
+        library_ms=cuda_ms(torch, lambda: torch.zeros(
+            G + 1, dtype=torch.int64, device=gids.device).index_add_(
+                0, lib_gids, ivals)),
+        library_call="index_add_ (int64 sums)",
+        bound_ms=bound_ms, bound_by="bytes")
+    if G in K1_COLD_GROUPS:
+        rec["cold_ms"], rec["flush_ms"] = cold_ms(torch, launch)
+        rec["library_cold_ms"], _ = cold_ms(torch, lambda: torch.zeros(
+            G + 1, dtype=torch.int64, device=gids.device).index_add_(
+                0, lib_gids, ivals))
+    return rec
+
+
 def kernel_phase(torch, K):
     import numpy as np
     rng = np.random.default_rng(SEED)
@@ -190,7 +251,7 @@ def kernel_phase(torch, K):
     records = {name: [] for name in ("segment_sum_i64", "segment_sum_f64",
                                      "segment_minmax_f64")}
     ok = True
-    for G in KERNEL_GROUPS:
+    for G in sorted(KERNEL_GROUPS + K1_GROUPS):
         gids, ivals, fvals, mvals = kernel_inputs(torch, n, G, rng)
         # library yardstick input: out-of-range rows routed to a discard
         # slot G, so one library call computes the same per-group values
@@ -200,24 +261,11 @@ def kernel_phase(torch, K):
         bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
 
         # K1: exact int64 sum + count
-        s, c = K.segment_sum_i64(ivals, gids, G)
-        ps, pc = K.segment_sum_i64_plain(ivals, gids, G)
-        torch.cuda.synchronize()
-        good = bits_equal(torch, s, ps) and bits_equal(torch, c, pc)
-        err = 0.0 if good else float((s - ps).abs().max())
-        records["segment_sum_i64"].append(dict(
-            G=G, n=n, ok=good, max_abs_err=err, tol="bit-exact",
-            ms=cuda_ms(torch, K.launcher("segment_sum_i64", ivals, gids,
-                                         G), reps=KERNEL_REPS),
-            wrapper_ms=cuda_ms(torch, lambda: K.segment_sum_i64(
-                ivals, gids, G)),
-            plain_ms=cuda_ms(torch, lambda: K.segment_sum_i64_plain(
-                ivals, gids, G)),
-            library_ms=cuda_ms(torch, lambda: torch.zeros(
-                G + 1, dtype=torch.int64, device=gids.device).index_add_(
-                    0, lib_gids, ivals)),
-            library_call="index_add_ (int64 sums)",
-            bound_ms=bound_ms, bound_by="bytes"))
+        records["segment_sum_i64"].append(k1_record(
+            torch, K, n, G, gids, ivals, lib_gids, bound_ms))
+        if G not in KERNEL_GROUPS:
+            ok = ok and records["segment_sum_i64"][-1]["ok"]
+            continue
 
         # K2: f64 sum + int64 count
         s, c = K.segment_sum_f64(fvals, gids, G)
@@ -267,6 +315,85 @@ def kernel_phase(torch, K):
         ok = ok and all(r[-1]["ok"] for r in records.values())
         del gids, ivals, fvals, mvals, lib_gids
     return ok, records
+
+
+def k1_sweep(torch, K):
+    """K1 at n = 2,880,404 across ``SWEEP_GROUPS``: the private path at
+    each of ``SWEEP_PER_SM`` blocks an SM (as the shared memory allows)
+    and the global path, each bit-exact against the plain version, with
+    ``index_add_`` beside them. (ok, [records])."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    n, out, ok = SF1_ROWS, [], True
+    sms = K._sm_count(torch.device("cuda"))
+    for G in SWEEP_GROUPS:
+        gids, ivals, _f, _m = kernel_inputs(torch, n, G, rng)
+        ps, pc = K.segment_sum_i64_plain(ivals, gids, G)
+        plans = [K.segment_plan(n, G, sms, g_priv=1 << 30, per_sm=p)
+                 for p in SWEEP_PER_SM]
+        plans = sorted(set(p for p in plans if p.path == "private"))
+        plans.append(K.segment_plan(n, G, sms, g_priv=0))
+        times = {}
+        for plan in plans:
+            launch = K.launcher("segment_sum_i64", ivals, gids, G, plan=plan)
+            s, c = launch()
+            torch.cuda.synchronize()
+            good = bits_equal(torch, s, ps) and bits_equal(torch, c, pc)
+            ok = ok and good
+            key = plan.path if plan.path == "global" else \
+                f"{plan.path}/{plan.grid // sms}"
+            times[key] = {"ms": cuda_ms(torch, launch, reps=KERNEL_REPS),
+                          "grid": plan.grid, "ok": good}
+        lib_gids = torch.where((gids >= 0) & (gids < G), gids,
+                               torch.full_like(gids, G))
+        out.append({"G": G, "n": n, "chosen": K.segment_plan(n, G, sms).path,
+                    "plans": times, "library_ms": cuda_ms(
+                        torch, lambda: torch.zeros(
+                            G + 1, dtype=torch.int64,
+                            device=gids.device).index_add_(0, lib_gids,
+                                                           ivals))})
+        del gids, ivals, _f, _m, ps, pc, lib_gids
+    return ok, out
+
+
+def build_report(K, text):
+    """The ptxas report's spills and each kernel's registers, and the
+    shared-memory atomics in K1's SASS (``cuobjdump``, where the toolkit
+    has it)."""
+    import re
+    spills, regs, name = {}, {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and (int(m.group(1)) or int(m.group(2))):
+            spills[name] = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+    atoms = None
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool:
+        out = subprocess.run([tool, "-sass", K.build()], capture_output=True,
+                             text=True, timeout=300).stdout
+        atoms, fn = {}, None
+        for line in out.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "seg_sum_i64_priv" in fn:
+                m = re.search(r"\b(ATOMS\.[\w.]+)", line)
+                if m:
+                    atoms.setdefault(fn, set()).add(m.group(1))
+        atoms = {k: sorted(v) for k, v in atoms.items()}
+    return {"spills": spills, "registers": {k: v for k, v in regs.items()
+                                            if "priv" in k or "probe" in k},
+            "priv_shared_atomics": atoms}
 
 
 def scan_inputs(torch, K, rng):
@@ -332,14 +459,38 @@ def scan_probe_phase(torch, K):
         bytes=nbytes))
     del flat, m, h, pm, ph
     dev = torch.device("cuda")
-    for r in PROBE_BUILD_ROWS:
-        keys = torch.from_numpy(rng.integers(1, int(r * 1.1) + 2, n)).to(dev)
+    cases = [(r, "uniform") for r in PROBE_BUILD_ROWS] + \
+        [(PROBE_DUP_ROWS, "duplicates"), (PROBE_SPARSE_ROWS, "sparse")]
+    for r, build_kind in cases:
+        bvalid = None
+        if build_kind == "uniform":
+            bkeys = np.arange(1, r + 1, dtype=np.int64)
+            keys = rng.integers(1, int(r * 1.1) + 2, n)
+        elif build_kind == "sparse":
+            # all but 16 build rows null: the directory's widest gaps
+            bkeys = np.arange(1, r + 1, dtype=np.int64)
+            live = rng.choice(r, 16, replace=False)
+            bvalid = np.zeros(r, dtype=bool)
+            bvalid[live] = True
+            keys = np.where(rng.random(n) < 0.5, rng.choice(bkeys[live], n),
+                            rng.integers(1, r + 1, n))
+        else:
+            # fanout 4 over distinct keys, one key 1,000 times; 70 % of
+            # the probe rows draw a build key
+            hot = 1000
+            bkeys = np.concatenate([np.full(hot, 5, dtype=np.int64),
+                                    np.repeat(rng.integers(
+                                        10, 1 << 40, (r - hot) // 4), 4)])
+            keys = np.where(rng.random(n) < 0.7, rng.choice(bkeys, n),
+                            rng.integers(1 << 41, 1 << 42, n))
+        keys = torch.from_numpy(keys).to(dev)
         valid = torch.from_numpy(rng.random(n) > 0.04).to(dev)
         excl = torch.from_numpy(rng.random(n) > 0.9).to(dev)
         n_valid = torch.tensor(n - 777, dtype=torch.int64, device=dev)
-        build = torch.arange(1, r + 1, dtype=torch.int64, device=dev)
-        rh = E.unsigned_order(E._key_hash_impl((build,), (None,), 1, False,
-                                               r, None))
+        build = torch.from_numpy(bkeys).to(dev)
+        bvalid = None if bvalid is None else torch.from_numpy(bvalid).to(dev)
+        rh = E.unsigned_order(E._key_hash_impl((build,), (bvalid,), 1,
+                                               False, r, None))
         rh_sorted = torch.sort(rh).values
         args = ((keys,), (valid,), n_valid, excl, rh_sorted)
         c, lo = K.join_probe(*args)
@@ -349,21 +500,28 @@ def scan_probe_phase(torch, K):
         lh = E.unsigned_order(E._key_hash_impl((keys,), (valid,), 0, False,
                                                n_valid, excl))
         nbytes = n * (8 + 1 + 1 + 16) + 8 * r
+        launch = K.launcher("join_probe", *args)
+
+        def pair():
+            return (torch.searchsorted(rh_sorted, lh),
+                    torch.searchsorted(rh_sorted, lh, right=True))
+        kernel_cold, flush = cold_ms(torch, launch)
         records["join_probe"].append(dict(
-            n=n, r=r, ok=good, max_abs_err=0 if good else int(
-                (c - pc).abs().max()), tol="bit-exact",
-            matched_rows=int((c > 0).sum()),
-            ms=cuda_ms(torch, K.launcher("join_probe", *args),
-                       reps=KERNEL_REPS),
+            n=n, r=r, build=build_kind, bits=K.probe_bits(r), ok=good,
+            max_abs_err=0 if good else int((c - pc).abs().max()),
+            tol="bit-exact", matched_rows=int((c > 0).sum()),
+            max_count=int(c.max()),
+            ms=cuda_ms(torch, launch, reps=KERNEL_REPS),
+            cold_ms=kernel_cold, flush_ms=flush,
             wrapper_ms=cuda_ms(torch, lambda: K.join_probe(*args)),
             plain_ms=cuda_ms(torch, lambda: K.join_probe_plain(*args)),
-            searchsorted_pair_ms=cuda_ms(torch, lambda: (
-                torch.searchsorted(rh_sorted, lh),
-                torch.searchsorted(rh_sorted, lh, right=True))),
+            searchsorted_pair_ms=cuda_ms(torch, pair),
+            searchsorted_pair_cold_ms=cold_ms(torch, pair)[0],
             library_ms=None, library_call=None,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             bytes=nbytes))
-        del keys, valid, excl, build, rh, rh_sorted, c, lo, pc, plo, lh
+        del keys, valid, excl, build, bvalid, rh, rh_sorted, c, lo, pc, plo
+        del lh
     ok = all(r["ok"] for recs in records.values() for r in recs)
     return ok, records
 
@@ -911,9 +1069,17 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     try:
-        K.build(verbose=True)
-        emit({"phase": "build", "ok": True, "s": round(time.time() - t0, 3),
-              "sources": sorted(set(KERNEL_SOURCE.values()))})
+        import contextlib
+        import io
+        ptxas = io.StringIO()
+        with contextlib.redirect_stdout(ptxas):
+            K.build(verbose=True)
+        build_s = round(time.time() - t0, 3)
+        with open(os.path.join(OUT, "ptxas.txt"), "w") as f:
+            f.write(ptxas.getvalue())
+        report = build_report(K, ptxas.getvalue())
+        emit({"phase": "build", "ok": True, "s": build_s,
+              "sources": sorted(set(KERNEL_SOURCE.values())), **report})
     except Exception as e:
         emit({"phase": "build", "ok": False, "error": str(e)[-2000:]})
         return 1
@@ -930,6 +1096,17 @@ def main() -> int:
     except Exception as e:
         emit({"phase": "kernel", "ok": False, "error": repr(e)[:2000]})
         failed.append("kernels")
+    try:
+        ok, sweep = k1_sweep(torch, K)
+        for rec in sweep:
+            emit({"phase": "k1_sweep", **rec})
+        if not ok:
+            failed.append("k1_sweep")
+    except Exception:
+        import traceback
+        emit({"phase": "k1_sweep", "ok": False,
+              "error": traceback.format_exc()[-2000:]})
+        failed.append("k1_sweep")
     try:
         ok, more = scan_probe_phase(torch, K)
         records.update(more)
@@ -962,15 +1139,37 @@ def main() -> int:
         queries = gen_sql_from_stream(stream_file(1))
         summ = os.path.join(OUT, "power_json")
         shutil.rmtree(summ, ignore_errors=True)
+        # K1's group counts on the main path, by the path its plan takes
+        k1_groups = {}
+        real_k1 = K.segment_sum_i64
+
+        def counting_k1(values, gids, ngroups):
+            if gids.device.type == "cuda":
+                path = K.segment_plan(gids.numel(), ngroups,
+                                      K._sm_count(gids.device)).path
+                key = (path, ngroups)
+                k1_groups[key] = k1_groups.get(key, 0) + 1
+            return real_k1(values, gids, ngroups)
+        K.segment_sum_i64 = counting_k1
         K.reset_launches()
         t0 = time.time()
-        session = run_query_stream(
-            sf1, None, queries, os.path.join(OUT, "power_time.csv"),
-            sub_queries=CI_QUERIES, input_format="raw",
-            json_summary_folder=summ, allow_failure=True, device="cuda")
-        mm = session.sql(MINMAX_SQL).collect()
-        torch.cuda.synchronize()
+        try:
+            session = run_query_stream(
+                sf1, None, queries, os.path.join(OUT, "power_time.csv"),
+                sub_queries=CI_QUERIES, input_format="raw",
+                json_summary_folder=summ, allow_failure=True, device="cuda")
+            mm = session.sql(MINMAX_SQL).collect()
+            torch.cuda.synchronize()
+        finally:
+            K.segment_sum_i64 = real_k1
         launches = dict(K.LAUNCHES)
+        by_path = {}
+        for (path, _g), cnt in k1_groups.items():
+            by_path[path] = by_path.get(path, 0) + cnt
+        emit({"phase": "k1_groups", "scale": 1, "by_path": by_path,
+              "histogram": [{"G": g, "path": p, "launches": c}
+                            for (p, g), c in sorted(
+                                k1_groups.items(), key=lambda kv: kv[0][1])]})
         wall = time.time() - t0
         per_q = {}
         for fn in sorted(os.listdir(summ)):
@@ -1069,6 +1268,7 @@ def main() -> int:
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by", "bytes"),
                      "library_ms": r.get("library_ms"),
+                     "cold_ms": r.get("cold_ms"),
                      "n": r.get("n"), "G": r.get("G"), "r": r.get("r")})
     emit({"kernels": line})
     with open(os.path.join(OUT, "summary.json"), "w") as f:

@@ -20,13 +20,30 @@
 // sorted in.
 //
 // What bounds it on an H100: per probe row the key views, validity and
-// exclusion bytes are read once and 16 B written, plus about 2 log2(r)
-// dependent loads from the build table; for r up to a few hundred thousand
-// rows the table stays in the 50 MB L2, so the loads cost latency, not
-// device-memory bytes. The design: one thread per probe row in a
-// grid-stride loop, binary search in global memory. The reference's 2^15-row
-// VMEM gate does not carry over: the kernel takes any r. Staging the table
-// in shared memory (227 KB a block) is later work.
+// exclusion bytes are read once and 16 B written (26 B a row with one int64
+// key), plus each build row's 8 B once. The search is what costs: two full
+// binary searches over r take about 2 log2(r) dependent L2 loads a row (34
+// at r = 102,000), and a table of 816 KB does not fit a block's 227 KB of
+// shared memory. So the search is cut short by a radix directory instead:
+//
+//   directory  dir[0 .. 2^B] (int32): dir[b] is the first position whose
+//              hash has top-B-bits bucket >= b (the hash unflipped, as
+//              unsigned). B = ceil(log2 r) clamped to [10, 20] (kernels.py
+//              probe_bits), so a bucket holds about one entry and the
+//              directory (4 MB at most) stays in L2. One launch builds it
+//              from rh_sorted on every call: entry t fills the buckets
+//              between its predecessor's and its own (a gap of 32 or more,
+//              which a sparse table among many sentinels leaves, by its
+//              whole block), and bucket b itself fills the head (b <= the
+//              first entry's bucket) and the tail (b > the last entry's).
+//   probe      each row loads dir[b] and dir[b + 1] for its hash's bucket b,
+//              binary-searches that range for the lower bound, then gallops
+//              forward from it for the upper bound (both bounds lie inside
+//              the bucket: an equal hash has the same bucket). About four
+//              dependent loads a row.
+//
+// Build-side sentinels (null, excluded or pad build rows) sit in the lowest
+// buckets; a crowded bucket costs a longer search, never a wrong bound.
 //
 // Plain C interface, like chunk_scan.cu.
 
@@ -51,6 +68,9 @@ struct NdsProbeArgs {
     long long n;
     long long* counts;
     long long* lo;
+    int* dir;                        // 2^bits + 1 entries of scratch
+    int bits;
+    int pad2_;
 };
 
 namespace {
@@ -88,6 +108,58 @@ __device__ __forceinline__ long long load_i64(const void* p, int tag,
     }
 }
 
+// the directory bucket of a bit-63-flipped hash: its unsigned top bits
+__device__ __forceinline__ long long bucket_of(long long key, int bits) {
+    return (long long)(((unsigned long long)key ^ kSignBit) >> (64 - bits));
+}
+
+__global__ void probe_directory_kernel(const long long* __restrict__ rh,
+                                       long long r, int bits,
+                                       int* __restrict__ dir) {
+    // the wide gaps of this block's entries, filled by the whole block
+    __shared__ long long wide_lo[kThreads], wide_hi[kThreads];
+    __shared__ int wide_pos[kThreads];
+    __shared__ int n_wide;
+    const long long nb = 1LL << bits;
+    const long long first = r > 0 ? bucket_of(rh[0], bits) : nb;
+    const long long last = r > 0 ? bucket_of(rh[r - 1], bits) : -1;
+    const long long total = r > nb + 1 ? r : nb + 1;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    // the loop bound is the same for every thread of a block, so all take
+    // part in the barriers below
+    for (long long base = (long long)blockIdx.x * blockDim.x; base < total;
+         base += stride) {
+        const long long t = base + threadIdx.x;
+        if (threadIdx.x == 0) n_wide = 0;
+        __syncthreads();
+        if (t <= nb) {
+            if (t <= first) dir[t] = 0;              // head
+            else if (t > last) dir[t] = (int)r;      // tail
+        }
+        if (t >= 1 && t < r) {
+            // entry t fills the buckets after entry t - 1's, up to its own
+            const long long b0 = bucket_of(rh[t - 1], bits) + 1;
+            const long long b1 = bucket_of(rh[t], bits);
+            if (b1 - b0 < 32) {
+                for (long long b = b0; b <= b1; ++b) dir[b] = (int)t;
+            } else {
+                // a wide gap (a sparse table among many sentinels, whose
+                // few real entries sit side by side once sorted)
+                const int k = atomicAdd(&n_wide, 1);
+                wide_lo[k] = b0;
+                wide_hi[k] = b1;
+                wide_pos[k] = (int)t;
+            }
+        }
+        __syncthreads();
+        for (int k = 0; k < n_wide; ++k)
+            for (long long b = wide_lo[k] + threadIdx.x; b <= wide_hi[k];
+                 b += blockDim.x)
+                dir[b] = wide_pos[k];
+        __syncthreads();
+    }
+}
+
 __global__ void join_probe_kernel(const NdsProbeArgs a) {
     const long long n_valid =
         a.n_valid_ptr != nullptr ? *a.n_valid_ptr : a.n_valid_host;
@@ -114,18 +186,27 @@ __global__ void join_probe_kernel(const NdsProbeArgs a) {
         const unsigned long long u =
             unmatchable ? 2ULL + ((unsigned long long)i << 3) : (h | 4ULL);
         const long long key = (long long)(u ^ kSignBit);
-        // lower bound: first position whose value is >= key
-        long long b = 0, e = a.r;
+        const long long* __restrict__ rh = a.rh_sorted;
+        const long long bk = bucket_of(key, a.bits);
+        const long long end = a.dir[bk + 1];
+        // lower bound inside the bucket: first position whose value >= key
+        long long b = a.dir[bk], e = end;
         while (b < e) {
             const long long mid = b + ((e - b) >> 1);
-            if (a.rh_sorted[mid] < key) b = mid + 1; else e = mid;
+            if (rh[mid] < key) b = mid + 1; else e = mid;
         }
         const long long lo = b;
-        // upper bound: first position whose value is > key
-        e = a.r;
+        // upper bound: gallop from lo (lo, lo+1, lo+2, lo+4, ...) to the
+        // first value > key, then bisect the last step; every position
+        // before b holds a value <= key
+        e = end;
+        for (long long p = lo, step = 1; p < end; p = lo + step, step <<= 1) {
+            if (rh[p] > key) { e = p; break; }
+            b = p + 1;
+        }
         while (b < e) {
             const long long mid = b + ((e - b) >> 1);
-            if (a.rh_sorted[mid] <= key) b = mid + 1; else e = mid;
+            if (rh[mid] <= key) b = mid + 1; else e = mid;
         }
         a.counts[i] = b - lo;
         a.lo[i] = lo;
@@ -138,8 +219,15 @@ extern "C" {
 
 int nds_join_probe(const NdsProbeArgs* args, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (args->n > 0)
-        join_probe_kernel<<<grid_for(args->n), kThreads, 0, s>>>(*args);
+    if (args->n <= 0) return (int)cudaGetLastError();
+    if (args->bits < 1 || args->bits > 30 || args->r < 0 ||
+        args->r > 0x7FFFFFFFLL || args->dir == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const long long nb = 1LL << args->bits;
+    probe_directory_kernel<<<grid_for(args->r > nb + 1 ? args->r : nb + 1),
+                             kThreads, 0, s>>>(args->rh_sorted, args->r,
+                                               args->bits, args->dir);
+    join_probe_kernel<<<grid_for(args->n), kThreads, 0, s>>>(*args);
     return (int)cudaGetLastError();
 }
 

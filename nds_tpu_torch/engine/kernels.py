@@ -29,10 +29,14 @@ join_probe             ``fused_probe`` (K5), ``csrc/join_probe.cu``       probe 
 =====================  ================================================  ===========================
 
 What bounds them on an H100: one read of each row's value and group id
-(16 bytes a row) against device-memory bandwidth, plus the global atomics
-(see the note at the top of the CUDA source). The design is one thread per
-row in a grid-stride loop with global atomics; privatised shared-memory
-histograms and warp-aggregated atomics are later work.
+(16 bytes a row) against device-memory bandwidth; global atomics on few
+groups serialise. ``segment_sum_i64`` therefore has two kernels, chosen by
+:func:`segment_plan` from ``ngroups``: block-private shared-memory
+partials for up to ``G_PRIV`` groups, one global atomic a row above that.
+``join_probe`` builds a radix directory over the build side on each call
+and searches only the probe hash's bucket (:func:`probe_bits`,
+:func:`probe_directory_plain`). K2 and K3 are still one thread per row with
+global atomics. The notes at the top of each CUDA source say more.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain PyTorch version only for a tensor on the CPU. ``LAUNCHES`` counts
@@ -53,6 +57,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -159,14 +164,15 @@ def _lib():
         with _LIB_LOCK:
             if _LIB is None:
                 lib = ctypes.CDLL(build())
-                vp, ll = ctypes.c_void_p, ctypes.c_longlong
-                for name in ("nds_seg_sum_i64", "nds_seg_sum_f64"):
-                    fn = getattr(lib, name)
-                    fn.argtypes = [vp, vp, ll, ll, vp, vp, vp]
-                    fn.restype = ctypes.c_int
+                vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+                lib.nds_seg_sum_i64.argtypes = [vp, vp, ll, ll, vp, vp, ci,
+                                                ci, ci, vp]
+                lib.nds_seg_sum_f64.argtypes = [vp, vp, ll, ll, vp, vp, vp]
                 lib.nds_seg_minmax_f64.argtypes = [vp, vp, ll, ll, vp, vp,
                                                    vp, vp, vp]
-                lib.nds_seg_minmax_f64.restype = ctypes.c_int
+                for name in ("nds_seg_sum_i64", "nds_seg_sum_f64",
+                             "nds_seg_minmax_f64"):
+                    getattr(lib, name).restype = ctypes.c_int
                 for name, struct in (("nds_chunk_scan", _ScanArgs),
                                      ("nds_join_probe", _ProbeArgs)):
                     fn = getattr(lib, name)
@@ -228,6 +234,68 @@ def segment_sum_i64_plain(values, gids, ngroups):
     return sums, counts
 
 
+# The private path keeps 16 B a group in a block's shared memory and runs a
+# persistent grid of at most PRIV_PER_SM blocks of PRIV_THREADS threads an
+# SM (fewer where the shared memory runs out); each block adds its
+# non-empty groups to global memory at the end. It runs up to G_PRIV
+# groups, as many as a block's shared memory holds; above that each row
+# makes its own global atomics ("global"). The sweep behind these numbers
+# is chip_smoke.py's k1_sweep (PERF.md section 6).
+SMEM_BLOCK_CAP = 232448          # 227 KB: a block's dynamic shared memory
+SMEM_SM = 233472                 # 228 KB: an SM's, shared by its blocks
+SMEM_RESERVED = 1024             # the runtime's own share of each block
+G_PRIV = SMEM_BLOCK_CAP // 16    # 14,528 groups
+PRIV_THREADS = 512
+PRIV_PER_SM = 2
+GLOBAL_THREADS = 256             # csrc/segment_agg.cu kThreads
+# path codes shared with csrc/segment_agg.cu nds_seg_sum_i64
+_SEG_PATHS = {"empty": 0, "private": 1, "global": 2}
+
+
+class SegmentPlan(NamedTuple):
+    """How one K1 launch runs: ``path`` ("empty" launches nothing,
+    "private" or "global"), the ``grid`` in blocks and the dynamic
+    shared-memory ``smem`` in bytes."""
+    path: str
+    grid: int
+    smem: int
+
+
+def segment_plan(n: int, ngroups: int, sms: int = 132, g_priv: int = G_PRIV,
+                 per_sm: int = PRIV_PER_SM) -> SegmentPlan:
+    """The K1 path for ``n`` rows into ``ngroups`` groups on a card of
+    ``sms`` SMs: block-private partials up to ``g_priv`` groups (as long as
+    a block's shared memory holds them), global atomics above."""
+    if n <= 0 or ngroups <= 0:
+        return SegmentPlan("empty", 0, 0)
+    smem = 16 * ngroups
+    if ngroups <= g_priv and smem <= SMEM_BLOCK_CAP:
+        fit = SMEM_SM // (smem + SMEM_RESERVED)
+        blocks = sms * max(1, min(per_sm, fit))
+        pairs = (n + 1) // 2
+        grid = max(1, min(blocks, -(-pairs // PRIV_THREADS)))
+        return SegmentPlan("private", grid, smem)
+    grid = max(1, min(-(-n // GLOBAL_THREADS), sms * 64))
+    return SegmentPlan("global", grid, 0)
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _seg_i64_args(values, gids, ngroups, plan=None):
+    """The ``nds_seg_sum_i64`` arguments of one K1 launch and its zeroed
+    outputs; ``plan`` defaults to :func:`segment_plan` for this card."""
+    dev, n = gids.device, gids.numel()
+    if plan is None:
+        plan = segment_plan(n, ngroups, _sm_count(dev))
+    sums = torch.zeros(ngroups, dtype=I64, device=dev)
+    counts = torch.zeros(ngroups, dtype=I64, device=dev)
+    args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(sums), _ptr(counts),
+            _SEG_PATHS[plan.path], plan.grid, plan.smem, _stream(gids))
+    return args, sums, counts
+
+
 def segment_sum_i64(values: torch.Tensor, gids: torch.Tensor, ngroups: int):
     """Per group: the exact int64 sum of ``values`` (wrapping mod 2^64) and
     the row count, over rows with ``0 <= gid < ngroups``."""
@@ -235,12 +303,8 @@ def segment_sum_i64(values: torch.Tensor, gids: torch.Tensor, ngroups: int):
         return segment_sum_i64_plain(values, gids, ngroups)
     _check_inputs("segment_sum_i64", values, gids, I64)
     values, gids = values.contiguous(), gids.contiguous()
-    sums = torch.zeros(ngroups, dtype=I64, device=gids.device)
-    counts = torch.zeros(ngroups, dtype=I64, device=gids.device)
-    rc = _lib().nds_seg_sum_i64(_ptr(values), _ptr(gids), gids.numel(),
-                                ngroups, _ptr(sums), _ptr(counts),
-                                _stream(gids))
-    _check("segment_sum_i64", rc)
+    args, sums, counts = _seg_i64_args(values, gids, ngroups)
+    _check("segment_sum_i64", _lib().nds_seg_sum_i64(*args))
     LAUNCHES["segment_sum_i64"] += 1
     return sums, counts
 
@@ -726,6 +790,29 @@ def join_probe_plain(views, valids, n_valid, excluded, rh_sorted):
     return hi - lo, lo
 
 
+PROBE_BITS_MIN, PROBE_BITS_MAX = 10, 20
+
+
+def probe_bits(r: int) -> int:
+    """Directory bits B for ``r`` build rows: ceil(log2 r), so a bucket
+    holds about one entry, clamped to [10, 20] (at most a 4 MB directory,
+    which stays in L2)."""
+    return min(max((max(r, 1) - 1).bit_length(), PROBE_BITS_MIN),
+               PROBE_BITS_MAX)
+
+
+def probe_directory_plain(rh_sorted: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain version of the K5 directory (csrc/join_probe.cu
+    ``probe_directory_kernel``): int32 ``dir[0 .. 2^bits]``, ``dir[b]`` the
+    first position of ``rh_sorted`` (bit-63-flipped hashes, ascending)
+    whose unsigned top-``bits`` bucket is ``>= b``."""
+    nb = 1 << bits
+    # the flipped value's arithmetic shift is the unsigned bucket - nb/2
+    buckets = (rh_sorted >> (64 - bits)) + (nb >> 1)
+    edges = torch.arange(nb + 1, dtype=I64, device=rh_sorted.device)
+    return torch.searchsorted(buckets.contiguous(), edges).to(torch.int32)
+
+
 class _ProbeArgs(ctypes.Structure):
     """The argument block of ``nds_join_probe`` (csrc/join_probe.cu
     ``NdsProbeArgs``, field for field)."""
@@ -738,7 +825,8 @@ class _ProbeArgs(ctypes.Structure):
                 ("n_valid_host", ctypes.c_longlong),
                 ("rh_sorted", ctypes.c_void_p), ("r", ctypes.c_longlong),
                 ("n", ctypes.c_longlong), ("counts", ctypes.c_void_p),
-                ("lo", ctypes.c_void_p)]
+                ("lo", ctypes.c_void_p), ("dir", ctypes.c_void_p),
+                ("bits", ctypes.c_int), ("pad2_", ctypes.c_int)]
 
 
 _PROBE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
@@ -746,8 +834,8 @@ _PROBE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
 
 
 def _probe_args(views, valids, n_valid, excluded, rh_sorted):
-    """(argument block, keep-alive tensors, counts, lo) of one K5
-    launch."""
+    """(argument block, keep-alive tensors, counts, lo) of one K5 launch;
+    the directory scratch is ``keep[1]``."""
     dev = rh_sorted.device
     if dev.type != "cuda":
         raise ValueError(f"join_probe: kernel needs CUDA tensors, got {dev}")
@@ -755,9 +843,15 @@ def _probe_args(views, valids, n_valid, excluded, rh_sorted):
         raise ValueError(f"join_probe: 1 to {_SCAN_MAX_KEYS} key views")
     if rh_sorted.dtype != I64 or rh_sorted.dim() != 1:
         raise ValueError("join_probe: rh_sorted must be 1-D int64")
+    r = int(rh_sorted.shape[0])
+    if r >= 1 << 31:
+        raise ValueError("join_probe: the directory holds int32 positions, "
+                         f"r = {r} is too large")
     n = int(views[0].shape[0])
     a = _ProbeArgs()
-    keep = [rh_sorted.contiguous()]
+    bits = probe_bits(r)
+    keep = [rh_sorted.contiguous(),
+            torch.empty((1 << bits) + 1, dtype=torch.int32, device=dev)]
     for i, (v, ok) in enumerate(zip(views, valids)):
         v = _cuda_1d("join_probe", v, dev, n, _PROBE_DTYPES)
         a.views[i] = v.data_ptr()
@@ -782,7 +876,8 @@ def _probe_args(views, valids, n_valid, excluded, rh_sorted):
     else:
         a.n_valid_host = int(n_valid)
     a.rh_sorted = keep[0].data_ptr()
-    a.r = int(rh_sorted.shape[0])
+    a.r = r
+    a.dir, a.bits = keep[1].data_ptr(), bits
     a.n = n
     counts = torch.empty(n, dtype=I64, device=dev)
     lo = torch.empty(n, dtype=I64, device=dev)
@@ -814,12 +909,13 @@ def join_probe(views, valids, n_valid, excluded, rh_sorted):
 # ---------------------------------------------------------------------------
 
 
-def launcher(name: str, *args):
+def launcher(name: str, *args, plan: SegmentPlan | None = None):
     """A function that launches kernel ``name`` (a key of ``LAUNCHES``)
     once on outputs allocated here, with no input check, allocation or
     count per call: what a measurement of the kernel's own device time
-    calls in a loop. ``args`` are the wrapper's arguments. Sums
-    accumulate across calls; nothing reads them."""
+    calls in a loop. ``args`` are the wrapper's arguments; K1 also takes
+    ``plan=`` (a :class:`SegmentPlan`) in place of the card's own, for a
+    sweep. Sums accumulate across calls; nothing reads them."""
     if name in ("chunk_scan", "join_probe"):
         build_args, fn_name = {"chunk_scan": (_scan_args, "nds_chunk_scan"),
                                "join_probe": (_probe_args,
@@ -832,10 +928,11 @@ def launcher(name: str, *args):
             _check(name, fn(ref, stream))
             return keep, out, out2
         return launch
-    return _segment_launcher(name, *args)
+    return _segment_launcher(name, *args, plan=plan)
 
 
-def _segment_launcher(name: str, values, gids: torch.Tensor, ngroups: int):
+def _segment_launcher(name: str, values, gids: torch.Tensor, ngroups: int,
+                      plan: SegmentPlan | None = None):
     _check_inputs(name, values, gids, F64 if name.endswith("f64") else I64)
     values, gids = values.contiguous(), gids.contiguous()
     dev, n = gids.device, gids.numel()
@@ -846,14 +943,17 @@ def _segment_launcher(name: str, values, gids: torch.Tensor, ngroups: int):
         args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(keys[0]),
                 _ptr(keys[1]), _ptr(out[0]), _ptr(out[1]), _stream(gids))
         fn = _lib().nds_seg_minmax_f64
+    elif name == "segment_sum_i64":
+        args, sums, counts = _seg_i64_args(values, gids, ngroups, plan)
+        outs = (sums, counts)
+        fn = _lib().nds_seg_sum_i64
     else:
-        sums = torch.zeros(ngroups, dtype=values.dtype, device=dev)
+        sums = torch.zeros(ngroups, dtype=F64, device=dev)
         counts = torch.zeros(ngroups, dtype=I64, device=dev)
         outs = (sums, counts)
         args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(sums),
                 _ptr(counts), _stream(gids))
-        fn = {"segment_sum_i64": _lib().nds_seg_sum_i64,
-              "segment_sum_f64": _lib().nds_seg_sum_f64}[name]
+        fn = _lib().nds_seg_sum_f64
 
     def launch():
         _check(name, fn(*args))

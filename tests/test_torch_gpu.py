@@ -217,3 +217,149 @@ def test_cuda_join_probe_matches_plain(cuda, n, r, nkeys, n_valid):
     assert torch.equal(c, pc) and torch.equal(lo, plo)
     c2, lo2 = K.join_probe(*args[:2], n_valid, *args[3:])   # host n_valid
     assert torch.equal(c2, pc) and torch.equal(lo2, plo)
+
+
+# ------------------------------------------------------ K1 paths, K5 directory
+
+
+def _k1_case(rng, n, G):
+    g = _gids(rng, n, G)
+    v = rng.integers(I64_MIN, I64_MAX, size=n, dtype=np.int64)
+    # wrap: extremes in group 0, many times over
+    v[:8] = [I64_MAX, I64_MAX, I64_MIN, I64_MIN, I64_MAX, -1, 1, I64_MIN]
+    g[:8] = 0
+    return g, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 31, 1000, K.G_PRIV, K.G_PRIV + 1,
+                               100000])
+def test_k1_paths_bit_exact(cuda, G):
+    """Every K1 path against the plain version, with wrapping extremes, an
+    odd row count that is no multiple of a block, and views offset by one
+    row (8-byte loads instead of 16-byte ones)."""
+    rng = np.random.default_rng(G + 17)
+    n = (1 << 18) + 1235
+    g, v = _k1_case(rng, n, G)
+    gt, vt = _t(g).to(cuda), _t(v).to(cuda)
+    plan = K.segment_plan(n, G, K._sm_count(cuda))
+    assert plan.path == ("private" if G <= K.G_PRIV else "global")
+    for a, b in ((vt, gt), (vt[1:], gt[1:]), (vt[1:], gt[:-1])):
+        s, c = K.segment_sum_i64(a, b, G)
+        ps, pc = K.segment_sum_i64_plain(a, b, G)
+        assert torch.equal(s, ps) and torch.equal(c, pc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 1000, 100000])
+def test_k1_empty_input_and_all_rows_dropped(cuda, G):
+    e = torch.empty(0, dtype=torch.int64, device=cuda)
+    for s in K.segment_sum_i64(e, e, G):
+        assert s.shape == (G,) and not bool(s.any())
+    n = 5000
+    g = torch.where(torch.arange(n, device=cuda) % 2 == 0,
+                    torch.full((n,), -1, device=cuda),
+                    torch.full((n,), G + 3, device=cuda))
+    v = torch.arange(n, dtype=torch.int64, device=cuda)
+    for s in K.segment_sum_i64(v, g, G):
+        assert not bool(s.any())
+
+
+@pytest.mark.gpu
+def test_k1_every_plan_gives_the_same_sums(cuda):
+    """The sweep's plans (private at 1-4 blocks an SM, global) all compute
+    the plain version's bits."""
+    rng = np.random.default_rng(5)
+    n, G = 1 << 20, 256
+    g, v = _k1_case(rng, n, G)
+    gt, vt = _t(g).to(cuda), _t(v).to(cuda)
+    ps, pc = K.segment_sum_i64_plain(vt, gt, G)
+    sms = K._sm_count(cuda)
+    plans = [K.segment_plan(n, G, sms, per_sm=p) for p in (1, 2, 3, 4)]
+    plans.append(K.segment_plan(n, G, sms, g_priv=0))
+    assert [p.path for p in plans] == ["private"] * 4 + ["global"]
+    for plan in plans:
+        s, c = K.launcher("segment_sum_i64", vt, gt, G, plan=plan)()
+        assert torch.equal(s, ps) and torch.equal(c, pc)
+
+
+def _fanout_build(rng, r):
+    """r build keys: fanout 4 over distinct keys, one key repeated up to
+    1,000 times, null build rows and pad rows past the live count."""
+    hot = min(1000, r // 2)
+    keys = np.concatenate([np.full(hot, 5, dtype=np.int64), np.repeat(
+        rng.integers(10, 1 << 40, (r - hot + 3) // 4), 4)[:r - hot]])
+    valid = rng.random(r) > 0.05
+    return keys, valid, r - r // 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [0, 1, 1000, 102_000, 1 << 20])
+@pytest.mark.parametrize("probe", ["mixed", "unmatchable"])
+def test_k5_directory_probe_bit_exact(cuda, r, probe):
+    from nds_tpu_torch.engine import ops as PO
+    rng = np.random.default_rng(r + len(probe))
+    keys, valid, live = _fanout_build(rng, r)
+    rh = PO.unsigned_order(PO._key_hash_impl(
+        (_t(keys).to(cuda),), (_t(valid).to(cuda),), 1, False, live, None))
+    rh_sorted = torch.sort(rh).values
+    n = 1 << 16
+    pool = keys if r else np.arange(1, 10, dtype=np.int64)
+    lk = np.where(rng.random(n) < 0.7, rng.choice(pool, n),
+                  rng.integers(1 << 41, 1 << 42, n))
+    lv = rng.random(n) > 0.05
+    excl = rng.random(n) > 0.9
+    if probe == "unmatchable":
+        lv[:] = False
+    args = ((_t(lk).to(cuda),), (_t(lv).to(cuda),),
+            torch.tensor(n - 100, dtype=torch.int64, device=cuda),
+            _t(excl).to(cuda), rh_sorted)
+    before = K.LAUNCHES["join_probe"]
+    c, lo = K.join_probe(*args)
+    assert K.LAUNCHES["join_probe"] == before + 1
+    pc, plo = K.join_probe_plain(*args)
+    assert torch.equal(c, pc) and torch.equal(lo, plo)
+    if probe == "unmatchable":
+        assert not bool(c.any())
+    elif r >= 1000:
+        # the hot key's live, non-null build rows all match
+        assert int(c.max()) == int(valid[:min(1000, r // 2)].sum())
+    # the card's directory against its plain version
+    import ctypes
+    block, keep, c2, _lo2 = K._probe_args(*args)
+    K._check("join_probe", K._lib().nds_join_probe(ctypes.byref(block),
+                                                   K._stream(c2)))
+    torch.cuda.synchronize()
+    assert torch.equal(keep[1], K.probe_directory_plain(
+        rh_sorted, K.probe_bits(r)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [0, 3, 40])
+def test_k5_directory_of_a_sparse_build_side(cuda, live):
+    """A 2^20-row build side of which all but ``live`` rows are null:
+    the few real hashes leave gaps of thousands of buckets, which whole
+    blocks fill."""
+    from nds_tpu_torch.engine import ops as PO
+    rng = np.random.default_rng(live)
+    r = 1 << 20
+    keys = rng.integers(0, 1 << 40, r)
+    valid = np.zeros(r, dtype=bool)
+    valid[rng.choice(r, live, replace=False)] = True
+    rh_sorted = torch.sort(PO.unsigned_order(PO._key_hash_impl(
+        (_t(keys).to(cuda),), (_t(valid).to(cuda),), 1, False, r,
+        None))).values
+    n = 4096
+    lk = np.concatenate([keys[valid], rng.integers(0, 1 << 40,
+                                                   n - live)])
+    args = ((_t(lk).to(cuda),), (None,), n, None, rh_sorted)
+    c, lo = K.join_probe(*args)
+    pc, plo = K.join_probe_plain(*args)
+    assert torch.equal(c, pc) and torch.equal(lo, plo)
+    assert live == 0 or int(c[:live].min()) >= 1
+    import ctypes
+    block, keep, c2, _lo2 = K._probe_args(*args)
+    K._check("join_probe", K._lib().nds_join_probe(ctypes.byref(block),
+                                                   K._stream(c2)))
+    torch.cuda.synchronize()
+    assert torch.equal(keep[1], K.probe_directory_plain(rh_sorted, 20))
