@@ -88,12 +88,16 @@ MINMAX_SQL = ("select ss_store_sk, min(ss_sales_price / ss_quantity) lo, "
 SEED = 19620718
 SF1_ROWS = 2880404            # store_sales rows at SF1
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM published device-memory rate
-KERNEL_GROUPS = (1, 1000, 100000)
-K1_GROUPS = (16, 256, 4096)          # K1 alone, beside KERNEL_GROUPS
-K1_COLD_GROUPS = (1, 1000)
-# the K1 sweep: group counts across both paths, blocks an SM on the
-# private one (14528 groups fill a block's 227 KB)
+K1_GROUPS = (1, 16, 256, 1000, 4096, 100000)
+K23_GROUPS = (1, 16, 1000, 100000)
+COLD_GROUPS = (1, 1000)              # also timed with a cold L2
+# the sweeps: group counts across both paths, blocks an SM on the private
+# one (14528 groups at 16 B fill a block's 227 KB); K2/K3 also where the
+# K2 designs cross, and past the cap of a count-only K2 launch (4 B a
+# group: 58112 fill a block)
 SWEEP_GROUPS = (1, 2, 16, 256, 1000, 4096, 8192, 14528)
+K23_SWEEP_GROUPS = (1, 2, 16, 32, 64, 128, 256, 1000, 4096, 8192, 14528,
+                    29056, 58112, 100000)
 SWEEP_PER_SM = (1, 2, 3, 4)
 # a cold-L2 time writes this much (more than the H100's 50 MB L2) before
 # each launch
@@ -215,33 +219,118 @@ def bits_equal(torch, a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def k1_record(torch, K, n, G, gids, ivals, lib_gids, bound_ms):
-    """K1 against its plain version at one G, with its times."""
-    s, c = K.segment_sum_i64(ivals, gids, G)
-    ps, pc = K.segment_sum_i64_plain(ivals, gids, G)
-    torch.cuda.synchronize()
-    good = bits_equal(torch, s, ps) and bits_equal(torch, c, pc)
-    err = 0.0 if good else float((s - ps).abs().max())
-    launch = K.launcher("segment_sum_i64", ivals, gids, G)
-    rec = dict(
-        G=G, n=n, ok=good, max_abs_err=err, tol="bit-exact",
-        path=K.segment_plan(n, G, K._sm_count(gids.device)).path,
-        ms=cuda_ms(torch, launch, reps=KERNEL_REPS),
-        wrapper_ms=cuda_ms(torch, lambda: K.segment_sum_i64(ivals, gids,
-                                                            G)),
-        plain_ms=cuda_ms(torch, lambda: K.segment_sum_i64_plain(
-            ivals, gids, G)),
-        library_ms=cuda_ms(torch, lambda: torch.zeros(
-            G + 1, dtype=torch.int64, device=gids.device).index_add_(
-                0, lib_gids, ivals)),
-        library_call="index_add_ (int64 sums)",
-        bound_ms=bound_ms, bound_by="bytes")
-    if G in K1_COLD_GROUPS:
+def bytes_bound_ms(nbytes) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def timed(torch, G, launch, wrapper, plain, library):
+    """A kernel's times at one G: its own (raw launches on preallocated
+    outputs), its wrapper's, its plain version's and the library call's;
+    at ``COLD_GROUPS`` also the kernel and the library call with a cold
+    L2."""
+    rec = dict(ms=cuda_ms(torch, launch, reps=KERNEL_REPS),
+               wrapper_ms=cuda_ms(torch, wrapper),
+               plain_ms=cuda_ms(torch, plain),
+               library_ms=cuda_ms(torch, library))
+    if G in COLD_GROUPS:
         rec["cold_ms"], rec["flush_ms"] = cold_ms(torch, launch)
-        rec["library_cold_ms"], _ = cold_ms(torch, lambda: torch.zeros(
-            G + 1, dtype=torch.int64, device=gids.device).index_add_(
-                0, lib_gids, ivals))
+        rec["library_cold_ms"], _ = cold_ms(torch, library)
     return rec
+
+
+def seg_agree(torch, name, got, want):
+    """(ok, max_abs_err, max_rel_err) of a K1-K3 result against the plain
+    version's: K1, K3 and every count bit for bit, K2 sums within rel
+    1e-9 (float atomics add in no fixed order)."""
+    a, b = got, want
+    if name == "segment_minmax_f64":
+        good = bits_equal(torch, a[0], b[0]) and bits_equal(torch, a[1], b[1])
+        fin = torch.isfinite(a[0]) & torch.isfinite(b[0])
+        err = 0.0 if good or not bool(fin.any()) else float(
+            (a[0] - b[0])[fin].abs().max())
+        return good, err, 0.0
+    counts_ok = bits_equal(torch, a[1], b[1])
+    if name == "segment_sum_i64" or a[0].numel() == 0:
+        good = counts_ok and bits_equal(torch, a[0], b[0])
+        err = 0.0 if good else float((a[0] - b[0]).abs().max().float() +
+                                     (a[1] - b[1]).abs().max().float())
+        return good, err, 0.0
+    rel = float(((a[0] - b[0]).abs() / b[0].abs().clamp(min=1e-300)).max())
+    err = float((a[0] - b[0]).abs().max()) + float(
+        (a[1] - b[1]).abs().max())
+    return counts_ok and rel <= 1e-9, err, rel
+
+
+def library_call(torch, name, vals, lib_gids, G):
+    """(the one PyTorch computation of the same per-group values, its
+    name). Out-of-range rows go to a discard slot G. K3 takes two calls
+    (min, then max); ``vals`` None is a count-only K2."""
+    dev = lib_gids.device
+    if name == "segment_sum_i64":
+        return (lambda: torch.zeros(G + 1, dtype=torch.int64,
+                                    device=dev).index_add_(0, lib_gids,
+                                                           vals),
+                "index_add_ (int64 sums)")
+    if name == "segment_sum_f64" and vals is None:
+        return (lambda: torch.bincount(lib_gids, minlength=G + 1),
+                "bincount (counts)")
+    if name == "segment_sum_f64":
+        return (lambda: torch.zeros(G + 1, dtype=torch.float64,
+                                    device=dev).index_add_(0, lib_gids,
+                                                           vals),
+                "index_add_ (float64 sums)")
+
+    def both():
+        return (amin(), torch.full(
+            (G + 1,), -math.inf, dtype=torch.float64,
+            device=dev).scatter_reduce_(0, lib_gids, vals, "amax",
+                                        include_self=True))
+
+    def amin():
+        return torch.full((G + 1,), math.inf, dtype=torch.float64,
+                          device=dev).scatter_reduce_(
+                              0, lib_gids, vals, "amin", include_self=True)
+    both.amin = amin
+    return both, "scatter_reduce_ amin + amax (2 calls)"
+
+
+def seg_record(torch, K, name, n, G, gids, vals, lib_gids):
+    """K1, K2 (``vals`` None: count-only) or K3 against its plain version
+    at one G, with its times, its bytes bound and the path its plan
+    takes."""
+    wrapper = getattr(K, name)
+    plain = getattr(K, name + "_plain")
+    got = wrapper(vals, gids, G)
+    want = plain(vals, gids, G)
+    torch.cuda.synchronize()
+    good, err, rel = seg_agree(torch, name, got, want)
+    count_only = vals is None
+    library, call = library_call(torch, name, vals, lib_gids, G)
+    nbytes = (8 * n + 8 * G) if count_only else (16 * n + 16 * G)
+    rec = dict(
+        G=G, n=n, count_only=count_only, ok=good, max_abs_err=err,
+        max_rel_err=rel,
+        tol="counts exact, sums rel 1e-9" if name == "segment_sum_f64"
+        else "bit-exact",
+        path=K.plan_for(name, n, G, gids.device, count_only).path,
+        **timed(torch, G, K.launcher(name, vals, gids, G),
+                lambda: wrapper(vals, gids, G),
+                lambda: plain(vals, gids, G), library),
+        library_call=call, bound_ms=bytes_bound_ms(nbytes),
+        bound_by="bytes", bytes=nbytes)
+    if name == "segment_minmax_f64":
+        rec["library_amin_ms"] = cuda_ms(torch, library.amin)
+        rec["nan_groups"] = int(torch.isnan(got[0]).sum())
+        rec["empty_groups"] = int(torch.isinf(got[0]).sum())
+    return rec
+
+
+def lib_gids_of(torch, gids, G):
+    """The library yardstick's group ids: out-of-range rows routed to a
+    discard slot G, so one library call computes the same per-group
+    values."""
+    return torch.where((gids >= 0) & (gids < G), gids,
+                       torch.full_like(gids, G))
 
 
 def kernel_phase(torch, K):
@@ -250,71 +339,26 @@ def kernel_phase(torch, K):
     n = SF1_ROWS
     records = {name: [] for name in ("segment_sum_i64", "segment_sum_f64",
                                      "segment_minmax_f64")}
-    ok = True
-    for G in sorted(KERNEL_GROUPS + K1_GROUPS):
+    for G in sorted(set(K1_GROUPS + K23_GROUPS)):
         gids, ivals, fvals, mvals = kernel_inputs(torch, n, G, rng)
-        # library yardstick input: out-of-range rows routed to a discard
-        # slot G, so one library call computes the same per-group values
-        lib_gids = torch.where((gids >= 0) & (gids < G), gids,
-                               torch.full_like(gids, G))
-        bytes_moved = 16 * n + 16 * G       # values + gids in, 2 x G out
-        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-
-        # K1: exact int64 sum + count
-        records["segment_sum_i64"].append(k1_record(
-            torch, K, n, G, gids, ivals, lib_gids, bound_ms))
-        if G not in KERNEL_GROUPS:
-            ok = ok and records["segment_sum_i64"][-1]["ok"]
-            continue
-
-        # K2: f64 sum + int64 count
-        s, c = K.segment_sum_f64(fvals, gids, G)
-        ps, pc = K.segment_sum_f64_plain(fvals, gids, G)
-        torch.cuda.synchronize()
-        rel = ((s - ps).abs() / ps.abs().clamp(min=1e-300)).max()
-        err = float((s - ps).abs().max())
-        good = bits_equal(torch, c, pc) and float(rel) <= 1e-9
-        records["segment_sum_f64"].append(dict(
-            G=G, n=n, ok=good, max_abs_err=err, max_rel_err=float(rel),
-            tol="counts exact, sums rel 1e-9",
-            ms=cuda_ms(torch, K.launcher("segment_sum_f64", fvals, gids,
-                                         G), reps=KERNEL_REPS),
-            wrapper_ms=cuda_ms(torch, lambda: K.segment_sum_f64(
-                fvals, gids, G)),
-            plain_ms=cuda_ms(torch, lambda: K.segment_sum_f64_plain(
-                fvals, gids, G)),
-            library_ms=cuda_ms(torch, lambda: torch.zeros(
-                G + 1, dtype=torch.float64, device=gids.device).index_add_(
-                    0, lib_gids, fvals)),
-            library_call="index_add_ (float64 sums)",
-            bound_ms=bound_ms, bound_by="bytes"))
-
-        # K3: f64 min + max
-        mn, mx = K.segment_minmax_f64(mvals, gids, G)
-        pmn, pmx = K.segment_minmax_f64_plain(mvals, gids, G)
-        torch.cuda.synchronize()
-        good = bits_equal(torch, mn, pmn) and bits_equal(torch, mx, pmx)
-        fin = torch.isfinite(mn) & torch.isfinite(pmn)
-        err = 0.0 if good else float((mn - pmn)[fin].abs().max())
-        records["segment_minmax_f64"].append(dict(
-            G=G, n=n, ok=good, max_abs_err=err, tol="bit-exact",
-            nan_groups=int(torch.isnan(mn).sum()),
-            empty_groups=int(torch.isinf(mn).sum()),
-            ms=cuda_ms(torch, K.launcher("segment_minmax_f64", mvals, gids,
-                                         G), reps=KERNEL_REPS),
-            wrapper_ms=cuda_ms(torch, lambda: K.segment_minmax_f64(
-                mvals, gids, G)),
-            plain_ms=cuda_ms(torch, lambda: K.segment_minmax_f64_plain(
-                mvals, gids, G)),
-            library_ms=cuda_ms(torch, lambda: torch.full(
-                (G + 1,), float("inf"), dtype=torch.float64,
-                device=gids.device).scatter_reduce_(
-                    0, lib_gids, mvals, "amin", include_self=True)),
-            library_call="scatter_reduce_ amin (float64 mins)",
-            bound_ms=bound_ms, bound_by="bytes"))
-        ok = ok and all(r[-1]["ok"] for r in records.values())
+        lib_gids = lib_gids_of(torch, gids, G)
+        cases = [("segment_sum_i64", ivals)]
+        if G in K23_GROUPS:
+            # K2 with values first: the kernels line reads the first
+            # record at G = 1000
+            cases += [("segment_sum_f64", fvals), ("segment_sum_f64", None),
+                      ("segment_minmax_f64", mvals)]
+        for name, vals in cases:
+            records[name].append(seg_record(torch, K, name, n, G, gids,
+                                            vals, lib_gids))
         del gids, ivals, fvals, mvals, lib_gids
+    ok = all(r["ok"] for recs in records.values() for r in recs)
     return ok, records
+
+
+def sweep_key(plan, sms) -> str:
+    return plan.path if plan.path.startswith("global") else \
+        f"{plan.path}/{max(plan.grid // sms, 1)}"
 
 
 def k1_sweep(torch, K):
@@ -340,26 +384,97 @@ def k1_sweep(torch, K):
             torch.cuda.synchronize()
             good = bits_equal(torch, s, ps) and bits_equal(torch, c, pc)
             ok = ok and good
-            key = plan.path if plan.path == "global" else \
-                f"{plan.path}/{plan.grid // sms}"
-            times[key] = {"ms": cuda_ms(torch, launch, reps=KERNEL_REPS),
-                          "grid": plan.grid, "ok": good}
-        lib_gids = torch.where((gids >= 0) & (gids < G), gids,
-                               torch.full_like(gids, G))
+            times[sweep_key(plan, sms)] = {
+                "ms": cuda_ms(torch, launch, reps=KERNEL_REPS),
+                "grid": plan.grid, "ok": good}
+        lib_gids = lib_gids_of(torch, gids, G)
+        library, _call = library_call(torch, "segment_sum_i64", ivals,
+                                      lib_gids, G)
         out.append({"G": G, "n": n, "chosen": K.segment_plan(n, G, sms).path,
-                    "plans": times, "library_ms": cuda_ms(
-                        torch, lambda: torch.zeros(
-                            G + 1, dtype=torch.int64,
-                            device=gids.device).index_add_(0, lib_gids,
-                                                           ivals))})
+                    "plans": times, "library_ms": cuda_ms(torch, library)})
         del gids, ivals, _f, _m, ps, pc, lib_gids
     return ok, out
 
 
+def k23_plans(K, name, count_only, n, G, sms):
+    """The plans the K2/K3 sweep times: the private path at each of
+    ``SWEEP_PER_SM`` blocks an SM (as the shared memory allows), the
+    sweep's alternatives, and the global path."""
+    gb = K.group_bytes(name, n, count_only)
+    plans = sorted(set(
+        p for p in (K.segment_plan(n, G, sms, per_sm=q, group_bytes=gb)
+                    for q in SWEEP_PER_SM) if p.path == "private"))
+    if name == "segment_sum_f64" and not count_only and G > 1:
+        plans += [p._replace(path="private_warp") for p in plans]
+    glob = K.segment_plan(n, G, sms, g_priv=0)
+    plans.append(glob)
+    if name == "segment_minmax_f64":
+        plans.append(glob._replace(path="global_test"))
+    return plans
+
+
+def k23_sweep(torch, K):
+    """K2 (with values and count-only) and K3 at n = 2,880,404 across
+    ``K23_SWEEP_GROUPS``: every plan of :func:`k23_plans`, each checked
+    against the plain version (counts and K3 bit for bit, K2 sums within
+    rel 1e-9), with the library call beside them. (ok, [records])."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 2)
+    n, out, ok = SF1_ROWS, [], True
+    sms = K._sm_count(torch.device("cuda"))
+    for G in K23_SWEEP_GROUPS:
+        gids, _i, fvals, mvals = kernel_inputs(torch, n, G, rng)
+        lib_gids = lib_gids_of(torch, gids, G)
+        for name, vals in (("segment_sum_f64", fvals),
+                           ("segment_sum_f64", None),
+                           ("segment_minmax_f64", mvals)):
+            count_only = vals is None
+            want = getattr(K, name + "_plain")(vals, gids, G)
+            times = {}
+            for plan in k23_plans(K, name, count_only, n, G, sms):
+                launch = K.launcher(name, vals, gids, G, plan=plan)
+                got = launch()
+                if name == "segment_minmax_f64":
+                    got = (got[1][0], got[1][1])
+                torch.cuda.synchronize()
+                good, _err, rel = seg_agree(torch, name, got, want)
+                ok = ok and good
+                times[sweep_key(plan, sms)] = {
+                    "ms": cuda_ms(torch, launch, reps=KERNEL_REPS),
+                    "grid": plan.grid, "ok": good, "max_rel_err": rel}
+            library, call = library_call(torch, name, vals, lib_gids, G)
+            out.append({"kernel": name, "count_only": count_only, "G": G,
+                        "n": n, "chosen": K.plan_for(
+                            name, n, G, gids.device, count_only).path,
+                        "plans": times, "library_ms": cuda_ms(torch, library),
+                        "library_call": call})
+        del gids, _i, fvals, mvals, lib_gids
+    return ok, out
+
+
+def toolkit_tool(name):
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", name)
+    return tool if os.path.exists(tool) else shutil.which(name)
+
+
+def demangle(names):
+    """``names`` demangled by the toolkit's ``cu++filt`` where it has one
+    (else as they are)."""
+    tool = toolkit_tool("cu++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else \
+        {n: n for n in names}
+
+
 def build_report(K, text):
     """The ptxas report's spills and each kernel's registers, and the
-    shared-memory atomics in K1's SASS (``cuobjdump``, where the toolkit
-    has it)."""
+    atomics in the SASS of the grouped-aggregation row kernels
+    (``cuobjdump``, where the toolkit has it): shared (ATOMS) and global
+    (ATOM, RED) ones, per kernel instance."""
     import re
     spills, regs, name = {}, {}, None
     for line in text.splitlines():
@@ -375,9 +490,7 @@ def build_report(K, text):
         if m and name:
             regs[name] = int(m.group(1))
     atoms = None
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "cuobjdump")
-    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    tool = toolkit_tool("cuobjdump")
     if tool:
         out = subprocess.run([tool, "-sass", K.build()], capture_output=True,
                              text=True, timeout=300).stdout
@@ -386,14 +499,19 @@ def build_report(K, text):
             m = re.search(r"Function : (\w+)", line)
             if m:
                 fn = m.group(1)
-            elif fn and "seg_sum_i64_priv" in fn:
-                m = re.search(r"\b(ATOMS\.[\w.]+)", line)
+            elif fn and re.search(r"seg_priv|warp_kernel|seg_minmax_kernel|"
+                                  r"seg_sum_f64_kernel", fn):
+                m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[\w.]+)",
+                              line)
                 if m:
                     atoms.setdefault(fn, set()).add(m.group(1))
-        atoms = {k: sorted(v) for k, v in atoms.items()}
-    return {"spills": spills, "registers": {k: v for k, v in regs.items()
-                                            if "priv" in k or "probe" in k},
-            "priv_shared_atomics": atoms}
+        names = demangle(sorted(atoms))
+        atoms = {names[k]: sorted(v) for k, v in atoms.items()}
+    names = demangle(sorted(k for k in regs if re.search(
+        r"priv|probe|warp|minmax|seg_sum_f64", k)))
+    return {"spills": spills,
+            "registers": {v: regs[k] for k, v in names.items()},
+            "seg_atomics": atoms}
 
 
 def scan_inputs(torch, K, rng):
@@ -990,6 +1108,31 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries):
 # ---------------------------------------------------------------------------
 
 
+SEG_KERNELS = ("segment_sum_i64", "segment_sum_f64", "segment_minmax_f64")
+
+
+def group_histograms(seg_groups):
+    """The ``k1_groups`` and ``k23_groups`` lines from the Power Run's
+    launches, keyed (kernel, G, path, count-only)."""
+    lines = []
+    for phase, names in (("k1_groups", SEG_KERNELS[:1]),
+                         ("k23_groups", SEG_KERNELS[1:])):
+        by_path, hist = {}, []
+        for (name, g, path, count_only), cnt in sorted(seg_groups.items()):
+            if name not in names:
+                continue
+            key = path if phase == "k1_groups" else \
+                f"{name}/{path}" + ("/count_only" if count_only else "")
+            by_path[key] = by_path.get(key, 0) + cnt
+            rec = {"G": g, "path": path, "launches": cnt}
+            if phase == "k23_groups":
+                rec = {"kernel": name, "count_only": count_only, **rec}
+            hist.append(rec)
+        lines.append({"phase": phase, "scale": 1, "by_path": by_path,
+                      "histogram": hist})
+    return lines
+
+
 def tables_agree(a, b):
     """None when two arrow results agree (exact kinds bit for bit, doubles
     within rel 1e-5), else the first difference."""
@@ -1108,6 +1251,17 @@ def main() -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("k1_sweep")
     try:
+        ok, sweep = k23_sweep(torch, K)
+        for rec in sweep:
+            emit({"phase": "k23_sweep", **rec})
+        if not ok:
+            failed.append("k23_sweep")
+    except Exception:
+        import traceback
+        emit({"phase": "k23_sweep", "ok": False,
+              "error": traceback.format_exc()[-2000:]})
+        failed.append("k23_sweep")
+    try:
         ok, more = scan_probe_phase(torch, K)
         records.update(more)
         for name, recs in more.items():
@@ -1139,18 +1293,22 @@ def main() -> int:
         queries = gen_sql_from_stream(stream_file(1))
         summ = os.path.join(OUT, "power_json")
         shutil.rmtree(summ, ignore_errors=True)
-        # K1's group counts on the main path, by the path its plan takes
-        k1_groups = {}
-        real_k1 = K.segment_sum_i64
+        # K1-K3's group counts on the main path, by the path each launch's
+        # plan takes (and, for K2, whether it is count-only)
+        seg_groups = {}
+        reals = {name: getattr(K, name) for name in SEG_KERNELS}
 
-        def counting_k1(values, gids, ngroups):
-            if gids.device.type == "cuda":
-                path = K.segment_plan(gids.numel(), ngroups,
-                                      K._sm_count(gids.device)).path
-                key = (path, ngroups)
-                k1_groups[key] = k1_groups.get(key, 0) + 1
-            return real_k1(values, gids, ngroups)
-        K.segment_sum_i64 = counting_k1
+        def counting(name, real):
+            def wrapper(values, gids, ngroups):
+                if gids.device.type == "cuda":
+                    path = K.plan_for(name, gids.numel(), ngroups,
+                                      gids.device, values is None).path
+                    key = (name, ngroups, path, values is None)
+                    seg_groups[key] = seg_groups.get(key, 0) + 1
+                return real(values, gids, ngroups)
+            return wrapper
+        for name, real in reals.items():
+            setattr(K, name, counting(name, real))
         K.reset_launches()
         t0 = time.time()
         try:
@@ -1161,15 +1319,11 @@ def main() -> int:
             mm = session.sql(MINMAX_SQL).collect()
             torch.cuda.synchronize()
         finally:
-            K.segment_sum_i64 = real_k1
+            for name, real in reals.items():
+                setattr(K, name, real)
         launches = dict(K.LAUNCHES)
-        by_path = {}
-        for (path, _g), cnt in k1_groups.items():
-            by_path[path] = by_path.get(path, 0) + cnt
-        emit({"phase": "k1_groups", "scale": 1, "by_path": by_path,
-              "histogram": [{"G": g, "path": p, "launches": c}
-                            for (p, g), c in sorted(
-                                k1_groups.items(), key=lambda kv: kv[0][1])]})
+        for line in group_histograms(seg_groups):
+            emit(line)
         wall = time.time() - t0
         per_q = {}
         for fn in sorted(os.listdir(summ)):
@@ -1259,6 +1413,14 @@ def main() -> int:
         recs = records.get(name) or [{}]
         r = next((x for x in recs if x.get("G") == 1000
                   or x.get("r") == 102000), recs[0])
+        extra = {}
+        co = next((x for x in recs if x.get("G") == 1000
+                   and x.get("count_only")), None)
+        if co:
+            extra["count_only"] = {k: co.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
+        if "library_amin_ms" in r:
+            extra["library_amin_ms"] = r["library_amin_ms"]
         line.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCE[name],
                      "replaces": replaces, "launches": launches.get(name, 0),
@@ -1269,7 +1431,8 @@ def main() -> int:
                      "bound_by": r.get("bound_by", "bytes"),
                      "library_ms": r.get("library_ms"),
                      "cold_ms": r.get("cold_ms"),
-                     "n": r.get("n"), "G": r.get("G"), "r": r.get("r")})
+                     "n": r.get("n"), "G": r.get("G"), "r": r.get("r"),
+                     **extra})
     emit({"kernels": line})
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({"smi": smi, "kernels": line, "records": records,

@@ -29,14 +29,16 @@ join_probe             ``fused_probe`` (K5), ``csrc/join_probe.cu``       probe 
 =====================  ================================================  ===========================
 
 What bounds them on an H100: one read of each row's value and group id
-(16 bytes a row) against device-memory bandwidth; global atomics on few
-groups serialise. ``segment_sum_i64`` therefore has two kernels, chosen by
-:func:`segment_plan` from ``ngroups``: block-private shared-memory
-partials for up to ``G_PRIV`` groups, one global atomic a row above that.
+(16 bytes a row; 8 for a count-only ``segment_sum_f64``) against
+device-memory bandwidth; global atomics on few groups serialise. So each
+of K1-K3 has two kernels, chosen by :func:`segment_plan` from ``ngroups``
+and the shared-memory bytes a group takes (:func:`group_bytes`):
+block-private shared-memory partials for as many groups as a block's
+shared memory holds, one global atomic a row above that.
 ``join_probe`` builds a radix directory over the build side on each call
 and searches only the probe hash's bucket (:func:`probe_bits`,
-:func:`probe_directory_plain`). K2 and K3 are still one thread per row with
-global atomics. The notes at the top of each CUDA source say more.
+:func:`probe_directory_plain`). The notes at the top of each CUDA source
+say more.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain PyTorch version only for a tensor on the CPU. ``LAUNCHES`` counts
@@ -165,11 +167,12 @@ def _lib():
             if _LIB is None:
                 lib = ctypes.CDLL(build())
                 vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-                lib.nds_seg_sum_i64.argtypes = [vp, vp, ll, ll, vp, vp, ci,
-                                                ci, ci, vp]
-                lib.nds_seg_sum_f64.argtypes = [vp, vp, ll, ll, vp, vp, vp]
-                lib.nds_seg_minmax_f64.argtypes = [vp, vp, ll, ll, vp, vp,
-                                                   vp, vp, vp]
+                # values, gids, n, G, outputs, then path, grid, smem, stream
+                for name, outs in (("nds_seg_sum_i64", 2),
+                                   ("nds_seg_sum_f64", 2),
+                                   ("nds_seg_minmax_f64", 4)):
+                    getattr(lib, name).argtypes = [vp, vp, ll, ll] + \
+                        [vp] * outs + [ci, ci, ci, vp]
                 for name in ("nds_seg_sum_i64", "nds_seg_sum_f64",
                              "nds_seg_minmax_f64"):
                     getattr(lib, name).restype = ctypes.c_int
@@ -211,7 +214,7 @@ def _stream(t):
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _in_range(gids, ngroups):
@@ -234,42 +237,56 @@ def segment_sum_i64_plain(values, gids, ngroups):
     return sums, counts
 
 
-# The private path keeps 16 B a group in a block's shared memory and runs a
-# persistent grid of at most PRIV_PER_SM blocks of PRIV_THREADS threads an
-# SM (fewer where the shared memory runs out); each block adds its
-# non-empty groups to global memory at the end. It runs up to G_PRIV
-# groups, as many as a block's shared memory holds; above that each row
-# makes its own global atomics ("global"). The sweep behind these numbers
-# is chip_smoke.py's k1_sweep (PERF.md section 6).
+# The private path keeps a group's partials in a block's shared memory
+# (16 B a group for K1, K2 with values and K3; 4 B for a count-only K2
+# launch of fewer than 2^32 rows, else 8 B) and runs a persistent grid of at
+# most PRIV_PER_SM blocks of PRIV_THREADS threads an SM (fewer where the
+# shared memory runs out); each block folds its non-empty groups into
+# global memory at the end. It runs up to as many groups as a block's
+# shared memory holds (G_PRIV at 16 B a group); above that each row makes
+# its own global atomics ("global"). The sweeps behind these numbers are
+# chip_smoke.py's k1_sweep and k23_sweep (PERF.md section 6).
 SMEM_BLOCK_CAP = 232448          # 227 KB: a block's dynamic shared memory
 SMEM_SM = 233472                 # 228 KB: an SM's, shared by its blocks
 SMEM_RESERVED = 1024             # the runtime's own share of each block
-G_PRIV = SMEM_BLOCK_CAP // 16    # 14,528 groups
+G_PRIV = SMEM_BLOCK_CAP // 16    # 14,528 groups at 16 B a group
 PRIV_THREADS = 512
 PRIV_PER_SM = 2
 GLOBAL_THREADS = 256             # csrc/segment_agg.cu kThreads
-# path codes shared with csrc/segment_agg.cu nds_seg_sum_i64
-_SEG_PATHS = {"empty": 0, "private": 1, "global": 2}
+# a count-only launch of fewer rows keeps 4-byte counts: no block can see
+# 2^32 rows
+COUNT32_ROWS = 1 << 32
+# path codes shared with csrc/segment_agg.cu; "private_warp" (K2 with values
+# at G > 1: a warp's rows of one group summed before the shared atomic) and
+# "global_test" (K3: a row reads its group's key before the atomic) are the
+# sweep's alternatives to "private" and "global"
+_SEG_PATHS = {"empty": 0, "private": 1, "global": 2, "private_warp": 3,
+              "global_test": 4}
+_SEG_ENTRY = {"segment_sum_i64": "nds_seg_sum_i64",
+              "segment_sum_f64": "nds_seg_sum_f64",
+              "segment_minmax_f64": "nds_seg_minmax_f64"}
 
 
 class SegmentPlan(NamedTuple):
-    """How one K1 launch runs: ``path`` ("empty" launches nothing,
-    "private" or "global"), the ``grid`` in blocks and the dynamic
+    """How one K1-K3 launch runs: ``path`` ("empty" launches no row
+    kernel, "private" or "global"), the ``grid`` in blocks and the dynamic
     shared-memory ``smem`` in bytes."""
     path: str
     grid: int
     smem: int
 
 
-def segment_plan(n: int, ngroups: int, sms: int = 132, g_priv: int = G_PRIV,
-                 per_sm: int = PRIV_PER_SM) -> SegmentPlan:
-    """The K1 path for ``n`` rows into ``ngroups`` groups on a card of
-    ``sms`` SMs: block-private partials up to ``g_priv`` groups (as long as
-    a block's shared memory holds them), global atomics above."""
+def segment_plan(n: int, ngroups: int, sms: int = 132,
+                 g_priv: int | None = None, per_sm: int = PRIV_PER_SM,
+                 group_bytes: int = 16) -> SegmentPlan:
+    """The path for ``n`` rows into ``ngroups`` groups on a card of ``sms``
+    SMs, for a kernel that keeps ``group_bytes`` of shared memory a group:
+    block-private partials as long as a block's shared memory holds them
+    (and ``ngroups <= g_priv`` where given), global atomics above."""
     if n <= 0 or ngroups <= 0:
         return SegmentPlan("empty", 0, 0)
-    smem = 16 * ngroups
-    if ngroups <= g_priv and smem <= SMEM_BLOCK_CAP:
+    smem = group_bytes * ngroups
+    if (g_priv is None or ngroups <= g_priv) and smem <= SMEM_BLOCK_CAP:
         fit = SMEM_SM // (smem + SMEM_RESERVED)
         blocks = sms * max(1, min(per_sm, fit))
         pairs = (n + 1) // 2
@@ -279,21 +296,64 @@ def segment_plan(n: int, ngroups: int, sms: int = 132, g_priv: int = G_PRIV,
     return SegmentPlan("global", grid, 0)
 
 
+def group_bytes(name: str, n: int, count_only: bool = False) -> int:
+    """Shared-memory bytes a group takes on the private path of kernel
+    ``name`` (a K1-K3 key of ``LAUNCHES``) for ``n`` rows."""
+    if name == "segment_sum_f64" and count_only:
+        return 4 if n < COUNT32_ROWS else 8
+    return 16
+
+
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _seg_i64_args(values, gids, ngroups, plan=None):
-    """The ``nds_seg_sum_i64`` arguments of one K1 launch and its zeroed
-    outputs; ``plan`` defaults to :func:`segment_plan` for this card."""
+def plan_for(name: str, n: int, ngroups: int, dev,
+             count_only: bool = False) -> SegmentPlan:
+    """The plan the wrapper of ``name`` takes on ``dev``'s card."""
+    return segment_plan(n, ngroups, _sm_count(dev),
+                        group_bytes=group_bytes(name, n, count_only))
+
+
+def _seg_inputs(name, values, gids):
+    """A K1-K3 launch's inputs, checked and contiguous (values may be None
+    for ``segment_sum_f64``)."""
+    _check_inputs(name, values, gids, I64 if name == "segment_sum_i64"
+                  else F64)
+    return None if values is None else values.contiguous(), \
+        gids.contiguous()
+
+
+def _seg_args(name, values, gids, ngroups, plan=None):
+    """The C entry's arguments of one K1-K3 launch and its outputs
+    (zeroed sums and counts; for K3 the key scratch and the doubles);
+    ``plan`` defaults to :func:`plan_for` this card."""
     dev, n = gids.device, gids.numel()
     if plan is None:
-        plan = segment_plan(n, ngroups, _sm_count(dev))
-    sums = torch.zeros(ngroups, dtype=I64, device=dev)
-    counts = torch.zeros(ngroups, dtype=I64, device=dev)
-    args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(sums), _ptr(counts),
+        plan = plan_for(name, n, ngroups, dev, values is None)
+    if name == "segment_minmax_f64":
+        keys = torch.empty((2, ngroups), dtype=I64, device=dev)
+        out = torch.empty((2, ngroups), dtype=F64, device=dev)
+        outs = (keys, out)
+        ptrs = (_ptr(keys[0]), _ptr(keys[1]), _ptr(out[0]), _ptr(out[1]))
+    else:
+        sums = torch.zeros(ngroups, dtype=I64 if name == "segment_sum_i64"
+                           else F64, device=dev)
+        counts = torch.zeros(ngroups, dtype=I64, device=dev)
+        outs = (sums, counts)
+        ptrs = (_ptr(sums), _ptr(counts))
+    args = (_ptr(values), _ptr(gids), n, ngroups, *ptrs,
             _SEG_PATHS[plan.path], plan.grid, plan.smem, _stream(gids))
-    return args, sums, counts
+    return args, outs
+
+
+def _segment_launch(name, values, gids, ngroups):
+    """Check, launch and count one K1-K3 wrapper call: its outputs."""
+    values, gids = _seg_inputs(name, values, gids)
+    args, outs = _seg_args(name, values, gids, ngroups)
+    _check(name, getattr(_lib(), _SEG_ENTRY[name])(*args))
+    LAUNCHES[name] += 1
+    return outs
 
 
 def segment_sum_i64(values: torch.Tensor, gids: torch.Tensor, ngroups: int):
@@ -301,12 +361,7 @@ def segment_sum_i64(values: torch.Tensor, gids: torch.Tensor, ngroups: int):
     the row count, over rows with ``0 <= gid < ngroups``."""
     if gids.device.type == "cpu":
         return segment_sum_i64_plain(values, gids, ngroups)
-    _check_inputs("segment_sum_i64", values, gids, I64)
-    values, gids = values.contiguous(), gids.contiguous()
-    args, sums, counts = _seg_i64_args(values, gids, ngroups)
-    _check("segment_sum_i64", _lib().nds_seg_sum_i64(*args))
-    LAUNCHES["segment_sum_i64"] += 1
-    return sums, counts
+    return _segment_launch("segment_sum_i64", values, gids, ngroups)
 
 
 # ---------------------------------------------------------------------------
@@ -332,18 +387,7 @@ def segment_sum_f64(values, gids: torch.Tensor, ngroups: int):
     ``0 <= gid < ngroups``."""
     if gids.device.type == "cpu":
         return segment_sum_f64_plain(values, gids, ngroups)
-    _check_inputs("segment_sum_f64", values, gids, F64)
-    gids = gids.contiguous()
-    if values is not None:
-        values = values.contiguous()
-    sums = torch.zeros(ngroups, dtype=F64, device=gids.device)
-    counts = torch.zeros(ngroups, dtype=I64, device=gids.device)
-    rc = _lib().nds_seg_sum_f64(
-        None if values is None else _ptr(values), _ptr(gids), gids.numel(),
-        ngroups, _ptr(sums), _ptr(counts), _stream(gids))
-    _check("segment_sum_f64", rc)
-    LAUNCHES["segment_sum_f64"] += 1
-    return sums, counts
+    return _segment_launch("segment_sum_f64", values, gids, ngroups)
 
 
 # ---------------------------------------------------------------------------
@@ -361,8 +405,12 @@ def _key_f64(k):
     return torch.where(k >= 0, k, k ^ _KEY_MAX).view(F64)
 
 
-def segment_minmax_f64_plain(values, gids, ngroups):
-    """Plain version of :func:`segment_minmax_f64`."""
+def minmax_keys_plain(values, gids, ngroups):
+    """Per group, K3's (min, max) int64 keys before decoding: the
+    order-preserving key of each in-range row's double (a NaN takes
+    ``_KEY_MIN`` for the min and ``_KEY_MAX`` for the max, so it wins
+    both), reduced; an empty group keeps the identities ``_KEY_MAX`` and
+    ``_KEY_MIN``."""
     dev = gids.device
     ok = _in_range(gids, ngroups)
     g = gids[ok]
@@ -378,6 +426,13 @@ def segment_minmax_f64_plain(values, gids, ngroups):
     kmax = torch.full((ngroups,), _KEY_MIN, dtype=I64, device=dev)
     kmin = kmin.scatter_reduce(0, g, lo, "amin", include_self=True)
     kmax = kmax.scatter_reduce(0, g, hi, "amax", include_self=True)
+    return kmin, kmax
+
+
+def decode_minmax_keys(kmin, kmax):
+    """K3's last step: keys to doubles (empty groups +inf / -inf, a NaN
+    key NaN)."""
+    dev = kmin.device
     inf = torch.full((), float("inf"), dtype=F64, device=dev)
     nanv = torch.full((), float("nan"), dtype=F64, device=dev)
     mins = torch.where(kmin == _KEY_MAX, inf,
@@ -387,6 +442,11 @@ def segment_minmax_f64_plain(values, gids, ngroups):
     return mins, maxs
 
 
+def segment_minmax_f64_plain(values, gids, ngroups):
+    """Plain version of :func:`segment_minmax_f64`."""
+    return decode_minmax_keys(*minmax_keys_plain(values, gids, ngroups))
+
+
 def segment_minmax_f64(values: torch.Tensor, gids: torch.Tensor,
                        ngroups: int):
     """Per group: the float64 min and max of ``values`` over rows with
@@ -394,16 +454,7 @@ def segment_minmax_f64(values: torch.Tensor, gids: torch.Tensor,
     gives NaN; -0.0 orders below +0.0."""
     if gids.device.type == "cpu":
         return segment_minmax_f64_plain(values, gids, ngroups)
-    _check_inputs("segment_minmax_f64", values, gids, F64)
-    values, gids = values.contiguous(), gids.contiguous()
-    dev = gids.device
-    keys = torch.empty((2, ngroups), dtype=I64, device=dev)
-    out = torch.empty((2, ngroups), dtype=F64, device=dev)
-    rc = _lib().nds_seg_minmax_f64(
-        _ptr(values), _ptr(gids), gids.numel(), ngroups, _ptr(keys[0]),
-        _ptr(keys[1]), _ptr(out[0]), _ptr(out[1]), _stream(gids))
-    _check("segment_minmax_f64", rc)
-    LAUNCHES["segment_minmax_f64"] += 1
+    _keys, out = _segment_launch("segment_minmax_f64", values, gids, ngroups)
     return out[0], out[1]
 
 
@@ -913,9 +964,11 @@ def launcher(name: str, *args, plan: SegmentPlan | None = None):
     """A function that launches kernel ``name`` (a key of ``LAUNCHES``)
     once on outputs allocated here, with no input check, allocation or
     count per call: what a measurement of the kernel's own device time
-    calls in a loop. ``args`` are the wrapper's arguments; K1 also takes
-    ``plan=`` (a :class:`SegmentPlan`) in place of the card's own, for a
-    sweep. Sums accumulate across calls; nothing reads them."""
+    calls in a loop. ``args`` are the wrapper's arguments (for
+    ``segment_sum_f64`` the values may be None: a count-only launch);
+    K1-K3 also take ``plan=`` (a :class:`SegmentPlan`) in place of the
+    card's own, for a sweep. Sums accumulate across calls; nothing reads
+    them."""
     if name in ("chunk_scan", "join_probe"):
         build_args, fn_name = {"chunk_scan": (_scan_args, "nds_chunk_scan"),
                                "join_probe": (_probe_args,
@@ -928,34 +981,12 @@ def launcher(name: str, *args, plan: SegmentPlan | None = None):
             _check(name, fn(ref, stream))
             return keep, out, out2
         return launch
-    return _segment_launcher(name, *args, plan=plan)
-
-
-def _segment_launcher(name: str, values, gids: torch.Tensor, ngroups: int,
-                      plan: SegmentPlan | None = None):
-    _check_inputs(name, values, gids, F64 if name.endswith("f64") else I64)
-    values, gids = values.contiguous(), gids.contiguous()
-    dev, n = gids.device, gids.numel()
-    if name == "segment_minmax_f64":
-        keys = torch.empty((2, ngroups), dtype=I64, device=dev)
-        out = torch.empty((2, ngroups), dtype=F64, device=dev)
-        outs = (keys, out)
-        args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(keys[0]),
-                _ptr(keys[1]), _ptr(out[0]), _ptr(out[1]), _stream(gids))
-        fn = _lib().nds_seg_minmax_f64
-    elif name == "segment_sum_i64":
-        args, sums, counts = _seg_i64_args(values, gids, ngroups, plan)
-        outs = (sums, counts)
-        fn = _lib().nds_seg_sum_i64
-    else:
-        sums = torch.zeros(ngroups, dtype=F64, device=dev)
-        counts = torch.zeros(ngroups, dtype=I64, device=dev)
-        outs = (sums, counts)
-        args = (_ptr(values), _ptr(gids), n, ngroups, _ptr(sums),
-                _ptr(counts), _stream(gids))
-        fn = _lib().nds_seg_sum_f64
+    values, gids, ngroups = args
+    values, gids = _seg_inputs(name, values, gids)
+    seg_args, outs = _seg_args(name, values, gids, ngroups, plan)
+    fn = getattr(_lib(), _SEG_ENTRY[name])
 
     def launch():
-        _check(name, fn(*args))
+        _check(name, fn(*seg_args))
         return outs
     return launch

@@ -363,3 +363,171 @@ def test_k5_directory_of_a_sparse_build_side(cuda, live):
                                                    K._stream(c2)))
     torch.cuda.synchronize()
     assert torch.equal(keep[1], K.probe_directory_plain(rh_sorted, 20))
+
+
+# ------------------------------------------------------------- K2, K3 paths
+
+_K23 = [("segment_sum_f64", False), ("segment_sum_f64", True),
+        ("segment_minmax_f64", False)]
+
+
+def _k23_case(rng, n, G):
+    """Group ids with nulls, pads and an empty group; doubles with NaN,
+    -0.0, +0.0 and both infinities."""
+    g = _gids(rng, n, G)
+    v = rng.standard_normal(n) * 1000.0
+    v[::4099] = np.nan
+    v[1::1021] = -0.0
+    v[2::1021] = 0.0
+    v[3::65537] = np.inf
+    v[4::65537] = -np.inf
+    return g, v
+
+
+def _k23_plans(name, count_only, n, G, sms):
+    """Every plan a K2/K3 launch can take here: the private path at 1-4
+    blocks an SM (as the shared memory allows) and its alternatives, the
+    global path and its alternatives."""
+    gb = K.group_bytes(name, n, count_only)
+    plans = sorted(set(p for p in (
+        K.segment_plan(n, G, sms, per_sm=q, group_bytes=gb)
+        for q in (1, 2, 3, 4)) if p.path == "private"))
+    if name == "segment_sum_f64" and not count_only and G > 1 \
+            and "private_warp" in K._SEG_PATHS:
+        plans += [p._replace(path="private_warp") for p in plans]
+    glob = K.segment_plan(n, G, sms, g_priv=0)
+    plans.append(glob)
+    if name == "segment_minmax_f64" and "global_test" in K._SEG_PATHS:
+        plans.append(glob._replace(path="global_test"))
+    return plans
+
+
+def _assert_k23_equal(name, got, want):
+    """K3 and every count bit for bit, K2 sums within rel 1e-9 (float
+    atomics add in no fixed order)."""
+    if name == "segment_minmax_f64":
+        for x, y in zip(got, want):
+            assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+        return
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-9, atol=0)
+
+
+def _k23_call(name, count_only, v, g, G, plan=None):
+    vals = None if count_only else v
+    if plan is None:
+        return getattr(K, name)(vals, g, G)
+    outs = K.launcher(name, vals, g, G, plan=plan)()
+    return (outs[1][0], outs[1][1]) if name == "segment_minmax_f64" \
+        else outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,count_only", _K23)
+@pytest.mark.parametrize("G", [1, 2, 16, 1000, "cap", "cap+1", 100000])
+def test_k23_every_path_matches_plain(cuda, name, count_only, G):
+    """K2 (with values, count-only) and K3 on every path at G from 1 past
+    the shared-memory cap, with an odd row count and views offset by one
+    row (8-byte loads instead of 16-byte ones)."""
+    n = (1 << 18) + 1235
+    cap = K.SMEM_BLOCK_CAP // K.group_bytes(name, n, count_only)
+    G = {"cap": cap, "cap+1": cap + 1}.get(G, G)
+    rng = np.random.default_rng(G + 7 * count_only)
+    g, v = _k23_case(rng, n, G)
+    gt, vt = _t(g).to(cuda), _t(v).to(cuda)
+    plain = getattr(K, name + "_plain")
+    want = plain(None if count_only else vt, gt, G)
+    plan = K.plan_for(name, n, G, cuda, count_only)
+    assert plan.path == ("private" if G <= cap else "global")
+    before = K.LAUNCHES[name]
+    _assert_k23_equal(name, _k23_call(name, count_only, vt, gt, G), want)
+    assert K.LAUNCHES[name] == before + 1
+    for p in _k23_plans(name, count_only, n, G, K._sm_count(cuda)):
+        _assert_k23_equal(name, _k23_call(name, count_only, vt, gt, G, p),
+                          want)
+    for a, b in ((vt[1:], gt[1:]), (vt[1:], gt[:-1])):
+        _assert_k23_equal(name, _k23_call(name, count_only, a, b, G),
+                          plain(None if count_only else a, b, G))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,count_only", _K23)
+@pytest.mark.parametrize("G", [1, 1000, 100000])
+def test_k23_empty_input_and_all_rows_dropped(cuda, name, count_only, G):
+    e = torch.empty(0, dtype=torch.int64, device=cuda)
+    ef = torch.empty(0, dtype=torch.float64, device=cuda)
+    _assert_k23_equal(name, _k23_call(name, count_only, ef, e, G),
+                      getattr(K, name + "_plain")(
+                          None if count_only else ef, e, G))
+    n = 5001
+    g = torch.where(torch.arange(n, device=cuda) % 2 == 0,
+                    torch.full((n,), -1, device=cuda),
+                    torch.full((n,), G + 3, device=cuda))
+    v = torch.arange(n, dtype=torch.float64, device=cuda)
+    got = _k23_call(name, count_only, v, g, G)
+    if name == "segment_minmax_f64":
+        assert bool((got[0] == float("inf")).all())
+        assert bool((got[1] == float("-inf")).all())
+    else:
+        assert not bool(got[0].any()) and not bool(got[1].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 5])
+def test_k3_nan_and_signed_zeros_at_block_boundaries(cuda, G):
+    """NaN, -0.0 and +0.0 on both sides of every block's first share of
+    rows (1,024 rows: 512 threads of two rows), in groups that span the
+    boundaries; every plan gives the plain version's bits (NaN wins both,
+    -0.0 is the min and +0.0 the max of the zeros)."""
+    rng = np.random.default_rng(G)
+    n = 1024 * 300 + 1
+    g = rng.integers(0, G, n)
+    v = rng.random(n) + 1.0
+    special = np.array([np.nan, -0.0, 0.0, -0.0, 0.0, 0.0])
+    for edge in range(1024, n, 1024):
+        for k, x in enumerate(special):
+            v[edge - 3 + k] = x
+            g[edge - 3 + k] = (k + edge // 1024) % G
+    gt, vt = _t(g).to(cuda), _t(v).to(cuda)
+    want = K.segment_minmax_f64_plain(vt, gt, G)
+    for p in _k23_plans("segment_minmax_f64", False, n, G,
+                        K._sm_count(cuda)):
+        _assert_k23_equal("segment_minmax_f64",
+                          _k23_call("segment_minmax_f64", False, vt, gt, G,
+                                    p), want)
+    # the same zeros without the NaN rows: -0.0 / +0.0 decide
+    vz = torch.where(torch.isnan(vt), torch.ones_like(vt), vt)
+    vz = torch.where(vz >= 1.0, torch.full_like(vz, 0.0), vz)
+    mn, mx = K.segment_minmax_f64(vz, gt, G)
+    assert bool(torch.signbit(mn).all()) and not bool(torch.signbit(mx).any())
+
+
+@pytest.mark.gpu
+def test_k23_every_plan_gives_the_same_result(cuda):
+    """The sweep's plans all compute the plain version's counts and K3
+    bits, and K2 sums within rel 1e-9."""
+    rng = np.random.default_rng(6)
+    n, G = 1 << 20, 256
+    g, v = _k23_case(rng, n, G)
+    gt, vt = _t(g).to(cuda), _t(v).to(cuda)
+    sms = K._sm_count(cuda)
+    for name, count_only in _K23:
+        want = getattr(K, name + "_plain")(None if count_only else vt, gt, G)
+        plans = _k23_plans(name, count_only, n, G, sms)
+        assert [p.path for p in plans].count("private") == 4
+        for plan in plans:
+            _assert_k23_equal(name, _k23_call(name, count_only, vt, gt, G,
+                                              plan), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 16, 100000])
+def test_count_only_launcher_matches_the_wrapper(cuda, G):
+    rng = np.random.default_rng(G + 1)
+    n = (1 << 16) + 3
+    g = _t(_gids(rng, n, G)).to(cuda)
+    want = K.segment_sum_f64(None, g, G)
+    before = dict(K.LAUNCHES)
+    s, c = K.launcher("segment_sum_f64", None, g, G)()
+    assert torch.equal(c, want[1]) and not bool(s.any())
+    assert K.LAUNCHES == before
