@@ -9,18 +9,24 @@ and suppresses the final ``ok`` line):
 1. device      the card's name and power limit (nvidia-smi);
 2. build       the CUDA kernels of ``nds_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernels     each grouped-aggregation kernel against its plain PyTorch
-               version at n = 2,880,404 rows (SF1 store_sales) and
-               G in {1, 1000, 100000} (K1 also at 16, 256 and 4096), with
-               int64 extremes, NaN, signed zeros, empty groups, null (-1)
-               and pad (>= G) group ids; the kernel's own time (raw
-               launches on preallocated outputs; for K1 at G = 1 and 1000
-               also with a cold L2), the wrapper's, the plain version's
-               and the library call's, and the bytes bound; the build's
-               ptxas report (spills) and the shared atomics' SASS;
+               version at n = 2,880,404 rows (SF1 store_sales): K1 at G in
+               {1, 16, 256, 1000, 4096, 100000}, K2 (with values and
+               count-only) and K3 at G in {1, 16, 1000, 100000}, with int64
+               extremes, NaN, signed zeros, empty groups, null (-1) and pad
+               (>= G) group ids; the kernel's own time (raw launches on
+               preallocated outputs; at G = 1 and 1000 also with a cold
+               L2), the wrapper's, the plain version's and the library
+               call's (K3: ``scatter_reduce_`` amin then amax, two calls;
+               count-only K2: ``bincount``), the bytes bound (16 B a row,
+               8 B for count-only) and the path the plan takes; the
+               build's ptxas report (spills) and the atomics in SASS;
    k1 sweep    K1's two paths across G and blocks an SM, bit-exact, with
                ``index_add_`` beside them: the evidence for
                ``kernels.PRIV_PER_SM`` and for running the private path
                up to ``G_PRIV``, the shared-memory cap;
+   k23 sweep   the same for K2 (with values: also its warp-aggregated
+               private variant; count-only) and K3, from G = 1 to 100,000:
+               the evidence for ``kernels.K2_WARP_GROUPS`` and the caps;
    scan/probe  K4 ``chunk_scan`` at n = 2^22 rows (one default chunk) with
                a store_sales-like spec (FOR int16/int32 codes, a dict
                float column, an IN-list, validity, the routing hash over
@@ -37,8 +43,9 @@ and suppresses the final ``ok`` line):
                waited for only by the stream phase;
 5. power       the 25 CI statements at SF1 through the port's Power Run
                entry on ``cuda``, plus one MIN/MAX-of-double statement;
-               per-query ms, syncs and kernel launches; a line before it
-               counts K1's launches by group count and path;
+               per-query ms, syncs and kernel launches; lines before it
+               count K1's (``k1_groups``) and K2's and K3's
+               (``k23_groups``) launches by group count and path;
 6. stream      SF10 transcoded to parquet (the port's ``write_table``); a
                cuda session that streams every table above 1.5e9 bytes
                in 2^22-row chunks (store_sales: 7 chunks) against an
@@ -223,7 +230,7 @@ def bytes_bound_ms(nbytes) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def timed(torch, G, launch, wrapper, plain, library):
+def kernel_times(torch, G, launch, wrapper, plain, library):
     """A kernel's times at one G: its own (raw launches on preallocated
     outputs), its wrapper's, its plain version's and the library call's;
     at ``COLD_GROUPS`` also the kernel and the library call with a cold
@@ -279,19 +286,18 @@ def library_call(torch, name, vals, lib_gids, G):
                                     device=dev).index_add_(0, lib_gids,
                                                            vals),
                 "index_add_ (float64 sums)")
+    return (lambda: (scatter_extreme(torch, "amin", vals, lib_gids, G),
+                     scatter_extreme(torch, "amax", vals, lib_gids, G)),
+            "scatter_reduce_ amin + amax (2 calls)")
 
-    def both():
-        return (amin(), torch.full(
-            (G + 1,), -math.inf, dtype=torch.float64,
-            device=dev).scatter_reduce_(0, lib_gids, vals, "amax",
-                                        include_self=True))
 
-    def amin():
-        return torch.full((G + 1,), math.inf, dtype=torch.float64,
-                          device=dev).scatter_reduce_(
-                              0, lib_gids, vals, "amin", include_self=True)
-    both.amin = amin
-    return both, "scatter_reduce_ amin + amax (2 calls)"
+def scatter_extreme(torch, reduce, vals, lib_gids, G):
+    """One ``scatter_reduce_`` (``reduce`` "amin" or "amax") of ``vals``
+    into G + 1 slots."""
+    start = math.inf if reduce == "amin" else -math.inf
+    return torch.full((G + 1,), start, dtype=torch.float64,
+                      device=lib_gids.device).scatter_reduce_(
+                          0, lib_gids, vals, reduce, include_self=True)
 
 
 def seg_record(torch, K, name, n, G, gids, vals, lib_gids):
@@ -312,14 +318,16 @@ def seg_record(torch, K, name, n, G, gids, vals, lib_gids):
         max_rel_err=rel,
         tol="counts exact, sums rel 1e-9" if name == "segment_sum_f64"
         else "bit-exact",
-        path=K.plan_for(name, n, G, gids.device, count_only).path,
-        **timed(torch, G, K.launcher(name, vals, gids, G),
+        path=K.plan_for(name, n, G, K._sm_count(gids.device),
+                        count_only).path,
+        **kernel_times(torch, G, K.launcher(name, vals, gids, G),
                 lambda: wrapper(vals, gids, G),
                 lambda: plain(vals, gids, G), library),
         library_call=call, bound_ms=bytes_bound_ms(nbytes),
         bound_by="bytes", bytes=nbytes)
     if name == "segment_minmax_f64":
-        rec["library_amin_ms"] = cuda_ms(torch, library.amin)
+        rec["library_amin_ms"] = cuda_ms(torch, lambda: scatter_extreme(
+            torch, "amin", vals, lib_gids, G))
         rec["nan_groups"] = int(torch.isnan(got[0]).sum())
         rec["empty_groups"] = int(torch.isinf(got[0]).sum())
     return rec
@@ -398,19 +406,16 @@ def k1_sweep(torch, K):
 
 def k23_plans(K, name, count_only, n, G, sms):
     """The plans the K2/K3 sweep times: the private path at each of
-    ``SWEEP_PER_SM`` blocks an SM (as the shared memory allows), the
-    sweep's alternatives, and the global path."""
-    gb = K.group_bytes(name, n, count_only)
+    ``SWEEP_PER_SM`` blocks an SM (as the shared memory allows), for K2
+    with values at G > 1 also its warp-aggregated variant, and the global
+    path."""
+    gb = K.group_bytes(name, count_only)
     plans = sorted(set(
         p for p in (K.segment_plan(n, G, sms, per_sm=q, group_bytes=gb)
                     for q in SWEEP_PER_SM) if p.path == "private"))
     if name == "segment_sum_f64" and not count_only and G > 1:
         plans += [p._replace(path="private_warp") for p in plans]
-    glob = K.segment_plan(n, G, sms, g_priv=0)
-    plans.append(glob)
-    if name == "segment_minmax_f64":
-        plans.append(glob._replace(path="global_test"))
-    return plans
+    return plans + [K.segment_plan(n, G, sms, g_priv=0)]
 
 
 def k23_sweep(torch, K):
@@ -445,7 +450,7 @@ def k23_sweep(torch, K):
             library, call = library_call(torch, name, vals, lib_gids, G)
             out.append({"kernel": name, "count_only": count_only, "G": G,
                         "n": n, "chosen": K.plan_for(
-                            name, n, G, gids.device, count_only).path,
+                            name, n, G, sms, count_only).path,
                         "plans": times, "library_ms": cuda_ms(torch, library),
                         "library_call": call})
         del gids, _i, fvals, mvals, lib_gids
@@ -1302,7 +1307,8 @@ def main() -> int:
             def wrapper(values, gids, ngroups):
                 if gids.device.type == "cuda":
                     path = K.plan_for(name, gids.numel(), ngroups,
-                                      gids.device, values is None).path
+                                      K._sm_count(gids.device),
+                                      values is None).path
                     key = (name, ngroups, path, values is None)
                     seg_groups[key] = seg_groups.get(key, 0) + 1
                 return real(values, gids, ngroups)

@@ -30,7 +30,7 @@
 // (nds_tpu_torch/engine/kernels.py segment_plan):
 //   private (as many groups as 227 KB of shared memory holds: 14,528 at 16 B
 //           a group for the sums with values and for min/max, 58,112 at 4 B
-//           for a count-only launch)  a persistent grid of blocks (two an
+//           for a count-only launch, whose counts are 32-bit)  a persistent grid of blocks (two an
 //           SM where the shared memory allows); each block keeps every
 //           group's partials in dynamic shared memory and reads its rows two
 //           at a time with 16-byte loads. At G = 1 each thread reduces in
@@ -38,27 +38,42 @@
 //           each in-range row updates its group in shared memory. Each block
 //           then folds its non-empty groups into global memory with one
 //           global atomic per (block, group, output) instead of one per row.
+//           K2 with values at 2 to 32 groups takes a variant of it
+//           (seg_sum_f64_warp_kernel): a warp first sums its rows of one
+//           group (__match_any_sync and a shuffle tree over the group's
+//           lanes), then one lane adds the sum to shared memory.
 //   global  (above that)  one thread per row, global atomics per row.
 // The per-kernel policies below (SumI64, SumF64, CountOnly, MinMax) say how
 // a row, a register partial and a flush look; the row loop is shared.
 //
-// Shared-memory atomics on sm_90, from the SASS of this file (cuobjdump
-// -sass; chip_smoke.py prints them with the build):
-//   - a 64-bit shared atomicAdd is a compare-and-swap loop
-//     (ATOMS.CAST.SPIN.64), so 64-bit sums and counts are added as two
-//     native 32-bit adds (ATOMS.ADD; +1 is ATOMS.POPC.INC.32) with the carry
-//     taken from the old low half (shared_add64);
-//   - a float64 shared atomicAdd: SASS_F64_ADD;
-//   - a 64-bit shared atomicMin / atomicMax: SASS_MINMAX_64.
-// The global flush uses native 64-bit global atomics (RED.E.ADD.F64.RN,
-// RED.E.ADD.64, RED.E.MIN.S64 / RED.E.MAX.S64).
-// MinMax's rows read their group's shared key first and issue an atomic
-// only when the row improves it: in rows of no particular order a group's
-// running min improves about ln(rows the block sees of it) times, so almost
-// no row makes an atomic.
+// Atomics on sm_90, from the SASS of this file (cuobjdump -sass;
+// chip_smoke.py prints them with the build):
+//   - a 64-bit shared atomicAdd, a float64 shared atomicAdd and a 64-bit
+//     shared atomicMin / atomicMax are all compare-and-swap loops
+//     (ATOMS.CAST.SPIN.64); only 32-bit shared adds are native (ATOMS.ADD;
+//     +1 is ATOMS.POPC.INC.32). So 64-bit integer sums and counts are two
+//     32-bit adds with the carry taken from the old low half
+//     (shared_add64), a count-only launch keeps 32-bit counts, MinMax reads
+//     its group's shared key first and makes an atomic only when the row
+//     improves it (in rows of no particular order a group's running min
+//     improves about ln(rows the block sees of it) times), and the float
+//     sum's CAS loop is what the warp-aggregated variant avoids where many
+//     lanes of a warp hit one group.
+//   - the global flush is native: REDG.E.ADD.F64.RN, REDG.E.ADD.64,
+//     REDG.E.MIN.S64 and REDG.E.MAX.S64.
 //
-// The sweep behind the rule (chip_smoke.py k1_sweep and k23_sweep; PERF.md
-// section 6): SWEEP_VERDICT
+// The sweep behind the rule (chip_smoke.py k1_sweep and k23_sweep, n =
+// 2,880,404; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): the
+// private path beats the global one at every G up to the shared-memory cap
+// for every kernel (count-only at 58,112 groups: 0.0276 against 0.0364 ms).
+// Two blocks an SM stay the rule; a count-only launch of 4,096 groups and
+// more would be 16-30 % faster at one (half the flushes), which the rule
+// does not take (PERF.md). For K2 with values the per-row CAS loop collapses under collisions at few
+// groups (G = 2: 0.208 ms) where the warp-aggregated variant takes 0.026;
+// the variant wins up to G = 32 (0.0278 against 0.0305 ms) and loses from
+// G = 64 on (0.0302 against 0.0253). K3's global path reads the key before
+// each atomic too: 5-14 % faster than without the read at every G above
+// the cap.
 //
 // Exactness: 64-bit integer atomics wrap mod 2^64 and commute, so seg_sum_i64
 // and every count are bit-exact whatever the order. Float64 atomics add in no
@@ -82,9 +97,8 @@ constexpr int kPrivThreads = 512;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr long long kKeyNan = (long long)0x8000000000000000ULL;   // min side
 constexpr long long kKeyMax = 0x7FFFFFFFFFFFFFFFLL;
-// path codes shared with kernels.py _SEG_PATHS
-enum { kPathEmpty = 0, kPathPrivate = 1, kPathGlobal = 2, kPathWarp = 3,
-       kPathGlobalTest = 4 };
+// path codes shared with kernels.py _SEG_PATHS (0 is an empty launch)
+enum { kPathPrivate = 1, kPathGlobal = 2, kPathWarp = 3 };
 
 int grid_for(long long n) {
     long long blocks = (n + kThreads - 1) / kThreads;
@@ -107,15 +121,6 @@ __device__ __forceinline__ void shared_add64(unsigned long long* w,
         hi += (old + lo < old) ? 1u : 0u;
     }
     if (hi != 0u) atomicAdd(half + 1, hi);
-}
-
-__device__ __forceinline__ void shared_add(unsigned* w, unsigned long long x) {
-    atomicAdd(w, (unsigned)x);
-}
-
-__device__ __forceinline__ void shared_add(unsigned long long* w,
-                                           unsigned long long x) {
-    shared_add64(w, x);
 }
 
 // order-preserving int64 key of a non-NaN double: -inf < ... < -0.0 < +0.0
@@ -252,9 +257,8 @@ struct SumF64 {
     }
 };
 
-// K2 count-only: the count alone, C = unsigned (4 B a group; the host takes
-// it only when a block sees fewer than 2^32 rows) or unsigned long long (8 B)
-template <class C>
+// K2 count-only: the count alone, in 32 bits (4 B a group; the entry point
+// refuses a launch in which a block could see 2^32 rows)
 struct CountOnly {
     using V = None;
     struct Out { unsigned long long* counts; };
@@ -266,11 +270,11 @@ struct CountOnly {
         }
         __device__ bool empty() const { return c == 0ULL; }
     };
-    C* scnt;
-    __device__ CountOnly(void* smem, int) : scnt((C*)smem) {}
-    __device__ void init(int g) { scnt[g] = 0; }
-    __device__ void row(int g, V) { shared_add(&scnt[g], 1ULL); }
-    __device__ void commit(const Acc& a) { shared_add(&scnt[0], a.c); }
+    unsigned* scnt;
+    __device__ CountOnly(void* smem, int) : scnt((unsigned*)smem) {}
+    __device__ void init(int g) { scnt[g] = 0u; }
+    __device__ void row(int g, V) { atomicAdd(&scnt[g], 1u); }
+    __device__ void commit(const Acc& a) { atomicAdd(&scnt[0], (unsigned)a.c); }
     __device__ void flush(int g, const Out& o) const {
         const unsigned long long c = scnt[g];
         if (c != 0ULL) atomicAdd(&o.counts[g], c);
@@ -537,9 +541,8 @@ __global__ void seg_sum_f64_kernel(const double* __restrict__ vals,
     }
 }
 
-// kTest: read the group's global key first and make the atomic only when
-// the row improves it
-template <bool kTest>
+// reads the group's global key first and makes an atomic only when the row
+// improves it
 __global__ void seg_minmax_kernel(const double* __restrict__ vals,
                                   const long long* __restrict__ gids,
                                   long long n, long long G,
@@ -552,8 +555,8 @@ __global__ void seg_minmax_kernel(const double* __restrict__ vals,
         if (g >= 0 && g < G) {
             long long lo, hi;
             minmax_keys(vals[i], lo, hi);
-            if (!kTest || lo < peek(&kmin[g])) atomicMin(&kmin[g], lo);
-            if (!kTest || hi > peek(&kmax[g])) atomicMax(&kmax[g], hi);
+            if (lo < peek(&kmin[g])) atomicMin(&kmin[g], lo);
+            if (hi > peek(&kmax[g])) atomicMax(&kmax[g], hi);
         }
     }
 }
@@ -613,9 +616,10 @@ int nds_seg_sum_i64(const void* vals, const void* gids, long long n,
 }
 
 // vals == nullptr: a count-only launch (sums are left as they are). Its
-// private path keeps 4-byte counts when n < 2^32 (no block can see 2^32
-// rows), else 8-byte ones. path 3 is the warp-aggregated private path of a
-// launch with values at G > 1.
+// private path keeps 4-byte counts, so it is refused where a block could
+// see 2^32 rows: at most n / grid + 2 * kPrivThreads + 1 of the grid-stride
+// loop's rows fall to one block. path 3 is the warp-aggregated private path
+// of a launch with values at G > 1.
 int nds_seg_sum_f64(const void* vals, const void* gids, long long n,
                     long long G, void* sums, void* counts, int path,
                     int grid, int smem, void* stream) {
@@ -629,14 +633,11 @@ int nds_seg_sum_f64(const void* vals, const void* gids, long long n,
         return (int)cudaGetLastError();
     }
     if (vals == nullptr) {
-        const bool narrow = n < (1LL << 32);
-        if (path != kPathPrivate || !priv_ok(G, smem, narrow ? 4 : 8))
+        if (path != kPathPrivate || !priv_ok(G, smem, 4) ||
+            n / grid + 2LL * kPrivThreads + 1 >= (1LL << 32))
             return (int)cudaErrorInvalidValue;
-        return narrow
-            ? launch_priv_aligned<CountOnly<unsigned>>(
-                  nullptr, gids, n, (int)G, {co}, grid, smem, s)
-            : launch_priv_aligned<CountOnly<unsigned long long>>(
-                  nullptr, gids, n, (int)G, {co}, grid, smem, s);
+        return launch_priv_aligned<CountOnly>(nullptr, gids, n, (int)G, {co},
+                                              grid, smem, s);
     }
     SumF64::Out out{(double*)sums, co};
     if (path == kPathWarp && G > 1 && priv_ok(G, smem, 16)) {
@@ -654,8 +655,8 @@ int nds_seg_sum_f64(const void* vals, const void* gids, long long n,
                                        s);
 }
 
-// Three launches: the keys' identities, the rows (path 1 private, 2 global,
-// 4 global with a read before each atomic), the decoding into doubles.
+// Three launches: the keys' identities, the rows (path 1 private, 2
+// global), the decoding into doubles.
 int nds_seg_minmax_f64(const void* vals, const void* gids, long long n,
                        long long G, void* kmin, void* kmax, void* mins,
                        void* maxs, int path, int grid, int smem,
@@ -666,8 +667,7 @@ int nds_seg_minmax_f64(const void* vals, const void* gids, long long n,
     const bool rows = n > 0 && grid > 0;
     if (rows && path == kPathPrivate && !priv_ok(G, smem, 16))
         return (int)cudaErrorInvalidValue;
-    if (rows && path != kPathPrivate && path != kPathGlobal &&
-        path != kPathGlobalTest)
+    if (rows && path != kPathPrivate && path != kPathGlobal)
         return (int)cudaErrorInvalidValue;
     seg_minmax_init_kernel<<<grid_for(G), kThreads, 0, s>>>(out.kmin,
                                                             out.kmax, G);
@@ -678,12 +678,9 @@ int nds_seg_minmax_f64(const void* vals, const void* gids, long long n,
             const int rc = launch_priv_aligned<MinMax>(v, g, n, (int)G, out,
                                                        grid, smem, s);
             if (rc != 0) return rc;
-        } else if (path == kPathGlobalTest) {
-            seg_minmax_kernel<true><<<grid, kThreads, 0, s>>>(
-                v, g, n, G, out.kmin, out.kmax);
         } else {
-            seg_minmax_kernel<false><<<grid, kThreads, 0, s>>>(
-                v, g, n, G, out.kmin, out.kmax);
+            seg_minmax_kernel<<<grid, kThreads, 0, s>>>(v, g, n, G, out.kmin,
+                                                         out.kmax);
         }
     }
     seg_minmax_final_kernel<<<grid_for(G), kThreads, 0, s>>>(

@@ -238,11 +238,11 @@ def segment_sum_i64_plain(values, gids, ngroups):
 
 
 # The private path keeps a group's partials in a block's shared memory
-# (16 B a group for K1, K2 with values and K3; 4 B for a count-only K2
-# launch of fewer than 2^32 rows, else 8 B) and runs a persistent grid of at
-# most PRIV_PER_SM blocks of PRIV_THREADS threads an SM (fewer where the
-# shared memory runs out); each block folds its non-empty groups into
-# global memory at the end. It runs up to as many groups as a block's
+# (16 B a group for K1, K2 with values and K3; 4 B, a 32-bit count, for a
+# count-only K2 launch) and runs a persistent grid of at most PRIV_PER_SM
+# blocks of PRIV_THREADS threads an SM (fewer where the shared memory runs
+# out); each block folds its non-empty groups into global memory at the
+# end. It runs up to as many groups as a block's
 # shared memory holds (G_PRIV at 16 B a group); above that each row makes
 # its own global atomics ("global"). The sweeps behind these numbers are
 # chip_smoke.py's k1_sweep and k23_sweep (PERF.md section 6).
@@ -253,15 +253,13 @@ G_PRIV = SMEM_BLOCK_CAP // 16    # 14,528 groups at 16 B a group
 PRIV_THREADS = 512
 PRIV_PER_SM = 2
 GLOBAL_THREADS = 256             # csrc/segment_agg.cu kThreads
-# a count-only launch of fewer rows keeps 4-byte counts: no block can see
-# 2^32 rows
-COUNT32_ROWS = 1 << 32
-# path codes shared with csrc/segment_agg.cu; "private_warp" (K2 with values
-# at G > 1: a warp's rows of one group summed before the shared atomic) and
-# "global_test" (K3: a row reads its group's key before the atomic) are the
-# sweep's alternatives to "private" and "global"
-_SEG_PATHS = {"empty": 0, "private": 1, "global": 2, "private_warp": 3,
-              "global_test": 4}
+# K2 with values at 2 to K2_WARP_GROUPS groups takes "private_warp": the
+# private path with a warp's rows of one group summed before the shared
+# float atomic, a compare-and-swap loop on sm_90 that collisions make slow
+# (chip_smoke.py k23_sweep: it wins up to 32 groups and loses from 64)
+K2_WARP_GROUPS = 32
+# path codes shared with csrc/segment_agg.cu
+_SEG_PATHS = {"empty": 0, "private": 1, "global": 2, "private_warp": 3}
 _SEG_ENTRY = {"segment_sum_i64": "nds_seg_sum_i64",
               "segment_sum_f64": "nds_seg_sum_f64",
               "segment_minmax_f64": "nds_seg_minmax_f64"}
@@ -269,8 +267,8 @@ _SEG_ENTRY = {"segment_sum_i64": "nds_seg_sum_i64",
 
 class SegmentPlan(NamedTuple):
     """How one K1-K3 launch runs: ``path`` ("empty" launches no row
-    kernel, "private" or "global"), the ``grid`` in blocks and the dynamic
-    shared-memory ``smem`` in bytes."""
+    kernel, "private", "private_warp" or "global"), the ``grid`` in blocks
+    and the dynamic shared-memory ``smem`` in bytes."""
     path: str
     grid: int
     smem: int
@@ -296,23 +294,28 @@ def segment_plan(n: int, ngroups: int, sms: int = 132,
     return SegmentPlan("global", grid, 0)
 
 
-def group_bytes(name: str, n: int, count_only: bool = False) -> int:
+def group_bytes(name: str, count_only: bool = False) -> int:
     """Shared-memory bytes a group takes on the private path of kernel
-    ``name`` (a K1-K3 key of ``LAUNCHES``) for ``n`` rows."""
-    if name == "segment_sum_f64" and count_only:
-        return 4 if n < COUNT32_ROWS else 8
-    return 16
+    ``name`` (a K1-K3 key of ``LAUNCHES``)."""
+    return 4 if name == "segment_sum_f64" and count_only else 16
 
 
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def plan_for(name: str, n: int, ngroups: int, dev,
+def plan_for(name: str, n: int, ngroups: int, sms: int,
              count_only: bool = False) -> SegmentPlan:
-    """The plan the wrapper of ``name`` takes on ``dev``'s card."""
-    return segment_plan(n, ngroups, _sm_count(dev),
-                        group_bytes=group_bytes(name, n, count_only))
+    """The plan the wrapper of ``name`` takes on a card of ``sms`` SMs:
+    :func:`segment_plan` at the kernel's :func:`group_bytes`, and K2 with
+    values at 2 to ``K2_WARP_GROUPS`` groups on its warp-aggregated
+    private path."""
+    plan = segment_plan(n, ngroups, sms,
+                        group_bytes=group_bytes(name, count_only))
+    if name == "segment_sum_f64" and not count_only and \
+            plan.path == "private" and 1 < ngroups <= K2_WARP_GROUPS:
+        return plan._replace(path="private_warp")
+    return plan
 
 
 def _seg_inputs(name, values, gids):
@@ -330,7 +333,7 @@ def _seg_args(name, values, gids, ngroups, plan=None):
     ``plan`` defaults to :func:`plan_for` this card."""
     dev, n = gids.device, gids.numel()
     if plan is None:
-        plan = plan_for(name, n, ngroups, dev, values is None)
+        plan = plan_for(name, n, ngroups, _sm_count(dev), values is None)
     if name == "segment_minmax_f64":
         keys = torch.empty((2, ngroups), dtype=I64, device=dev)
         out = torch.empty((2, ngroups), dtype=F64, device=dev)

@@ -3,7 +3,7 @@
 
 All three pick their path by one host rule, ``segment_plan``, from the
 group count and the shared-memory bytes a group takes (``group_bytes``:
-16 for K1, K2 with values and K3; 4 or 8 for a count-only K2 launch); its
+16 for K1, K2 with values and K3; 4 for a count-only K2 launch); its
 cases pin path, grid and shared bytes at the edges. On the private path
 every block reduces its own rows into shared memory and folds its
 non-empty groups into global memory; a mirror of that split and merge,
@@ -58,16 +58,39 @@ def test_segment_plan_keeps_blocks_within_the_shared_memory(gb):
             assert blocks_an_sm * (p.smem + K.SMEM_RESERVED) <= K.SMEM_SM
 
 
-@pytest.mark.parametrize("name,n,count_only,gb", [
-    ("segment_sum_i64", SF1, False, 16),
-    ("segment_sum_f64", SF1, False, 16),
-    ("segment_minmax_f64", SF1, False, 16),
-    ("segment_sum_f64", SF1, True, 4),
-    ("segment_sum_f64", (1 << 32) - 1, True, 4),
-    ("segment_sum_f64", 1 << 32, True, 8),
+@pytest.mark.parametrize("name,count_only,gb", [
+    ("segment_sum_i64", False, 16),
+    ("segment_sum_f64", False, 16),
+    ("segment_minmax_f64", False, 16),
+    ("segment_sum_f64", True, 4),
 ])
-def test_group_bytes(name, n, count_only, gb):
-    assert K.group_bytes(name, n, count_only) == gb
+def test_group_bytes(name, count_only, gb):
+    assert K.group_bytes(name, count_only) == gb
+
+
+@pytest.mark.parametrize("name,count_only,G,path", [
+    ("segment_sum_f64", False, 1, "private"),
+    ("segment_sum_f64", False, 2, "private_warp"),
+    ("segment_sum_f64", False, K.K2_WARP_GROUPS, "private_warp"),
+    ("segment_sum_f64", False, K.K2_WARP_GROUPS + 1, "private"),
+    ("segment_sum_f64", False, CAP[16], "private"),
+    ("segment_sum_f64", False, CAP[16] + 1, "global"),
+    ("segment_sum_f64", True, 2, "private"),
+    ("segment_sum_f64", True, CAP[4], "private"),
+    ("segment_sum_f64", True, CAP[4] + 1, "global"),
+    ("segment_minmax_f64", False, 2, "private"),
+    ("segment_minmax_f64", False, CAP[16] + 1, "global"),
+    ("segment_sum_i64", False, 16, "private"),
+])
+def test_plan_for_each_kernel(name, count_only, G, path):
+    """A wrapper's plan: the one rule at the kernel's bytes a group, and
+    K2 with values on its warp-aggregated variant at 2 to K2_WARP_GROUPS
+    groups."""
+    p = K.plan_for(name, SF1, G, 132, count_only)
+    gb = K.group_bytes(name, count_only)
+    assert p.path == path
+    assert p._replace(path="private" if path == "private_warp" else path) \
+        == K.segment_plan(SF1, G, 132, group_bytes=gb)
 
 
 # ------------------------------------------------- the private path's merge
