@@ -24,9 +24,8 @@ and suppresses the final ``ok`` line):
                ``index_add_`` beside them: the evidence for
                ``kernels.PRIV_PER_SM`` and for running the private path
                up to ``G_PRIV``, the shared-memory cap;
-   k23 sweep   the same for K2 (with values: also its warp-aggregated
-               private variant; count-only) and K3, from G = 1 to 100,000:
-               the evidence for ``kernels.K2_WARP_GROUPS`` and the caps;
+   k23 sweep   the same for K2 (with values and count-only) and K3, from
+               G = 1 to 100,000: the evidence for the caps;
    scan/probe  K4 ``chunk_scan`` at n = 2^22 rows (one default chunk) with
                a store_sales-like spec (FOR int16/int32 codes, a dict
                float column, an IN-list, validity, the routing hash over
@@ -99,13 +98,11 @@ K1_GROUPS = (1, 16, 256, 1000, 4096, 100000)
 K23_GROUPS = (1, 16, 1000, 100000)
 COLD_GROUPS = (1, 1000)              # also timed with a cold L2
 # the sweeps: group counts across both paths, blocks an SM on the private
-# one (14528 groups at 16 B fill a block's 227 KB); K2/K3 also where the
-# K2 designs cross, and past the cap of a count-only K2 launch (4 B a
-# group: 58112 fill a block)
+# one (14528 groups at 16 B fill a block's 227 KB); K2/K3 also past the
+# cap of a count-only K2 launch (4 B a group: 58112 fill a block)
 SWEEP_GROUPS = (1, 2, 16, 256, 1000, 4096, 8192, 14528)
-K23_SWEEP_GROUPS = (1, 2, 16, 32, 64, 128, 256, 1000, 4096, 8192, 14528,
-                    29056, 58112, 100000)
-SWEEP_PER_SM = (1, 2, 3, 4)
+K23_SWEEP_GROUPS = (1, 2, 16, 256, 1000, 4096, 8192, 14528, 29056, 58112,
+                    100000)
 # a cold-L2 time writes this much (more than the H100's 50 MB L2) before
 # each launch
 L2_FLUSH_BYTES = 128 << 20
@@ -318,8 +315,8 @@ def seg_record(torch, K, name, n, G, gids, vals, lib_gids):
         max_rel_err=rel,
         tol="counts exact, sums rel 1e-9" if name == "segment_sum_f64"
         else "bit-exact",
-        path=K.plan_for(name, n, G, K._sm_count(gids.device),
-                        count_only).path,
+        path=K.segment_plan(n, G, K._sm_count(gids.device),
+                            group_bytes=4 if count_only else 16).path,
         **kernel_times(torch, G, K.launcher(name, vals, gids, G),
                 lambda: wrapper(vals, gids, G),
                 lambda: plain(vals, gids, G), library),
@@ -370,10 +367,10 @@ def sweep_key(plan, sms) -> str:
 
 
 def k1_sweep(torch, K):
-    """K1 at n = 2,880,404 across ``SWEEP_GROUPS``: the private path at
-    each of ``SWEEP_PER_SM`` blocks an SM (as the shared memory allows)
-    and the global path, each bit-exact against the plain version, with
-    ``index_add_`` beside them. (ok, [records])."""
+    """K1 at n = 2,880,404 across ``SWEEP_GROUPS``: every plan of
+    ``kernels.segment_plans`` (the private path at 1-4 blocks an SM, as the
+    shared memory allows, and the global path), each bit-exact against the
+    plain version, with ``index_add_`` beside them. (ok, [records])."""
     import numpy as np
     rng = np.random.default_rng(SEED + 1)
     n, out, ok = SF1_ROWS, [], True
@@ -381,12 +378,8 @@ def k1_sweep(torch, K):
     for G in SWEEP_GROUPS:
         gids, ivals, _f, _m = kernel_inputs(torch, n, G, rng)
         ps, pc = K.segment_sum_i64_plain(ivals, gids, G)
-        plans = [K.segment_plan(n, G, sms, g_priv=1 << 30, per_sm=p)
-                 for p in SWEEP_PER_SM]
-        plans = sorted(set(p for p in plans if p.path == "private"))
-        plans.append(K.segment_plan(n, G, sms, g_priv=0))
         times = {}
-        for plan in plans:
+        for plan in K.segment_plans(n, G, sms):
             launch = K.launcher("segment_sum_i64", ivals, gids, G, plan=plan)
             s, c = launch()
             torch.cuda.synchronize()
@@ -404,23 +397,9 @@ def k1_sweep(torch, K):
     return ok, out
 
 
-def k23_plans(K, name, count_only, n, G, sms):
-    """The plans the K2/K3 sweep times: the private path at each of
-    ``SWEEP_PER_SM`` blocks an SM (as the shared memory allows), for K2
-    with values at G > 1 also its warp-aggregated variant, and the global
-    path."""
-    gb = K.group_bytes(name, count_only)
-    plans = sorted(set(
-        p for p in (K.segment_plan(n, G, sms, per_sm=q, group_bytes=gb)
-                    for q in SWEEP_PER_SM) if p.path == "private"))
-    if name == "segment_sum_f64" and not count_only and G > 1:
-        plans += [p._replace(path="private_warp") for p in plans]
-    return plans + [K.segment_plan(n, G, sms, g_priv=0)]
-
-
 def k23_sweep(torch, K):
     """K2 (with values and count-only) and K3 at n = 2,880,404 across
-    ``K23_SWEEP_GROUPS``: every plan of :func:`k23_plans`, each checked
+    ``K23_SWEEP_GROUPS``: every plan of ``kernels.segment_plans``, each checked
     against the plain version (counts and K3 bit for bit, K2 sums within
     rel 1e-9), with the library call beside them. (ok, [records])."""
     import numpy as np
@@ -434,9 +413,10 @@ def k23_sweep(torch, K):
                            ("segment_sum_f64", None),
                            ("segment_minmax_f64", mvals)):
             count_only = vals is None
+            gb = 4 if count_only else 16
             want = getattr(K, name + "_plain")(vals, gids, G)
             times = {}
-            for plan in k23_plans(K, name, count_only, n, G, sms):
+            for plan in K.segment_plans(n, G, sms, group_bytes=gb):
                 launch = K.launcher(name, vals, gids, G, plan=plan)
                 got = launch()
                 if name == "segment_minmax_f64":
@@ -449,8 +429,8 @@ def k23_sweep(torch, K):
                     "grid": plan.grid, "ok": good, "max_rel_err": rel}
             library, call = library_call(torch, name, vals, lib_gids, G)
             out.append({"kernel": name, "count_only": count_only, "G": G,
-                        "n": n, "chosen": K.plan_for(
-                            name, n, G, sms, count_only).path,
+                        "n": n, "chosen": K.segment_plan(
+                            n, G, sms, group_bytes=gb).path,
                         "plans": times, "library_ms": cuda_ms(torch, library),
                         "library_call": call})
         del gids, _i, fvals, mvals, lib_gids
@@ -504,7 +484,7 @@ def build_report(K, text):
             m = re.search(r"Function : (\w+)", line)
             if m:
                 fn = m.group(1)
-            elif fn and re.search(r"seg_priv|warp_kernel|seg_minmax_kernel|"
+            elif fn and re.search(r"seg_priv|seg_minmax_kernel|"
                                   r"seg_sum_f64_kernel", fn):
                 m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[\w.]+)",
                               line)
@@ -513,7 +493,7 @@ def build_report(K, text):
         names = demangle(sorted(atoms))
         atoms = {names[k]: sorted(v) for k, v in atoms.items()}
     names = demangle(sorted(k for k in regs if re.search(
-        r"priv|probe|warp|minmax|seg_sum_f64", k)))
+        r"priv|probe|minmax|seg_sum_f64", k)))
     return {"spills": spills,
             "registers": {v: regs[k] for k, v in names.items()},
             "seg_atomics": atoms}
@@ -1306,9 +1286,9 @@ def main() -> int:
         def counting(name, real):
             def wrapper(values, gids, ngroups):
                 if gids.device.type == "cuda":
-                    path = K.plan_for(name, gids.numel(), ngroups,
-                                      K._sm_count(gids.device),
-                                      values is None).path
+                    path = K.segment_plan(
+                        gids.numel(), ngroups, K._sm_count(gids.device),
+                        group_bytes=4 if values is None else 16).path
                     key = (name, ngroups, path, values is None)
                     seg_groups[key] = seg_groups.get(key, 0) + 1
                 return real(values, gids, ngroups)

@@ -30,18 +30,15 @@
 // (nds_tpu_torch/engine/kernels.py segment_plan):
 //   private (as many groups as 227 KB of shared memory holds: 14,528 at 16 B
 //           a group for the sums with values and for min/max, 58,112 at 4 B
-//           for a count-only launch, whose counts are 32-bit)  a persistent grid of blocks (two an
-//           SM where the shared memory allows); each block keeps every
+//           for a count-only launch, whose counts are 32-bit)  a persistent
+//           grid of blocks (two an SM where the shared memory allows); each
+//           block keeps every
 //           group's partials in dynamic shared memory and reads its rows two
 //           at a time with 16-byte loads. At G = 1 each thread reduces in
 //           registers and a warp shuffle combines them at the end; at G > 1
 //           each in-range row updates its group in shared memory. Each block
 //           then folds its non-empty groups into global memory with one
 //           global atomic per (block, group, output) instead of one per row.
-//           K2 with values at 2 to 32 groups takes a variant of it
-//           (seg_sum_f64_warp_kernel): a warp first sums its rows of one
-//           group (__match_any_sync and a shuffle tree over the group's
-//           lanes), then one lane adds the sum to shared memory.
 //   global  (above that)  one thread per row, global atomics per row.
 // The per-kernel policies below (SumI64, SumF64, CountOnly, MinMax) say how
 // a row, a register partial and a flush look; the row loop is shared.
@@ -57,8 +54,8 @@
 //     its group's shared key first and makes an atomic only when the row
 //     improves it (in rows of no particular order a group's running min
 //     improves about ln(rows the block sees of it) times), and the float
-//     sum's CAS loop is what the warp-aggregated variant avoids where many
-//     lanes of a warp hit one group.
+//     sum's CAS loop is the cost of K2 with values at a few groups > 1, where
+//     many lanes of a warp retry on one shared word.
 //   - the global flush is native: REDG.E.ADD.F64.RN, REDG.E.ADD.64,
 //     REDG.E.MIN.S64 and REDG.E.MAX.S64.
 //
@@ -68,12 +65,13 @@
 // for every kernel (count-only at 58,112 groups: 0.0276 against 0.0364 ms).
 // Two blocks an SM stay the rule; a count-only launch of 4,096 groups and
 // more would be 16-30 % faster at one (half the flushes), which the rule
-// does not take (PERF.md). For K2 with values the per-row CAS loop collapses under collisions at few
-// groups (G = 2: 0.208 ms) where the warp-aggregated variant takes 0.026;
-// the variant wins up to G = 32 (0.0278 against 0.0305 ms) and loses from
-// G = 64 on (0.0302 against 0.0253). K3's global path reads the key before
-// each atomic too: 5-14 % faster than without the read at every G above
-// the cap.
+// does not take (PERF.md). K2 with values slows under the per-row CAS loop
+// at few groups (G = 2: 0.208 ms, G = 16: 0.039, against 0.017 at G = 1 and
+// 2.81 ms for index_add_ at G = 2); a warp-aggregated variant
+// (__match_any_sync) took 0.026 ms at G = 2 but was dropped, since no launch
+// of the Power Run takes K2 with values at 2 to 32 groups. K3's global path
+// reads the key before each atomic too: 5-14 % faster than without the read
+// at every G above the cap.
 //
 // Exactness: 64-bit integer atomics wrap mod 2^64 and commute, so seg_sum_i64
 // and every count are bit-exact whatever the order. Float64 atomics add in no
@@ -98,7 +96,7 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr long long kKeyNan = (long long)0x8000000000000000ULL;   // min side
 constexpr long long kKeyMax = 0x7FFFFFFFFFFFFFFFLL;
 // path codes shared with kernels.py _SEG_PATHS (0 is an empty launch)
-enum { kPathPrivate = 1, kPathGlobal = 2, kPathWarp = 3 };
+enum { kPathPrivate = 1, kPathGlobal = 2 };
 
 int grid_for(long long n) {
     long long blocks = (n + kThreads - 1) / kThreads;
@@ -239,11 +237,6 @@ struct SumF64 {
         atomicAdd(&ssum[g], v);
         shared_add64(&scnt[g], 1ULL);
     }
-    // a warp's rows of one group, summed by the caller
-    __device__ void rows(int g, double s, unsigned c) {
-        atomicAdd(&ssum[g], s);
-        shared_add64(&scnt[g], c);
-    }
     __device__ void commit(const Acc& a) {
         atomicAdd(&ssum[0], a.s);
         shared_add64(&scnt[0], a.c);
@@ -373,79 +366,6 @@ seg_priv_kernel(const typename P::V* __restrict__ vals,
     for (int g = threadIdx.x; g < G; g += blockDim.x) p.flush(g, out);
 }
 
-// The sum of x over the lanes of `peers` (the lanes that hold the same
-// group), left in the lowest of them: a shuffle tree over the lanes' ranks
-// inside their group, log2(the largest group's lanes) rounds. Every lane of
-// the warp calls it.
-__device__ __forceinline__ double reduce_peers(unsigned peers, double x) {
-    const int lane = threadIdx.x & 31;
-    int rank = __popc(peers & ((1u << lane) - 1u));
-    peers &= 0xFFFFFFFEu << lane;                     // the peers above me
-    while (__any_sync(kFull, peers != 0u)) {
-        const int next = __ffs(peers);                // 1 + next peer's lane
-        const double t = __shfl_sync(kFull, x, (next - 1) & 31);
-        if (next) x += t;
-        peers &= ~__ballot_sync(kFull, rank & 1);     // peers that are done
-        rank >>= 1;
-    }
-    return x;
-}
-
-// One row per lane into the block's sums with a warp's rows of one group
-// summed first (__match_any_sync): one shared atomic per group and warp.
-__device__ __forceinline__ void warp_rows(SumF64& p, long long g, double v,
-                                          int G) {
-    const bool in = g >= 0 && g < G;
-    const int key = in ? (int)g : -1;
-    const unsigned peers = __match_any_sync(kFull, key);
-    const double s = reduce_peers(peers, in ? v : 0.0);
-    if (in && (threadIdx.x & 31) == __ffs(peers) - 1)
-        p.rows(key, s, __popc(peers));
-}
-
-// K2 with values at G > 1, the warp-aggregated variant of the private path
-template <bool kVec>
-__global__ void __launch_bounds__(kPrivThreads)
-seg_sum_f64_warp_kernel(const double* __restrict__ vals,
-                        const long long* __restrict__ gids, long long n,
-                        int G, SumF64::Out out) {
-    extern __shared__ unsigned long long smem[];
-    SumF64 p(smem, G);
-    for (int g = threadIdx.x; g < G; g += blockDim.x) p.init(g);
-    __syncthreads();
-    const long long units = kVec ? n >> 1 : n;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const int lane = threadIdx.x & 31;
-    // warp-uniform trip count: every lane takes part in each step
-    for (long long base = (long long)blockIdx.x * blockDim.x +
-                          (threadIdx.x - lane);
-         base < units; base += stride) {
-        const long long u = base + lane;
-        long long g0 = -1, g1 = -1;
-        double v0 = 0.0, v1 = 0.0;
-        if (u < units) {
-            if (kVec) {
-                const longlong2 gg =
-                    __ldg(reinterpret_cast<const longlong2*>(gids) + u);
-                load2(vals, u, v0, v1);
-                g0 = gg.x;
-                g1 = gg.y;
-            } else {
-                g0 = __ldg(gids + u);
-                v0 = __ldg(vals + u);
-            }
-        }
-        warp_rows(p, g0, v0, G);
-        if (kVec) warp_rows(p, g1, v1, G);
-    }
-    if (kVec && (n & 1) && blockIdx.x == 0 && threadIdx.x == 0) {
-        const long long g = gids[n - 1];
-        if (g >= 0 && g < G) p.row((int)g, vals[n - 1]);
-    }
-    __syncthreads();
-    for (int g = threadIdx.x; g < G; g += blockDim.x) p.flush(g, out);
-}
-
 // above 48 KB a block must ask for its dynamic shared memory; the largest
 // size asked for so far is kept per kernel instance
 template <class K>
@@ -466,18 +386,6 @@ int launch_priv(const typename P::V* vals, const long long* gids,
                                      granted);
     if (e != cudaSuccess) return (int)e;
     seg_priv_kernel<P, kOne, kVec><<<grid, kPrivThreads, smem, s>>>(
-        vals, gids, n, G, out);
-    return (int)cudaGetLastError();
-}
-
-template <bool kVec>
-int launch_warp(const double* vals, const long long* gids, long long n,
-                int G, SumF64::Out out, int grid, int smem, cudaStream_t s) {
-    static int granted = 48 * 1024;
-    const cudaError_t e = grant_smem(seg_sum_f64_warp_kernel<kVec>, smem,
-                                     granted);
-    if (e != cudaSuccess) return (int)e;
-    seg_sum_f64_warp_kernel<kVec><<<grid, kPrivThreads, smem, s>>>(
         vals, gids, n, G, out);
     return (int)cudaGetLastError();
 }
@@ -618,8 +526,7 @@ int nds_seg_sum_i64(const void* vals, const void* gids, long long n,
 // vals == nullptr: a count-only launch (sums are left as they are). Its
 // private path keeps 4-byte counts, so it is refused where a block could
 // see 2^32 rows: at most n / grid + 2 * kPrivThreads + 1 of the grid-stride
-// loop's rows fall to one block. path 3 is the warp-aggregated private path
-// of a launch with values at G > 1.
+// loop's rows fall to one block.
 int nds_seg_sum_f64(const void* vals, const void* gids, long long n,
                     long long G, void* sums, void* counts, int path,
                     int grid, int smem, void* stream) {
@@ -640,15 +547,6 @@ int nds_seg_sum_f64(const void* vals, const void* gids, long long n,
                                               grid, smem, s);
     }
     SumF64::Out out{(double*)sums, co};
-    if (path == kPathWarp && G > 1 && priv_ok(G, smem, 16)) {
-        const bool vec = ((((uintptr_t)vals) | ((uintptr_t)gids)) & 15u) == 0;
-        return vec ? launch_warp<true>((const double*)vals,
-                                       (const long long*)gids, n, (int)G,
-                                       out, grid, smem, s)
-                   : launch_warp<false>((const double*)vals,
-                                        (const long long*)gids, n, (int)G,
-                                        out, grid, smem, s);
-    }
     if (path != kPathPrivate || !priv_ok(G, smem, 16))
         return (int)cudaErrorInvalidValue;
     return launch_priv_aligned<SumF64>(vals, gids, n, (int)G, out, grid, smem,

@@ -32,8 +32,8 @@ What bounds them on an H100: one read of each row's value and group id
 (16 bytes a row; 8 for a count-only ``segment_sum_f64``) against
 device-memory bandwidth; global atomics on few groups serialise. So each
 of K1-K3 has two kernels, chosen by :func:`segment_plan` from ``ngroups``
-and the shared-memory bytes a group takes (:func:`group_bytes`):
-block-private shared-memory partials for as many groups as a block's
+and the shared-memory bytes a group takes (16, or 4 for a count-only
+``segment_sum_f64``): block-private shared-memory partials for as many groups as a block's
 shared memory holds, one global atomic a row above that.
 ``join_probe`` builds a radix directory over the build side on each call
 and searches only the probe hash's bucket (:func:`probe_bits`,
@@ -253,13 +253,8 @@ G_PRIV = SMEM_BLOCK_CAP // 16    # 14,528 groups at 16 B a group
 PRIV_THREADS = 512
 PRIV_PER_SM = 2
 GLOBAL_THREADS = 256             # csrc/segment_agg.cu kThreads
-# K2 with values at 2 to K2_WARP_GROUPS groups takes "private_warp": the
-# private path with a warp's rows of one group summed before the shared
-# float atomic, a compare-and-swap loop on sm_90 that collisions make slow
-# (chip_smoke.py k23_sweep: it wins up to 32 groups and loses from 64)
-K2_WARP_GROUPS = 32
 # path codes shared with csrc/segment_agg.cu
-_SEG_PATHS = {"empty": 0, "private": 1, "global": 2, "private_warp": 3}
+_SEG_PATHS = {"empty": 0, "private": 1, "global": 2}
 _SEG_ENTRY = {"segment_sum_i64": "nds_seg_sum_i64",
               "segment_sum_f64": "nds_seg_sum_f64",
               "segment_minmax_f64": "nds_seg_minmax_f64"}
@@ -267,7 +262,7 @@ _SEG_ENTRY = {"segment_sum_i64": "nds_seg_sum_i64",
 
 class SegmentPlan(NamedTuple):
     """How one K1-K3 launch runs: ``path`` ("empty" launches no row
-    kernel, "private", "private_warp" or "global"), the ``grid`` in blocks
+    kernel, "private" or "global"), the ``grid`` in blocks
     and the dynamic shared-memory ``smem`` in bytes."""
     path: str
     grid: int
@@ -294,28 +289,20 @@ def segment_plan(n: int, ngroups: int, sms: int = 132,
     return SegmentPlan("global", grid, 0)
 
 
-def group_bytes(name: str, count_only: bool = False) -> int:
-    """Shared-memory bytes a group takes on the private path of kernel
-    ``name`` (a K1-K3 key of ``LAUNCHES``)."""
-    return 4 if name == "segment_sum_f64" and count_only else 16
+def segment_plans(n: int, ngroups: int, sms: int, group_bytes: int = 16,
+                  per_sm=(1, 2, 3, 4)) -> list[SegmentPlan]:
+    """Every plan a sweep times for ``n`` rows into ``ngroups`` groups: the
+    private path at each of ``per_sm`` blocks an SM, as far as the shared
+    memory allows (none above its cap), then the global path."""
+    private = sorted(set(
+        p for p in (segment_plan(n, ngroups, sms, per_sm=q,
+                                 group_bytes=group_bytes) for q in per_sm)
+        if p.path == "private"))
+    return private + [segment_plan(n, ngroups, sms, g_priv=0)]
 
 
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def plan_for(name: str, n: int, ngroups: int, sms: int,
-             count_only: bool = False) -> SegmentPlan:
-    """The plan the wrapper of ``name`` takes on a card of ``sms`` SMs:
-    :func:`segment_plan` at the kernel's :func:`group_bytes`, and K2 with
-    values at 2 to ``K2_WARP_GROUPS`` groups on its warp-aggregated
-    private path."""
-    plan = segment_plan(n, ngroups, sms,
-                        group_bytes=group_bytes(name, count_only))
-    if name == "segment_sum_f64" and not count_only and \
-            plan.path == "private" and 1 < ngroups <= K2_WARP_GROUPS:
-        return plan._replace(path="private_warp")
-    return plan
 
 
 def _seg_inputs(name, values, gids):
@@ -330,10 +317,12 @@ def _seg_inputs(name, values, gids):
 def _seg_args(name, values, gids, ngroups, plan=None):
     """The C entry's arguments of one K1-K3 launch and its outputs
     (zeroed sums and counts; for K3 the key scratch and the doubles);
-    ``plan`` defaults to :func:`plan_for` this card."""
+    ``plan`` defaults to :func:`segment_plan` on this card, at 4 bytes a
+    group for a count-only launch (32-bit counts) and 16 otherwise."""
     dev, n = gids.device, gids.numel()
     if plan is None:
-        plan = plan_for(name, n, ngroups, _sm_count(dev), values is None)
+        plan = segment_plan(n, ngroups, _sm_count(dev),
+                            group_bytes=4 if values is None else 16)
     if name == "segment_minmax_f64":
         keys = torch.empty((2, ngroups), dtype=I64, device=dev)
         out = torch.empty((2, ngroups), dtype=F64, device=dev)

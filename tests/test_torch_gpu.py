@@ -275,8 +275,7 @@ def test_k1_every_plan_gives_the_same_sums(cuda):
     gt, vt = _t(g).to(cuda), _t(v).to(cuda)
     ps, pc = K.segment_sum_i64_plain(vt, gt, G)
     sms = K._sm_count(cuda)
-    plans = [K.segment_plan(n, G, sms, per_sm=p) for p in (1, 2, 3, 4)]
-    plans.append(K.segment_plan(n, G, sms, g_priv=0))
+    plans = K.segment_plans(n, G, sms)
     assert [p.path for p in plans] == ["private"] * 4 + ["global"]
     for plan in plans:
         s, c = K.launcher("segment_sum_i64", vt, gt, G, plan=plan)()
@@ -384,17 +383,10 @@ def _k23_case(rng, n, G):
     return g, v
 
 
-def _k23_plans(name, count_only, n, G, sms):
-    """Every plan a K2/K3 launch can take here: the private path at 1-4
-    blocks an SM (as the shared memory allows), for K2 with values at
-    G > 1 also its warp-aggregated variant, and the global path."""
-    gb = K.group_bytes(name, count_only)
-    plans = sorted(set(p for p in (
-        K.segment_plan(n, G, sms, per_sm=q, group_bytes=gb)
-        for q in (1, 2, 3, 4)) if p.path == "private"))
-    if name == "segment_sum_f64" and not count_only and G > 1:
-        plans += [p._replace(path="private_warp") for p in plans]
-    return plans + [K.segment_plan(n, G, sms, g_priv=0)]
+def _gb(count_only):
+    """Shared-memory bytes a group takes: 32-bit counts alone for a
+    count-only K2 launch, 16 otherwise."""
+    return 4 if count_only else 16
 
 
 def _assert_k23_equal(name, got, want):
@@ -426,19 +418,20 @@ def test_k23_every_path_matches_plain(cuda, name, count_only, G):
     the shared-memory cap, with an odd row count and views offset by one
     row (8-byte loads instead of 16-byte ones)."""
     n = (1 << 18) + 1235
-    cap = K.SMEM_BLOCK_CAP // K.group_bytes(name, count_only)
+    cap = K.SMEM_BLOCK_CAP // _gb(count_only)
     G = {"cap": cap, "cap+1": cap + 1}.get(G, G)
     rng = np.random.default_rng(G + 7 * count_only)
     g, v = _k23_case(rng, n, G)
     gt, vt = _t(g).to(cuda), _t(v).to(cuda)
     plain = getattr(K, name + "_plain")
     want = plain(None if count_only else vt, gt, G)
-    plan = K.plan_for(name, n, G, K._sm_count(cuda), count_only)
-    assert plan.path.startswith("private") == (G <= cap)
+    sms = K._sm_count(cuda)
+    plan = K.segment_plan(n, G, sms, group_bytes=_gb(count_only))
+    assert (plan.path == "private") == (G <= cap)
     before = K.LAUNCHES[name]
     _assert_k23_equal(name, _k23_call(name, count_only, vt, gt, G), want)
     assert K.LAUNCHES[name] == before + 1
-    for p in _k23_plans(name, count_only, n, G, K._sm_count(cuda)):
+    for p in K.segment_plans(n, G, sms, group_bytes=_gb(count_only)):
         _assert_k23_equal(name, _k23_call(name, count_only, vt, gt, G, p),
                           want)
     for a, b in ((vt[1:], gt[1:]), (vt[1:], gt[:-1])):
@@ -486,8 +479,7 @@ def test_k3_nan_and_signed_zeros_at_block_boundaries(cuda, G):
             g[edge - 3 + k] = (k + edge // 1024) % G
     gt, vt = _t(g).to(cuda), _t(v).to(cuda)
     want = K.segment_minmax_f64_plain(vt, gt, G)
-    for p in _k23_plans("segment_minmax_f64", False, n, G,
-                        K._sm_count(cuda)):
+    for p in K.segment_plans(n, G, K._sm_count(cuda)):
         _assert_k23_equal("segment_minmax_f64",
                           _k23_call("segment_minmax_f64", False, vt, gt, G,
                                     p), want)
@@ -509,10 +501,8 @@ def test_k23_every_plan_gives_the_same_result(cuda):
     sms = K._sm_count(cuda)
     for name, count_only in _K23:
         want = getattr(K, name + "_plain")(None if count_only else vt, gt, G)
-        plans = _k23_plans(name, count_only, n, G, sms)
-        assert [p.path for p in plans].count("private") == 4
-        assert len(plans) == (9 if name == "segment_sum_f64" and
-                              not count_only else 5)
+        plans = K.segment_plans(n, G, sms, group_bytes=_gb(count_only))
+        assert [p.path for p in plans] == ["private"] * 4 + ["global"]
         for plan in plans:
             _assert_k23_equal(name, _k23_call(name, count_only, vt, gt, G,
                                               plan), want)

@@ -2,9 +2,10 @@
 """Host-side pieces of the grouped-aggregation kernels K1-K3, on the CPU.
 
 All three pick their path by one host rule, ``segment_plan``, from the
-group count and the shared-memory bytes a group takes (``group_bytes``:
-16 for K1, K2 with values and K3; 4 for a count-only K2 launch); its
-cases pin path, grid and shared bytes at the edges. On the private path
+group count and the shared-memory bytes a group takes (16 for K1, K2 with
+values and K3; 4 for a count-only K2 launch); its cases pin path, grid
+and shared bytes at the edges. The 8-byte cases take no kernel: they pin
+the rule's arithmetic at a width between the two. On the private path
 every block reduces its own rows into shared memory and folds its
 non-empty groups into global memory; a mirror of that split and merge,
 built from the plain version's keys, must give the plain version's bits
@@ -58,39 +59,26 @@ def test_segment_plan_keeps_blocks_within_the_shared_memory(gb):
             assert blocks_an_sm * (p.smem + K.SMEM_RESERVED) <= K.SMEM_SM
 
 
-@pytest.mark.parametrize("name,count_only,gb", [
-    ("segment_sum_i64", False, 16),
-    ("segment_sum_f64", False, 16),
-    ("segment_minmax_f64", False, 16),
-    ("segment_sum_f64", True, 4),
+@pytest.mark.parametrize("gb", [16, 4])
+@pytest.mark.parametrize("n,G,grids", [
+    (SF1, 1, [132, 264, 396, 528]),
+    (SF1, 1000, [132, 264, 396, 528]),
+    # few rows: at most one block per 1,024 rows, so fewer distinct grids
+    (3000, 1, [3]),
+    (200_000, 16, [132, 196]),
+    (SF1, "cap", [132]),
+    (SF1, "cap+1", []),
 ])
-def test_group_bytes(name, count_only, gb):
-    assert K.group_bytes(name, count_only) == gb
-
-
-@pytest.mark.parametrize("name,count_only,G,path", [
-    ("segment_sum_f64", False, 1, "private"),
-    ("segment_sum_f64", False, 2, "private_warp"),
-    ("segment_sum_f64", False, K.K2_WARP_GROUPS, "private_warp"),
-    ("segment_sum_f64", False, K.K2_WARP_GROUPS + 1, "private"),
-    ("segment_sum_f64", False, CAP[16], "private"),
-    ("segment_sum_f64", False, CAP[16] + 1, "global"),
-    ("segment_sum_f64", True, 2, "private"),
-    ("segment_sum_f64", True, CAP[4], "private"),
-    ("segment_sum_f64", True, CAP[4] + 1, "global"),
-    ("segment_minmax_f64", False, 2, "private"),
-    ("segment_minmax_f64", False, CAP[16] + 1, "global"),
-    ("segment_sum_i64", False, 16, "private"),
-])
-def test_plan_for_each_kernel(name, count_only, G, path):
-    """A wrapper's plan: the one rule at the kernel's bytes a group, and
-    K2 with values on its warp-aggregated variant at 2 to K2_WARP_GROUPS
-    groups."""
-    p = K.plan_for(name, SF1, G, 132, count_only)
-    gb = K.group_bytes(name, count_only)
-    assert p.path == path
-    assert p._replace(path="private" if path == "private_warp" else path) \
-        == K.segment_plan(SF1, G, 132, group_bytes=gb)
+def test_segment_plans_are_the_sweep_plans(gb, n, G, grids):
+    """The sweep's plans: the private path at each of 1-4 blocks an SM,
+    each grid once and none above the cap, then the global path."""
+    G = {"cap": CAP[gb], "cap+1": CAP[gb] + 1}.get(G, G)
+    plans = K.segment_plans(n, G, 132, group_bytes=gb)
+    assert [p.grid for p in plans[:-1]] == grids
+    assert all(p == K.SegmentPlan("private", p.grid, gb * G)
+               for p in plans[:-1])
+    assert plans[-1] == K.segment_plan(n, G, 132, g_priv=0)
+    assert plans[-1].path == "global"
 
 
 # ------------------------------------------------- the private path's merge
@@ -190,11 +178,12 @@ def test_launcher_refuses_host_tensors(name, with_values):
         K.launcher(name, v, g, 2)
 
 
-@pytest.mark.parametrize("G", [1, 2, 1000, K.G_PRIV, K.G_PRIV + 1, CAP[4],
-                               CAP[4] + 1])
+@pytest.mark.parametrize("G", [1, K.G_PRIV + 1])
 def test_cpu_wrappers_take_the_plain_versions_at_every_plan(G):
     """On the CPU the K2 and K3 wrappers compute the plain versions
-    whatever path the card would take, and count nothing."""
+    whatever path the card would take (at G = 1 the private path for all;
+    past G_PRIV the global path, and private for count-only), and count
+    nothing."""
     rng = np.random.default_rng(G)
     n = 3000
     g = rng.integers(-1, G + 2, n)
