@@ -26,16 +26,20 @@ and suppresses the final ``ok`` line):
                up to ``G_PRIV``, the shared-memory cap;
    k23 sweep   the same for K2 (with values and count-only) and K3, from
                G = 1 to 100,000: the evidence for the caps;
-   scan/probe  K4 ``chunk_scan`` at n = 2^22 rows (one default chunk) with
-               a store_sales-like spec (FOR int16/int32 codes, a dict
-               float column, an IN-list, validity, the routing hash over
-               two keys) and K5 ``join_probe`` at n = 2^22 probe rows
-               against r in {1000, 102000, 2^20} build rows, a
-               duplicate-heavy build side (fanout 4, one key 1,000 times)
-               and a sparse one (2^20 rows, all null but 16):
-               bit-exact against their plain versions, with kernel
-               (warm and cold L2), wrapper, plain and bound ms (and, for
-               K5, the ``torch.searchsorted`` pair);
+   scan/probe  K4 ``chunk_scan`` at n = 2^22 rows (one default chunk) on
+               a synthetic spec (six entries: an int range on FOR int16
+               codes with validity, two float-lane compares on a FOR int32
+               decimal, an IN-list on int16 codes with validity, a compare
+               on a dict-encoded int16 column, notnull; the routing hash
+               over two int32 keys; 25 B a row), and K5 ``join_probe`` at
+               n = 2^22 probe rows against r in {1000, 102000, 2^20} build
+               rows, a duplicate-heavy build side (fanout 4, one key 1,000
+               times) and a sparse one (2^20 rows, all null but 16):
+               bit-exact against their plain versions, with kernel (warm
+               and cold L2), wrapper, plain and bound ms (and, for K5, the
+               ``torch.searchsorted`` pair); a ``k4_sweep`` line times
+               every plan of ``kernels.scan_plans`` on the same chunk,
+               each checked bit for bit;
 4. data        builds ``native/ndsgen`` and writes SF0.01, SF1 and SF10
                raw data (parallel children) under ``.smoke_data/``, in
                the background while the earlier phases run; SF10 is
@@ -59,8 +63,21 @@ and suppresses the final ``ok`` line):
                ``compiled`` within 6 syncs, K4/K5 launch, and no
                synchronizing CUDA call happens inside the chunk loop
                (``torch.cuda.set_sync_debug_mode("warn")`` around it);
-7. agreement   the same statements at SF0.01 on ``cuda`` and on ``cpu``:
-               exact kinds bit for bit, doubles within rel 1e-5.
+               a ``k4_specs`` line counts K4's launches by spec shape
+               (entry kinds, column dtypes and validity, dict table sizes,
+               IN-list lengths, key dtypes, plen) and by the statement that
+               made them (``<q>/compare``: the second run of a CI
+               statement whose rows are compared), and ``k1_groups`` /
+               ``k23_groups`` lines count K1-K3's launches by group count;
+   k4 real     K4 at each spec shape of ``k4_specs``, on the first chunk
+               of that shape (repeated to 2^22 rows where shorter):
+               bit-exact, warm and cold L2, the bytes bound and its
+               share, the plain time, and a ``k4_sweep`` line of every
+               plan;
+7. agreement   every statement of the SF0.01 stream (103) plus the
+               MIN/MAX-of-double one, on ``cuda`` and on ``cpu``: exact
+               kinds bit for bit, doubles within rel 1e-5; the line names
+               each statement that differs and gives the phase's seconds.
 
 It needs a CUDA device and the rest of the repository; without either it
 exits non-zero and prints no result. Results that are too long for the
@@ -532,35 +549,87 @@ def scan_inputs(torch, K, rng):
     return flat, n_dev, spec
 
 
+def scan_bytes(flat, spec, plen) -> int:
+    """The bytes one K4 launch must move: each buffer the spec reads (code
+    columns, validity, keys) once, the packed spec once, the mask (1 B a
+    row) and the hash (4 B a row, with keys) once."""
+    used = {c[0] for c in spec.cols} | {c[1] for c in spec.cols
+                                        if c[1] >= 0} | set(spec.key_slots)
+    words = len(spec_words(spec))
+    return sum(flat[i].element_size() * plen for i in used) + 8 * words + \
+        plen * (1 + (4 if spec.key_slots else 0))
+
+
+def spec_words(spec):
+    from nds_tpu_torch.engine import kernels as K
+    return K.pack_scan_spec(spec)[0]
+
+
+def plan_key(plan) -> str:
+    return "pr2" if plan.rows == 0 else \
+        f"r{plan.rows}/t{plan.threads}/g{plan.grid}"
+
+
+def k4_record(torch, K, flat, n_dev, spec):
+    """K4 against its plain version on one chunk, with its kernel time
+    (warm and cold L2), wrapper, plain and bytes-bound times, and every
+    plan of ``kernels.scan_plans`` timed in turns (each checked bit for
+    bit): the ``k4_sweep``. (record, sweep)."""
+    plen = int(flat[spec.cols[0][0]].shape[0])
+    m, h = K.chunk_scan(flat, n_dev, spec)
+    pm, ph = K.chunk_scan_plain(flat, n_dev, spec)
+    torch.cuda.synchronize()
+    good = bits_equal(torch, m, pm) and (h is None) == (ph is None) and (
+        h is None or bits_equal(torch, h, ph))
+    err = 0 if good else int((m != pm).sum()) + (
+        0 if h is None or ph is None else int((h != ph).sum()))
+    nbytes = scan_bytes(flat, spec, plen)
+    bound = bytes_bound_ms(nbytes)
+    launch = K.launcher("chunk_scan", flat, n_dev, spec)
+    warm = cuda_ms(torch, launch, reps=KERNEL_REPS)
+    cold, flush = cold_ms(torch, launch)
+    plan = K.scan_plan(plen, spec, K._sm_count(m.device))
+    sweep, plans_ok = {}, True
+    for p in K.scan_plans(plen, spec, K._sm_count(m.device)):
+        pl = K.launcher("chunk_scan", flat, n_dev, spec, plan=p)
+        _keep, pmask, phash = pl()
+        torch.cuda.synchronize()
+        pgood = bits_equal(torch, pmask, pm) and (
+            phash is None or bits_equal(torch, phash, ph))
+        plans_ok = plans_ok and pgood
+        sweep[plan_key(p)] = {"ms": cuda_ms(torch, pl, reps=KERNEL_REPS),
+                              "ok": pgood}
+        if p.rows == 0:
+            sweep[plan_key(p)]["cold_ms"] = cold_ms(torch, pl)[0]
+        del pl, pmask, phash
+    rec = dict(
+        n=plen, ok=good and plans_ok, max_abs_err=err, tol="bit-exact",
+        survivors=int(m.sum()), entries=len(spec.entries),
+        plan=plan_key(plan), staged_words=plan.staged,
+        spec_words=len(spec_words(spec)), ms=warm, cold_ms=cold,
+        flush_ms=flush,
+        wrapper_ms=cuda_ms(torch, lambda: K.chunk_scan(flat, n_dev, spec)),
+        plain_ms=cuda_ms(torch, lambda: K.chunk_scan_plain(flat, n_dev,
+                                                           spec)),
+        library_ms=None, library_call=None, bound_ms=bound,
+        bound_by="bytes", bytes=nbytes, bytes_per_row=nbytes / plen,
+        share_of_bound=bound / warm, cold_share_of_bound=bound / cold)
+    del m, h, pm, ph, launch
+    return rec, sweep
+
+
 def scan_probe_phase(torch, K):
     """K4 and K5 against their plain versions at the streamed path's
-    shapes: (ok, {name: [records]})."""
+    shapes: (ok, {name: [records]}, K4's sweep)."""
     import numpy as np
     from nds_tpu_torch.engine import ops as E
     rng = np.random.default_rng(SEED + 4)
     records = {"chunk_scan": [], "join_probe": []}
     flat, n_dev, spec = scan_inputs(torch, K, rng)
-    m, h = K.chunk_scan(flat, n_dev, spec)
-    pm, ph = K.chunk_scan_plain(flat, n_dev, spec)
-    torch.cuda.synchronize()
-    good = bits_equal(torch, m, pm) and bits_equal(torch, h, ph)
+    rec, sweep = k4_record(torch, K, flat, n_dev, spec)
+    records["chunk_scan"].append(dict(shape="synthetic", **rec))
     n = SCAN_ROWS
-    used = {c[0] for c in spec.cols} | {c[1] for c in spec.cols
-                                        if c[1] >= 0} | set(spec.key_slots)
-    nbytes = sum(flat[i].element_size() * n for i in used) + n * (1 + 4)
-    records["chunk_scan"].append(dict(
-        n=n, ok=good, max_abs_err=0 if good else int(
-            (m != pm).sum() + (h != ph).sum()), tol="bit-exact",
-        survivors=int(m.sum()), entries=len(spec.entries),
-        ms=cuda_ms(torch, K.launcher("chunk_scan", flat, n_dev, spec),
-                   reps=KERNEL_REPS),
-        wrapper_ms=cuda_ms(torch, lambda: K.chunk_scan(flat, n_dev, spec)),
-        plain_ms=cuda_ms(torch, lambda: K.chunk_scan_plain(flat, n_dev,
-                                                           spec)),
-        library_ms=None, library_call=None,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=nbytes))
-    del flat, m, h, pm, ph
+    del flat
     dev = torch.device("cuda")
     cases = [(r, "uniform") for r in PROBE_BUILD_ROWS] + \
         [(PROBE_DUP_ROWS, "duplicates"), (PROBE_SPARSE_ROWS, "sparse")]
@@ -626,7 +695,7 @@ def scan_probe_phase(torch, K):
         del keys, valid, excl, build, bvalid, rh, rh_sorted, c, lo, pc, plo
         del lh
     ok = all(r["ok"] for recs in records.values() for r in recs)
-    return ok, records
+    return ok, records, sweep
 
 
 # ---------------------------------------------------------------------------
@@ -895,9 +964,11 @@ def sync_detector_works(torch) -> bool:
                str(w.message).lower() for w in seen)
 
 
-def stream_phase(torch, K, raw_dir, raw_fanout, queries):
+def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     """The streamed path at ``STREAM_SCALE`` against an all-resident
-    session; the fan-out A/B statements at ``FANOUT_SCALE``."""
+    session; the fan-out A/B statements at ``FANOUT_SCALE``. K4's launches
+    count into ``capture`` under the statement that made them."""
+    from nds_tpu_torch import power as P
     from nds_tpu_torch.engine import ops as E
     from nds_tpu_torch.engine import prefetch as PF
     from nds_tpu_torch.engine import stream as S
@@ -980,7 +1051,9 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries):
         """The A/B statements ``indices``, then those of them in the
         partitioned subset again at 2 partitions."""
         for i in indices:
+            capture.context = "resident"
             want, res_ms, _s, _e = timed(resident, STREAM_AB[i])
+            capture.context = f"ab{i}"
             got, ms, syncs, events = timed(streamed, STREAM_AB[i])
             why = check(i, got, want, streamed)
             # the pipeline ran every scan — or ran it, found a bound-sized
@@ -1004,7 +1077,9 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries):
                                 f"syncs={syncs}")
         streamed.conf["stream_partitions"] = 2
         for i in (i for i in STREAM_AB_PARTITIONED if i in indices):
+            capture.context = "resident"
             want, _ms, _s, _e = timed(resident, STREAM_AB[i])
+            capture.context = f"ab{i}/p2"
             got, ms, syncs, events = timed(streamed, STREAM_AB[i])
             why = check(i, got, want, streamed)
             parts = [e.partitions for e in events]
@@ -1036,17 +1111,30 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries):
             f.write(f"{k}={v}\n")
     summ = os.path.join(OUT, "stream_json")
     shutil.rmtree(summ, ignore_errors=True)
-    power_s = run_query_stream(
-        pq, props, queries, os.path.join(OUT, "stream_time.csv"),
-        sub_queries=CI_QUERIES, input_format="parquet",
-        json_summary_folder=summ, allow_failure=True, device="cuda")
+    real_one = P.run_one_query
+
+    def one_query(session, q_content, query_name, *a, **k):
+        capture.context = query_name
+        return real_one(session, q_content, query_name, *a, **k)
+    P.run_one_query = one_query
+    try:
+        power_s = run_query_stream(
+            pq, props, queries, os.path.join(OUT, "stream_time.csv"),
+            sub_queries=CI_QUERIES, input_format="parquet",
+            json_summary_folder=summ, allow_failure=True, device="cuda")
+    finally:
+        P.run_one_query = real_one
     drain_stream_events()
     for fn in sorted(os.listdir(summ)):
         with open(os.path.join(summ, fn)) as f:
             js = json.load(f)
         q = js["query"]
         sql = strip_stream_markers(queries[q])
+        capture.context = "resident"
         want, res_ms, _s, _e = timed(resident, sql)
+        # the rows to compare: the statement again on the streamed session
+        # (its launches count under "<q>/compare")
+        capture.context = f"{q}/compare"
         got = power_s.sql(sql).to_arrow()
         why = tables_agree(got, want)
         records.append({"statement": q, "scale": STREAM_SCALE,
@@ -1096,8 +1184,8 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries):
 SEG_KERNELS = ("segment_sum_i64", "segment_sum_f64", "segment_minmax_f64")
 
 
-def group_histograms(seg_groups):
-    """The ``k1_groups`` and ``k23_groups`` lines from the Power Run's
+def group_histograms(seg_groups, run="power", scale=1):
+    """The ``k1_groups`` and ``k23_groups`` lines from one run's
     launches, keyed (kernel, G, path, count-only)."""
     lines = []
     for phase, names in (("k1_groups", SEG_KERNELS[:1]),
@@ -1113,9 +1201,127 @@ def group_histograms(seg_groups):
             if phase == "k23_groups":
                 rec = {"kernel": name, "count_only": count_only, **rec}
             hist.append(rec)
-        lines.append({"phase": phase, "scale": 1, "by_path": by_path,
-                      "histogram": hist})
+        lines.append({"phase": phase, "run": run, "scale": scale,
+                      "by_path": by_path, "histogram": hist})
     return lines
+
+
+def count_seg_groups(K, seg_groups):
+    """Wrap K1-K3 so that each CUDA launch counts into ``seg_groups`` by
+    (kernel, G, the path its plan takes, count-only); returns the function
+    that puts the wrappers back."""
+    reals = {name: getattr(K, name) for name in SEG_KERNELS}
+
+    def counting(name, real):
+        def wrapper(values, gids, ngroups):
+            if gids.device.type == "cuda":
+                path = K.segment_plan(
+                    gids.numel(), ngroups, K._sm_count(gids.device),
+                    group_bytes=4 if values is None else 16).path
+                key = (name, ngroups, path, values is None)
+                seg_groups[key] = seg_groups.get(key, 0) + 1
+            return real(values, gids, ngroups)
+        return wrapper
+    for name, real in reals.items():
+        setattr(K, name, counting(name, real))
+
+    def restore():
+        for name, real in reals.items():
+            setattr(K, name, real)
+    return restore
+
+
+def spec_shape(flat, spec):
+    """What K4's cost depends on in one launch: entry kinds, each
+    column's dtype, validity and decode, dict table sizes, IN-list
+    lengths, key dtypes and plen."""
+    def dt(t):
+        return str(t.dtype).replace("torch.", "")
+    cols = [{"dtype": dt(flat[c[0]]), "valid": c[1] >= 0, "decode": c[2],
+             **({"table": len(spec.tables[c[4]])} if c[2] == "dict"
+                else {})} for c in spec.cols]
+    entries = []
+    for e in spec.entries:
+        ent = {"kind": e[0], "col": e[1]}
+        if e[0] in ("iin", "inotin", "fin", "fnotin"):
+            ent["list"] = len(e[2])
+        entries.append(ent)
+    return {"entries": entries, "cols": cols,
+            "keys": [dt(flat[k]) for k in spec.key_slots],
+            "plen": int(flat[spec.cols[0][0]].shape[0])}
+
+
+class K4Capture:
+    """Counts the stream phase's K4 launches by spec shape and by the
+    statement that made them (``context``), and keeps each shape's first
+    chunk: a device copy of the buffers it reads and its live count,
+    taken on the stream with no host read, for the ``k4_real`` timings."""
+
+    def __init__(self, K):
+        self.K, self.real = K, K.chunk_scan
+        self.context = "setup"
+        self.shapes = {}
+
+    def note(self, flat, n_dev, spec):
+        """Count one launch (and keep the chunk of a new shape)."""
+        shape = spec_shape(flat, spec)
+        key = json.dumps(shape, sort_keys=True)
+        rec = self.shapes.get(key)
+        if rec is None:
+            used = {c[0] for c in spec.cols} | set(spec.key_slots) | \
+                {c[1] for c in spec.cols if c[1] >= 0}
+            rec = self.shapes[key] = {
+                "shape": shape, "launches": 0, "by_statement": {},
+                "spec": spec, "n_dev": n_dev.clone(),
+                "bufs": {i: flat[i].clone() for i in used}}
+        rec["launches"] += 1
+        by = rec["by_statement"]
+        by[self.context] = by.get(self.context, 0) + 1
+
+    def __enter__(self):
+        def scan(flat, n_dev, spec):
+            out = self.real(flat, n_dev, spec)
+            if flat[spec.cols[0][0]].device.type == "cuda":
+                self.note(flat, n_dev, spec)
+            return out
+        self.K.chunk_scan = scan
+        return self
+
+    def __exit__(self, *exc):
+        self.K.chunk_scan = self.real
+
+    def lines(self):
+        return [{"shape": r["shape"], "launches": r["launches"],
+                 "by_statement": r["by_statement"]}
+                for r in self.shapes.values()]
+
+
+def k4_real_phase(torch, K, capture):
+    """K4 at each spec shape the stream phase launched, on the first
+    chunk it saw, repeated to ``SCAN_ROWS`` rows where shorter (the live
+    count then covers every row but the last 12,345, as in the synthetic
+    chunk): (ok, [records], [sweeps])."""
+    records, sweeps, ok = [], [], True
+    for rec in capture.shapes.values():
+        spec, plen = rec["spec"], rec["shape"]["plen"]
+        reps = -(-SCAN_ROWS // plen)
+        width = 1 + max(rec["bufs"])
+        flat = [None] * width
+        for i, t in rec["bufs"].items():
+            flat[i] = t if reps == 1 else t.repeat(reps)[:SCAN_ROWS]
+        flat = tuple(flat)
+        n_dev = rec["n_dev"] if plen == SCAN_ROWS else torch.tensor(
+            SCAN_ROWS - 12345, dtype=torch.int64, device=rec["n_dev"].device)
+        r, sweep = k4_record(torch, K, flat, n_dev, spec)
+        r = dict(shape=rec["shape"], chunk_plen=plen,
+                 live=int(n_dev), launches=rec["launches"],
+                 by_statement=rec["by_statement"], **r)
+        ok = ok and r["ok"]
+        records.append(r)
+        sweeps.append({"shape": rec["shape"], "n": SCAN_ROWS,
+                       "plans": sweep})
+        del flat
+    return ok and bool(records), records, sweeps
 
 
 def tables_agree(a, b):
@@ -1247,8 +1453,10 @@ def main() -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("k23_sweep")
     try:
-        ok, more = scan_probe_phase(torch, K)
+        ok, more, sweep = scan_probe_phase(torch, K)
         records.update(more)
+        emit({"phase": "k4_sweep", "shape": "synthetic", "n": SCAN_ROWS,
+              "plans": sweep})
         for name, recs in more.items():
             emit({"phase": "kernel", "name": name, "ok": all(
                 r["ok"] for r in recs), "cases": recs})
@@ -1281,20 +1489,7 @@ def main() -> int:
         # K1-K3's group counts on the main path, by the path each launch's
         # plan takes (and, for K2, whether it is count-only)
         seg_groups = {}
-        reals = {name: getattr(K, name) for name in SEG_KERNELS}
-
-        def counting(name, real):
-            def wrapper(values, gids, ngroups):
-                if gids.device.type == "cuda":
-                    path = K.segment_plan(
-                        gids.numel(), ngroups, K._sm_count(gids.device),
-                        group_bytes=4 if values is None else 16).path
-                    key = (name, ngroups, path, values is None)
-                    seg_groups[key] = seg_groups.get(key, 0) + 1
-                return real(values, gids, ngroups)
-            return wrapper
-        for name, real in reals.items():
-            setattr(K, name, counting(name, real))
+        restore = count_seg_groups(K, seg_groups)
         K.reset_launches()
         t0 = time.time()
         try:
@@ -1305,8 +1500,7 @@ def main() -> int:
             mm = session.sql(MINMAX_SQL).collect()
             torch.cuda.synchronize()
         finally:
-            for name, real in reals.items():
-                setattr(K, name, real)
+            restore()
         launches = dict(K.LAUNCHES)
         for line in group_histograms(seg_groups):
             emit(line)
@@ -1341,22 +1535,40 @@ def main() -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("power")
 
-    # 6. the streamed path at STREAM_SCALE, against all-resident
+    # 6. the streamed path at STREAM_SCALE, against all-resident; K4's
+    # launches by spec shape and statement, K1-K3's by group count
+    capture = K4Capture(K)
     try:
         t0 = time.time()
         stream_f.result()
         wait_s = round(time.time() - t0, 3)
         K.reset_launches()
-        res = stream_phase(torch, K, stream_raw, os.path.join(DATA, "sf1"),
-                           gen_sql_from_stream(stream_file(STREAM_SCALE)))
+        stream_groups = {}
+        restore = count_seg_groups(K, stream_groups)
+        try:
+            with capture:
+                res = stream_phase(
+                    torch, K, stream_raw, os.path.join(DATA, "sf1"),
+                    gen_sql_from_stream(stream_file(STREAM_SCALE)), capture)
+        finally:
+            restore()
         res["data_wait_s"] = wait_s
+        res["k4_specs"] = capture.lines()
         for k in ("chunk_scan", "join_probe"):
             launches[k] = res["launches"][k]
         with open(os.path.join(OUT, "stream.json"), "w") as f:
             json.dump(res, f, indent=1)
-        emit({k: v for k, v in res.items() if k != "statements"})
+        emit({k: v for k, v in res.items()
+              if k not in ("statements", "k4_specs")})
         for rec in res["statements"]:
             emit({"phase": "stream", **rec})
+        emit({"phase": "k4_specs", "launches": res["launches"]["chunk_scan"],
+              "counted": sum(r["launches"] for r in res["k4_specs"]),
+              "specs": res["k4_specs"]})
+        for line in group_histograms(stream_groups, run="stream",
+                                     scale=f"{STREAM_SCALE} (ab7, ab8, "
+                                     f"ab13 at {FANOUT_SCALE})"):
+            emit(line)
         if not res["ok"]:
             failed.append("stream")
     except Exception:
@@ -1365,27 +1577,52 @@ def main() -> int:
               "error": traceback.format_exc()[-3000:]})
         failed.append("stream")
 
-    # 7. agreement at SF0.01: cuda vs cpu
+    # K4 at each real spec shape of the stream phase
     try:
+        ok, real, sweeps = k4_real_phase(torch, K, capture)
+        records["chunk_scan"] = records.get("chunk_scan", []) + real
+        for rec in real:
+            emit({"phase": "k4_real", **rec})
+        for rec in sweeps:
+            emit({"phase": "k4_sweep", **rec})
+        if not ok:
+            failed.append("k4_real")
+    except Exception:
+        import traceback
+        emit({"phase": "k4_real", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("k4_real")
+    capture.shapes.clear()
+
+    # 7. agreement at SF0.01: cuda vs cpu, every statement of the stream
+    try:
+        t0 = time.time()
         small = os.path.join(DATA, "sf0.01")
         queries = gen_sql_from_stream(stream_file("0.01"))
         sc = load_session(Session, small, "cuda")
         sh = load_session(Session, small, "cpu")
-        diffs = {}
-        for q in CI_QUERIES:
-            sql = strip_stream_markers(queries[q])
-            why = tables_agree(sc.sql(sql).to_arrow(), sh.sql(sql).to_arrow())
+        load_s = time.time() - t0
+        diffs, rows = {}, 0
+        todo = [(q, strip_stream_markers(sql)) for q, sql in queries.items()]
+        for q, sql in todo + [("minmax", MINMAX_SQL)]:
+            try:
+                got = sc.sql(sql).to_arrow()
+            except Exception as e:                 # a cuda-side failure
+                diffs[q] = f"cuda: {type(e).__name__}: {str(e)[:300]}"
+                continue
+            want = sh.sql(sql).to_arrow()
+            rows += want.num_rows
+            why = tables_agree(got, want)
             if why:
                 diffs[q] = why
-        why = tables_agree(sc.sql(MINMAX_SQL).to_arrow(),
-                           sh.sql(MINMAX_SQL).to_arrow())
-        if why:
-            diffs["minmax"] = why
         emit({"phase": "agreement", "scale": 0.01, "ok": not diffs,
-              "statements": len(CI_QUERIES) + 1, "diffs": diffs})
-        if diffs:
+              "statements": len(todo) + 1, "rows": rows, "diffs": diffs,
+              "load_s": round(load_s, 3),
+              "s": round(time.time() - t0, 3)})
+        if diffs or len(todo) != 103:
             failed.append("agreement")
-    except Exception as e:
+        del sc, sh
+    except Exception:
         import traceback
         emit({"phase": "agreement", "ok": False,
               "error": traceback.format_exc()[-2000:]})
@@ -1407,6 +1644,18 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
         if "library_amin_ms" in r:
             extra["library_amin_ms"] = r["library_amin_ms"]
+        if name == "chunk_scan":
+            # the synthetic spec's record, then each real shape's
+            extra["real_shapes"] = [{
+                "entries": [e["kind"] for e in x["shape"]["entries"]],
+                "cols": [c["dtype"] for c in x["shape"]["cols"]],
+                "keys": x["shape"]["keys"], "launches": x["launches"],
+                "ms": x["ms"], "cold_ms": x["cold_ms"],
+                "bound_ms": x["bound_ms"], "plain_ms": x["plain_ms"],
+                "max_abs_err": x["max_abs_err"]}
+                for x in recs if "launches" in x]
+            extra["max_abs_err_all_shapes"] = max(
+                (x.get("max_abs_err") or 0) for x in recs)
         line.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCE[name],
                      "replaces": replaces, "launches": launches.get(name, 0),

@@ -9,32 +9,78 @@
 //   hash[i] = the uint32 partition/shard routing hash over the key columns
 //             (only when the pipeline partitions)
 //
-// The spec is INTERPRETED, not compiled per statement: a statement's lowered
-// entries (opcode, column, int64 thresholds, float64 literals, IN-list slice)
-// and per-column decode metadata (FOR base, dict table slice, 10^scale
-// divisor) are flattened once per pipeline into device arrays, so a chunk
-// costs one launch and no host-to-device copy. The per-chunk column
-// pointers and dtype tags ride the launch's parameter block by value, and
-// the live row count n_dev is read from device memory.
-//
-// Semantics kept bit for bit with the reference's _eval_entries:
+// Semantics kept bit for bit with the reference's _eval_entries (and with
+// the plain version, kernels.py chunk_scan_plain):
 //   * a FALSE entry clears the mask whatever came before it;
-//   * stored codes widen to int64 with sign extension before comparing;
-//   * the float lane decodes FOR (code + base), dict (value table at the
-//     code clipped into range) or identity, then divides by 10^scale with a
-//     true IEEE division (this file must not be built with fast math);
+//   * the int lane widens stored codes to int64 with sign extension (uint8
+//     and bool zero-extend; a float column truncates toward zero, as
+//     .to(int64) does);
+//   * the float lane decodes FOR (code + base, wrapping in int64), dict
+//     (value table at the code clipped into range) or identity, then
+//     divides by 10^scale with a true IEEE division (__ddiv_rn; this file
+//     must not be built with fast math);
 //   * NaN compares as IEEE does;
 //   * the hash seed is 2166136261, the multipliers 2654435761 and
-//     2246822519 with the shifts 16 and 13; a float key hashes its bit
-//     pattern (a float32 sign-extends through int32), split into its low and
-//     high 32-bit words.
+//     2246822519 with the shifts 16 and 13; a key hashes its value widened
+//     to int64 (a float key its bit pattern, a float32 sign-extended through
+//     int32), split into its low and high 32-bit words.
 //
-// What bounds it on an H100: bytes. Every referenced column is read once
-// (1-8 B of code + 1 B of validity a row) and the mask (1 B) and hash (4 B)
-// are written once: about 10-20 B a row, 2^22 rows a chunk, some 15-25 us
-// at 3.35 TB/s. The design: one thread per row in a grid-stride loop; the
-// spec arrays are the same addresses for every thread and stay in L1.
-// Staging the spec in shared memory and vector loads are later work.
+// What bounds it on an H100: bytes. Each referenced column is read once
+// (1-8 B of code and 1 B of validity a row), the mask (1 B) and the hash
+// (4 B) are written once: 4-25 B a row, 5-31 us for a 2^22-row chunk at
+// 3.35 TB/s. Three things held the first version (one thread a row, the
+// spec interpreted for every row and entry) at a fifth of that:
+//   1. every row decoded the spec again: six entry words, the column's
+//      pointers and tag by a runtime index, its decode metadata, and a
+//      two-level switch, a dozen uniform loads and branches to move 1-4 B;
+//   2. each thread issued one 1-4 B load per entry and 1 B + 4 B stores,
+//      so an SM kept a few KB in flight where about 15-20 KB cover the
+//      latency of device memory;
+//   3. IN-lists and dict tables were walked in global memory per row, and a
+//      column that two entries read was loaded and decoded twice.
+//
+// The design (chunk_scan_tiles):
+//   * the packed spec (kernels.py pack_scan_spec: entries, per-column
+//     decode metadata, IN-lists, dict tables, in that order) is staged once
+//     a block into shared memory, as far as whole regions fit the budget
+//     the host gives (kernels.py scan_staged_words); a region that does not
+//     fit is read from global memory through the read-only path. The
+//     chunk's column pointers, tags and alignment go to shared memory with
+//     it;
+//   * each thread owns a tile of R consecutive rows (R = 4, 8 or 16) and
+//     keeps their mask bits in a register. Entries run entry-major: for
+//     each entry the switch on opcode and tag is taken once a tile (the
+//     same for the whole warp), the column's R codes come in with 16-byte
+//     vector loads (fewer bytes when R codes take less), are decoded once,
+//     compared, and ANDed into the bits. Codes of at most 4 bytes compare
+//     in 32 bits (an int64 threshold past int32 decides the whole tile);
+//     wider ones in 64. The validity bytes become bits four at a time;
+//   * consecutive entries on one column reuse its validity and its decoded
+//     int64 or float tile (the float decode, with its division, is the one
+//     that costs);
+//   * IN-list values are read once a tile, not once a row;
+//   * the mask goes out as R bytes in one store, the hash is folded over
+//     the same tile from vector key loads and stored four values to a
+//     16-byte store;
+//   * the float lane and the hash are template switches: a spec without
+//     float entries, or a launch without keys, runs a kernel that carries
+//     neither path (every real spec of the stream phase is int-lane only);
+//   * a persistent grid walks the tiles; R, the threads a block and the
+//     blocks an SM come from the host's plan (kernels.py scan_plan):
+//     16 rows, 256 threads, 2 blocks an SM, the best or within 3 % of it
+//     at every shape of chip_smoke.py's k4 sweep (the R = 16 kernels take
+//     109-128 registers, so two blocks of 256 is what an SM holds);
+//   * a tile past the last full one, and a column whose pointer is not
+//     16-byte aligned (a view with a storage offset), take scalar loads and
+//     stores inside the same kernel.
+// Tried and dropped (the k4 sweep, NVIDIA H100 80GB HBM3, 700.00 W): 32-row
+// tiles for int-only specs (more bytes in flight a thread, 179 registers:
+// 4-25 % slower), and an uncached int64 lane (more registers, not fewer:
+// 10 % slower on query37's shape).
+// Not done: a kernel compiled per spec (what Pallas does by tracing the
+// spec). On this card it means nvcc or NVRTC at the first sight of each
+// spec, seconds that every streamed statement would pay, and the real
+// specs have one or two entries (PERF.md section 6).
 //
 // Plain C interface (nvcc into a shared library, loaded with ctypes): the
 // argument block is passed by pointer and copied into the launch by value;
@@ -66,6 +112,14 @@ enum {
 // float-lane decode modes
 enum { FM_ID = 0, FM_FOR = 1, FM_DICT = 2 };
 
+// packed spec words (kernels.py SCAN_ENT_WORDS, SCAN_COL_WORDS):
+//   entry:  op, col, a, b, fa bits, fb bits, list offset, list length
+//           (the offset counts from the int or float IN-list region)
+//   column: fmode, FOR base, 10^scale divisor bits, table offset (from the
+//           table region), table length
+constexpr int kEntWords = 8;
+constexpr int kColWords = 5;
+
 struct NdsScanArgs {
     const void* data[NDS_SCAN_MAX_COLS];
     const unsigned char* valid[NDS_SCAN_MAX_COLS];   // null: no mask
@@ -75,14 +129,19 @@ struct NdsScanArgs {
     int ncols;
     int nentries;
     int nkeys;
-    int pad_;
-    const long long* ent;      // [nentries][6]: op, col, a, b, list off, len
-    const double* fent;        // [nentries][2]: float literals lo, hi
-    const long long* colmeta;  // [ncols][4]: fmode, base, table off, len
-    const double* sdiv;        // [ncols]: 10^scale divisor
-    const long long* ivals;    // int IN-list values
-    const double* fvals;       // float IN-list values
-    const long long* tables;   // sorted dict value tables, concatenated
+    int float_lane;            // the spec has float-lane entries
+    const long long* spec;     // packed words: entries, columns, int
+                               // IN-lists, float IN-lists (bits), tables
+    int off_cols;              // region starts, in words
+    int off_ivals;
+    int off_fvals;
+    int off_tables;
+    int total_words;
+    int staged_words;          // the prefix a block copies to shared memory
+    int rows;                  // plan: R rows a thread's tile (4, 8, 16)
+    int threads;               // plan: threads a block
+    int grid;                  // plan: blocks
+    int smem;                  // plan: dynamic shared bytes (8 * staged)
     const long long* n_dev;    // live rows of the chunk (device scalar)
     long long plen;
     unsigned char* mask;       // [plen] bool
@@ -91,146 +150,687 @@ struct NdsScanArgs {
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 
-int grid_for(long long n) {
-    long long blocks = (n + kThreads - 1) / kThreads;
-    const long long cap = 132LL * 64;
-    if (blocks > cap) blocks = cap;
-    if (blocks < 1) blocks = 1;
-    return (int)blocks;
+// one column of the chunk as a block sees it (shared memory; kernels.py
+// SCAN_STATIC_SMEM counts these two arrays)
+struct ColInfo {
+    const void* data;
+    const unsigned char* valid;
+    const long long* tbl;      // dict values (shared or global memory)
+    long long base;
+    long long tbl_len;
+    double sdiv;
+    int tag;
+    int fmode;
+    int vec;                   // data 16-byte aligned: vector loads
+    int vvec;                  // validity 16-byte aligned
+};
+
+struct KeyInfo {
+    const void* data;
+    int tag;
+    int vec;
+};
+
+__device__ __forceinline__ double dval(long long b) {
+    return __longlong_as_double(b);
 }
 
-// value of row i widened to int64 with sign extension (float bits for the
-// float tags: only the hash asks for those)
-__device__ __forceinline__ long long load_i64(const void* p, int tag,
-                                              long long i) {
+__device__ __forceinline__ long long dbits(double v) {
+    return __double_as_longlong(v);
+}
+
+// the mask bits of a whole tile of R rows
+template <int R>
+__host__ __device__ constexpr unsigned all_bits() {
+    return (1u << R) - 1u;
+}
+
+// R elements of S bytes at p[row0 ..] as raw bit patterns, zero-extended:
+// 16-byte vector loads (fewer bytes when R * S < 16) when ``vec`` (a full
+// tile of a 16-byte aligned buffer; row0 is a multiple of R, so the tile is
+// aligned to R * S), else scalar loads of the first n and zeros after.
+template <int S, int R>
+__device__ __forceinline__ void load_tile(const void* p, long long row0,
+                                          int n, bool vec,
+                                          unsigned long long (&raw)[R]) {
+    if (vec) {
+        constexpr int BYTES = R * S;
+        unsigned w[BYTES / 4];
+        const char* q = static_cast<const char*>(p) + row0 * S;
+        if constexpr (BYTES >= 16) {
+#pragma unroll
+            for (int k = 0; k < BYTES / 16; ++k) {
+                const uint4 v = __ldg(reinterpret_cast<const uint4*>(q) + k);
+                w[4 * k] = v.x;
+                w[4 * k + 1] = v.y;
+                w[4 * k + 2] = v.z;
+                w[4 * k + 3] = v.w;
+            }
+        } else if constexpr (BYTES == 8) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
+            w[0] = v.x;
+            w[1] = v.y;
+        } else {
+            w[0] = __ldg(reinterpret_cast<const unsigned*>(q));
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            if constexpr (S == 8)
+                raw[j] = w[2 * j] |
+                         (static_cast<unsigned long long>(w[2 * j + 1]) << 32);
+            else if constexpr (S == 4)
+                raw[j] = w[j];
+            else if constexpr (S == 2)
+                raw[j] = (w[j / 2] >> (16 * (j % 2))) & 0xffffu;
+            else
+                raw[j] = (w[j / 4] >> (8 * (j % 4))) & 0xffu;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            raw[j] = 0;
+            if (j < n) {
+                const long long i = row0 + j;
+                if constexpr (S == 8)
+                    raw[j] = __ldg(static_cast<const unsigned long long*>(p) +
+                                   i);
+                else if constexpr (S == 4)
+                    raw[j] = __ldg(static_cast<const unsigned*>(p) + i);
+                else if constexpr (S == 2)
+                    raw[j] = __ldg(static_cast<const unsigned short*>(p) + i);
+                else
+                    raw[j] = __ldg(static_cast<const unsigned char*>(p) + i);
+            }
+        }
+    }
+}
+
+// bit j set where byte j of the word is nonzero (j < 4): the high bit of
+// each byte after (low 7 bits + 0x7f) | byte, gathered by one multiply
+__device__ __forceinline__ unsigned nonzero_nibble(unsigned x) {
+    const unsigned hi = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+    return ((hi >> 7) * 0x10204080u) >> 28;
+}
+
+// validity bits of the tile (bit j: row row0 + j is valid); no mask: all
+template <int R>
+__device__ __forceinline__ unsigned load_valid(const unsigned char* v,
+                                               bool vec, long long row0,
+                                               int n) {
+    constexpr unsigned kAll = all_bits<R>();
+    if (v == nullptr) return kAll;
+    unsigned b = 0;
+    if (vec) {
+        const unsigned char* q = v + row0;
+        unsigned w[R / 4];
+        if constexpr (R >= 16) {
+#pragma unroll
+            for (int k = 0; k < R / 16; ++k) {
+                const uint4 x = __ldg(reinterpret_cast<const uint4*>(q) + k);
+                w[4 * k] = x.x;
+                w[4 * k + 1] = x.y;
+                w[4 * k + 2] = x.z;
+                w[4 * k + 3] = x.w;
+            }
+        } else if constexpr (R == 8) {
+            const uint2 x = __ldg(reinterpret_cast<const uint2*>(q));
+            w[0] = x.x;
+            w[1] = x.y;
+        } else {
+            w[0] = __ldg(reinterpret_cast<const unsigned*>(q));
+        }
+#pragma unroll
+        for (int k = 0; k < R / 4; ++k) b |= nonzero_nibble(w[k]) << (4 * k);
+        return b;
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+        if (j < n) b |= (__ldg(v + row0 + j) != 0 ? 1u : 0u) << j;
+    return b;
+}
+
+// the narrow int lane: R codes of a tag of at most 4 bytes (int8, uint8,
+// int16, int32) widened to int32
+template <int R>
+__device__ __forceinline__ void load_ints32(const void* p, int tag, bool vec,
+                                            long long row0, int n,
+                                            int (&x)[R]) {
+    unsigned long long raw[R];
     switch (tag) {
-    case TAG_I8: return (long long)((const int8_t*)p)[i];
-    case TAG_I16: return (long long)((const int16_t*)p)[i];
-    case TAG_I32: return (long long)((const int32_t*)p)[i];
-    case TAG_U8: return (long long)((const uint8_t*)p)[i];
+    case TAG_I8:
+        load_tile<1, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            x[j] = static_cast<signed char>(static_cast<unsigned char>(raw[j]));
+        break;
+    case TAG_U8:
+        load_tile<1, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j) x[j] = static_cast<int>(raw[j]);
+        break;
+    case TAG_I16:
+        load_tile<2, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            x[j] = static_cast<short>(static_cast<unsigned short>(raw[j]));
+        break;
+    default:   // TAG_I32
+        load_tile<4, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            x[j] = static_cast<int>(static_cast<unsigned>(raw[j]));
+        break;
+    }
+}
+
+__device__ __forceinline__ bool narrow_tag(int tag) {
+    return tag == TAG_I8 || tag == TAG_U8 || tag == TAG_I16 ||
+           tag == TAG_I32;
+}
+
+// the int lane: R codes widened to int64 (the switch on the tag is taken
+// once a tile)
+template <int R>
+__device__ __forceinline__ void load_ints(const void* p, int tag, bool vec,
+                                          long long row0, int n,
+                                          long long (&t)[R]) {
+    unsigned long long raw[R];
+    switch (tag) {
+    case TAG_I8:
+        load_tile<1, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = static_cast<signed char>(static_cast<unsigned char>(raw[j]));
+        break;
+    case TAG_U8:
+        load_tile<1, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
+        break;
+    case TAG_I16:
+        load_tile<2, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = static_cast<short>(static_cast<unsigned short>(raw[j]));
+        break;
+    case TAG_I32:
+        load_tile<4, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = static_cast<int>(static_cast<unsigned>(raw[j]));
+        break;
     case TAG_F32:
-        return (long long)(int32_t)__float_as_int(((const float*)p)[i]);
+        load_tile<4, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = static_cast<long long>(
+                __uint_as_float(static_cast<unsigned>(raw[j])));
+        break;
     case TAG_F64:
-        return __double_as_longlong(((const double*)p)[i]);
-    default: return ((const long long*)p)[i];
+        load_tile<8, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = static_cast<long long>(
+                dval(static_cast<long long>(raw[j])));
+        break;
+    default:   // TAG_I64
+        load_tile<8, R>(p, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
+        break;
     }
 }
 
-__device__ __forceinline__ double load_f64(const void* p, int tag,
-                                           long long i) {
-    switch (tag) {
-    case TAG_F64: return ((const double*)p)[i];
-    case TAG_F32: return (double)((const float*)p)[i];
-    default: return (double)load_i64(p, tag, i);
+// the float lane: R decoded doubles (as bits in t), divided by 10^scale
+template <int R>
+__device__ __forceinline__ void load_floats(const ColInfo& c, bool full,
+                                            bool tbl_sh, long long row0,
+                                            int n, long long (&t)[R]) {
+    const bool vec = full && c.vec;
+    if (c.fmode == FM_ID && c.tag == TAG_F64) {
+        unsigned long long raw[R];
+        load_tile<8, R>(c.data, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
+    } else if (c.fmode == FM_ID && c.tag == TAG_F32) {
+        unsigned long long raw[R];
+        load_tile<4, R>(c.data, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = dbits(static_cast<double>(
+                __uint_as_float(static_cast<unsigned>(raw[j]))));
+    } else {
+        load_ints<R>(c.data, c.tag, vec, row0, n, t);
+        if (c.fmode == FM_FOR) {
+            const unsigned long long base =
+                static_cast<unsigned long long>(c.base);
+#pragma unroll
+            for (int j = 0; j < R; ++j)   // int64 wrap, like astype + add
+                t[j] = dbits(static_cast<double>(static_cast<long long>(
+                    static_cast<unsigned long long>(t[j]) + base)));
+        } else if (c.fmode == FM_DICT) {
+            const long long hi = c.tbl_len - 1;
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+                long long x = t[j];
+                x = x < 0 ? 0 : x;
+                x = x > hi ? hi : x;
+                long long v = 0;
+                if (hi >= 0) v = tbl_sh ? c.tbl[x] : __ldg(c.tbl + x);
+                t[j] = dbits(static_cast<double>(v));
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                t[j] = dbits(static_cast<double>(t[j]));
+        }
+    }
+    if (c.sdiv != 1.0) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) t[j] = dbits(__ddiv_rn(dval(t[j]), c.sdiv));
     }
 }
 
-__global__ void chunk_scan_kernel(const NdsScanArgs a) {
-    const long long n_live = *a.n_dev;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < a.plen; i += stride) {
-        bool m = true;
+// bits of an int-lane entry over the tile
+template <int R>
+__device__ __forceinline__ unsigned int_bits(int op, const long long* en,
+                                             const long long (&t)[R],
+                                             const long long* iv,
+                                             bool iv_sh) {
+    constexpr unsigned kAll = all_bits<R>();
+    const long long A = en[2];
+    const long long B = en[3];
+    unsigned c = 0;
+    switch (op) {
+    case OP_IEQ:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (t[j] == A ? 1u : 0u) << j;
+        break;
+    case OP_INE:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (t[j] != A ? 1u : 0u) << j;
+        break;
+    case OP_ILE:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (t[j] <= A ? 1u : 0u) << j;
+        break;
+    case OP_IGE:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (t[j] >= A ? 1u : 0u) << j;
+        break;
+    case OP_IRANGE:
+    case OP_NRANGE:
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            c |= (t[j] >= A && t[j] <= B ? 1u : 0u) << j;
+        if (op == OP_NRANGE) c = ~c & kAll;
+        break;
+    default: {   // OP_IIN, OP_INOTIN: each list value once a tile
+        const long long* lst = iv + en[6];
+        const long long len = en[7];
+        for (long long k = 0; k < len; ++k) {
+            const long long v = iv_sh ? lst[k] : __ldg(lst + k);
+#pragma unroll
+            for (int j = 0; j < R; ++j) c |= (t[j] == v ? 1u : 0u) << j;
+        }
+        if (op == OP_INOTIN) c = ~c & kAll;
+    }
+    }
+    return c;
+}
+
+// bits of an int-lane entry over a narrow tile: the same answers as
+// int_bits, with the int64 thresholds taken into int32 first (a threshold
+// past either end of int32 decides the whole tile)
+template <int R>
+__device__ __forceinline__ unsigned int_bits32(int op, const long long* en,
+                                               const int (&x)[R],
+                                               const long long* iv,
+                                               bool iv_sh) {
+    constexpr unsigned kAll = all_bits<R>();
+    constexpr long long kMin = -2147483648LL;
+    constexpr long long kMax = 2147483647LL;
+    const long long A = en[2];
+    const long long B = en[3];
+    const int a = static_cast<int>(A < kMin ? kMin : (A > kMax ? kMax : A));
+    const int b = static_cast<int>(B < kMin ? kMin : (B > kMax ? kMax : B));
+    unsigned c = 0;
+    switch (op) {
+    case OP_IEQ:
+    case OP_INE:
+        if (a == A) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) c |= (x[j] == a ? 1u : 0u) << j;
+        }
+        if (op == OP_INE) c = ~c & kAll;
+        break;
+    case OP_ILE:
+        if (A >= kMin) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) c |= (x[j] <= a ? 1u : 0u) << j;
+        }
+        break;
+    case OP_IGE:
+        if (A <= kMax) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) c |= (x[j] >= a ? 1u : 0u) << j;
+        }
+        break;
+    case OP_IRANGE:
+    case OP_NRANGE:
+        if (A <= kMax && B >= kMin) {
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                c |= (x[j] >= a && x[j] <= b ? 1u : 0u) << j;
+        }
+        if (op == OP_NRANGE) c = ~c & kAll;
+        break;
+    default: {   // OP_IIN, OP_INOTIN: a value past int32 matches no row
+        const long long* lst = iv + en[6];
+        const long long len = en[7];
+        for (long long k = 0; k < len; ++k) {
+            const long long v = iv_sh ? lst[k] : __ldg(lst + k);
+            if (v < kMin || v > kMax) continue;
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                c |= (x[j] == static_cast<int>(v) ? 1u : 0u) << j;
+        }
+        if (op == OP_INOTIN) c = ~c & kAll;
+    }
+    }
+    return c;
+}
+
+// bits of a float-lane entry over the tile (t holds doubles as bits)
+template <int R>
+__device__ __forceinline__ unsigned flt_bits(int op, const long long* en,
+                                             const long long (&t)[R],
+                                             const long long* fv,
+                                             bool fv_sh) {
+    constexpr unsigned kAll = all_bits<R>();
+    const double L = dval(en[4]);
+    const double H = dval(en[5]);
+    unsigned c = 0;
+    switch (op) {
+    case OP_FEQ:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (dval(t[j]) == L ? 1u : 0u) << j;
+        break;
+    case OP_FNE:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (dval(t[j]) != L ? 1u : 0u) << j;
+        break;
+    case OP_FLT:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (dval(t[j]) < L ? 1u : 0u) << j;
+        break;
+    case OP_FLE:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (dval(t[j]) <= L ? 1u : 0u) << j;
+        break;
+    case OP_FGT:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (dval(t[j]) > L ? 1u : 0u) << j;
+        break;
+    case OP_FGE:
+#pragma unroll
+        for (int j = 0; j < R; ++j) c |= (dval(t[j]) >= L ? 1u : 0u) << j;
+        break;
+    case OP_FRANGE:
+    case OP_FNRANGE:
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            c |= (dval(t[j]) >= L && dval(t[j]) <= H ? 1u : 0u) << j;
+        if (op == OP_FNRANGE) c = ~c & kAll;
+        break;
+    default: {   // OP_FIN, OP_FNOTIN
+        const long long* lst = fv + en[6];
+        const long long len = en[7];
+        for (long long k = 0; k < len; ++k) {
+            const double v = dval(fv_sh ? lst[k] : __ldg(lst + k));
+#pragma unroll
+            for (int j = 0; j < R; ++j) c |= (dval(t[j]) == v ? 1u : 0u) << j;
+        }
+        if (op == OP_FNOTIN) c = ~c & kAll;
+    }
+    }
+    return c;
+}
+
+// a key tile as the hash reads it: the value widened to int64, a float's
+// bit pattern (float32 sign-extended through int32)
+template <int R>
+__device__ __forceinline__ void load_key_bits(const KeyInfo& k, bool full,
+                                              long long row0, int n,
+                                              long long (&t)[R]) {
+    const bool vec = full && k.vec;
+    if (k.tag == TAG_F64) {
+        unsigned long long raw[R];
+        load_tile<8, R>(k.data, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
+    } else if (k.tag == TAG_F32) {
+        unsigned long long raw[R];
+        load_tile<4, R>(k.data, row0, n, vec, raw);
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            t[j] = static_cast<int>(static_cast<unsigned>(raw[j]));
+    } else {
+        load_ints<R>(k.data, k.tag, vec, row0, n, t);
+    }
+}
+
+template <int R>
+__device__ __forceinline__ void store_mask(unsigned char* out,
+                                           long long row0, int n, bool full,
+                                           unsigned m) {
+    if (full) {
+        unsigned w[(R + 3) / 4];
+#pragma unroll
+        for (int k = 0; k < (R + 3) / 4; ++k)   // 4 bits -> 4 bytes of 0/1
+            w[k] = (((m >> (4 * k)) & 0xfu) * 0x00204081u) & 0x01010101u;
+        unsigned char* q = out + row0;
+        if constexpr (R >= 16) {
+#pragma unroll
+            for (int k = 0; k < R / 16; ++k)
+                reinterpret_cast<uint4*>(q)[k] = make_uint4(
+                    w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
+        } else if constexpr (R == 8)
+            *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
+        else
+            *reinterpret_cast<unsigned*>(q) = w[0];
+    } else {
+        for (int j = 0; j < n; ++j) out[row0 + j] = (m >> j) & 1u;
+    }
+}
+
+template <int R>
+__device__ __forceinline__ void store_hash(unsigned* out, long long row0,
+                                           int n, bool full,
+                                           const unsigned (&h)[R]) {
+    if (full) {
+        uint4* q = reinterpret_cast<uint4*>(out + row0);
+#pragma unroll
+        for (int k = 0; k < R / 4; ++k)
+            q[k] = make_uint4(h[4 * k], h[4 * k + 1], h[4 * k + 2],
+                              h[4 * k + 3]);
+    } else {   // unrolled, so that h stays in registers
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            if (j < n) out[row0 + j] = h[j];
+    }
+}
+
+// kFloat: the spec has float-lane entries; kHash: the launch folds the
+// routing hash. A launch without them runs a kernel that carries neither
+// path, with fewer registers.
+template <int R, bool kFloat, bool kHash>
+__global__ void __launch_bounds__(kMaxThreads)
+chunk_scan_tiles(const NdsScanArgs a) {
+    extern __shared__ long long sh[];
+    __shared__ ColInfo cols[NDS_SCAN_MAX_COLS];
+    __shared__ KeyInfo keys[NDS_SCAN_MAX_KEYS];
+    constexpr unsigned kAll = all_bits<R>();
+    const int tid = threadIdx.x;
+
+    // stage the spec: the prefix of whole regions that fits, once a block
+    for (int w = tid; w < a.staged_words; w += blockDim.x)
+        sh[w] = __ldg(a.spec + w);
+    const bool tbl_sh = a.total_words <= a.staged_words;
+    const long long* tbl = (tbl_sh ? sh : a.spec) + a.off_tables;
+    if (tid < a.ncols) {
+        const long long* cw = a.spec + a.off_cols + kColWords * tid;
+        ColInfo& c = cols[tid];
+        c.data = a.data[tid];
+        c.valid = a.valid[tid];
+        c.tag = a.data_tag[tid];
+        c.fmode = static_cast<int>(__ldg(cw));
+        c.base = __ldg(cw + 1);
+        c.sdiv = dval(__ldg(cw + 2));
+        c.tbl = tbl + __ldg(cw + 3);
+        c.tbl_len = __ldg(cw + 4);
+        c.vec = (reinterpret_cast<uintptr_t>(c.data) & 15) == 0;
+        c.vvec = (reinterpret_cast<uintptr_t>(c.valid) & 15) == 0;
+    }
+    if (tid < a.nkeys) {
+        keys[tid].data = a.keys[tid];
+        keys[tid].tag = a.key_tag[tid];
+        keys[tid].vec = (reinterpret_cast<uintptr_t>(a.keys[tid]) & 15) == 0;
+    }
+    __syncthreads();
+    const long long* ent = a.off_cols <= a.staged_words ? sh : a.spec;
+    const bool iv_sh = a.off_fvals <= a.staged_words;
+    const bool fv_sh = a.off_tables <= a.staged_words;
+    const long long* iv = (iv_sh ? sh : a.spec) + a.off_ivals;
+    const long long* fv = (fv_sh ? sh : a.spec) + a.off_fvals;
+
+    const long long n_live = __ldg(a.n_dev);
+    const long long plen = a.plen;
+    const long long ntiles = (plen + R - 1) / R;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    for (long long tile = static_cast<long long>(blockIdx.x) * blockDim.x +
+                          tid;
+         tile < ntiles; tile += stride) {
+        const long long row0 = tile * R;
+        const long long left = plen - row0;
+        const int n = left < R ? static_cast<int>(left) : R;
+        const bool full = n == R;
+        unsigned m = kAll;
+        long long t[R];
+        int tcol = -1, tlane = -1, vcol = -1;
+        unsigned vb = kAll;
         for (int e = 0; e < a.nentries; ++e) {
-            const long long* en = a.ent + 6 * e;
-            const int op = (int)en[0];
-            const int ci = (int)en[1];
-            const bool v = a.valid[ci] == nullptr ? true
-                                                  : a.valid[ci][i] != 0;
-            if (op == OP_FALSE) { m = false; continue; }
-            if (op == OP_TRUE || op == OP_NOTNULL) { m = m && v; continue; }
-            if (op == OP_ISNULL) { m = m && !v; continue; }
-            bool c;
-            if (op <= OP_INOTIN) {
-                const long long x = load_i64(a.data[ci], a.data_tag[ci], i);
-                switch (op) {
-                case OP_IEQ: c = x == en[2]; break;
-                case OP_INE: c = x != en[2]; break;
-                case OP_ILE: c = x <= en[2]; break;
-                case OP_IGE: c = x >= en[2]; break;
-                case OP_IRANGE: c = x >= en[2] && x <= en[3]; break;
-                case OP_NRANGE: c = !(x >= en[2] && x <= en[3]); break;
-                case OP_IIN:
-                    c = false;
-                    for (long long k = 0; k < en[5]; ++k)
-                        c = c || x == a.ivals[en[4] + k];
-                    break;
-                default:   // OP_INOTIN
-                    c = true;
-                    for (long long k = 0; k < en[5]; ++k)
-                        c = c && x != a.ivals[en[4] + k];
-                    break;
+            const long long* en = ent + kEntWords * e;
+            const int op = static_cast<int>(en[0]);
+            const int ci = static_cast<int>(en[1]);
+            if (op == OP_FALSE) {
+                m = 0;
+                continue;
+            }
+            const ColInfo& c = cols[ci];
+            if (vcol != ci) {
+                vb = load_valid<R>(c.valid, full && c.vvec, row0, n);
+                vcol = ci;
+            }
+            if (op == OP_TRUE || op == OP_NOTNULL) {
+                m &= vb;
+                continue;
+            }
+            if (op == OP_ISNULL) {
+                m &= ~vb;
+                continue;
+            }
+            const bool int_lane = op <= OP_INOTIN;
+            unsigned cb;
+            if (int_lane && narrow_tag(c.tag)) {
+                int x[R];   // narrow codes compare in 32 bits, uncached
+                load_ints32<R>(c.data, c.tag, full && c.vec, row0, n, x);
+                cb = int_bits32<R>(op, en, x, iv, iv_sh);
+            } else if (int_lane) {
+                if (tcol != ci || tlane != 0) {
+                    load_ints<R>(c.data, c.tag, full && c.vec, row0, n, t);
+                    tcol = ci;
+                    tlane = 0;
                 }
+                cb = int_bits<R>(op, en, t, iv, iv_sh);
+            } else if constexpr (kFloat) {
+                if (tcol != ci || tlane != 1) {
+                    load_floats<R>(c, full, tbl_sh, row0, n, t);
+                    tcol = ci;
+                    tlane = 1;
+                }
+                cb = flt_bits<R>(op, en, t, fv, fv_sh);
             } else {
-                const long long* cm = a.colmeta + 4 * ci;
-                double val;
-                if (cm[0] == FM_FOR) {
-                    const long long x =
-                        load_i64(a.data[ci], a.data_tag[ci], i);
-                    // int64 wrap like the reference's astype + add
-                    val = (double)(long long)((unsigned long long)x +
-                                              (unsigned long long)cm[1]);
-                } else if (cm[0] == FM_DICT) {
-                    long long x = load_i64(a.data[ci], a.data_tag[ci], i);
-                    if (x < 0) x = 0;
-                    if (x > cm[3] - 1) x = cm[3] - 1;
-                    val = (double)a.tables[cm[2] + x];
-                } else {
-                    val = load_f64(a.data[ci], a.data_tag[ci], i);
-                }
-                const double sd = a.sdiv[ci];
-                if (sd != 1.0) val = __ddiv_rn(val, sd);
-                const double* fe = a.fent + 2 * e;
-                switch (op) {
-                case OP_FEQ: c = val == fe[0]; break;
-                case OP_FNE: c = val != fe[0]; break;
-                case OP_FLT: c = val < fe[0]; break;
-                case OP_FLE: c = val <= fe[0]; break;
-                case OP_FGT: c = val > fe[0]; break;
-                case OP_FGE: c = val >= fe[0]; break;
-                case OP_FRANGE: c = val >= fe[0] && val <= fe[1]; break;
-                case OP_FNRANGE: c = !(val >= fe[0] && val <= fe[1]); break;
-                default: {   // OP_FIN, OP_FNOTIN
-                    bool hit = false;
-                    for (long long k = 0; k < en[5]; ++k)
-                        hit = hit || val == a.fvals[en[4] + k];
-                    c = op == OP_FIN ? hit : !hit;
-                }
-                }
+                cb = 0;   // not reached: the host sets float_lane for these
             }
-            m = m && c && v;
+            m &= cb & vb;
         }
-        a.mask[i] = (m && i < n_live) ? 1 : 0;
-        if (a.hash != nullptr) {
-            unsigned int h = 2166136261u;
+        const long long live = n_live - row0;
+        if (live < R) m &= live <= 0 ? 0u : (1u << live) - 1u;
+        store_mask<R>(a.mask, row0, n, full, m);
+        if constexpr (kHash) {
+            unsigned h[R];
+#pragma unroll
+            for (int j = 0; j < R; ++j) h[j] = 2166136261u;
             for (int k = 0; k < a.nkeys; ++k) {
-                const long long x = load_i64(a.keys[k], a.key_tag[k], i);
-                const unsigned int lo = (unsigned int)(x & 0xffffffffLL);
-                const unsigned int hi =
-                    (unsigned int)((x >> 32) & 0xffffffffLL);
-                h = (h ^ lo) * 2654435761u;
-                h = h ^ (h >> 16);
-                h = (h ^ hi) * 2246822519u;
-                h = h ^ (h >> 13);
+                load_key_bits<R>(keys[k], full, row0, n, t);
+#pragma unroll
+                for (int j = 0; j < R; ++j) {
+                    const unsigned lo = static_cast<unsigned>(t[j]);
+                    const unsigned hi = static_cast<unsigned>(
+                        static_cast<unsigned long long>(t[j]) >> 32);
+                    unsigned x = (h[j] ^ lo) * 2654435761u;
+                    x ^= x >> 16;
+                    x = (x ^ hi) * 2246822519u;
+                    h[j] = x ^ (x >> 13);
+                }
             }
-            a.hash[i] = h;
+            store_hash<R>(a.hash, row0, n, full, h);
         }
     }
+}
+
+template <int R, bool kFloat, bool kHash>
+int launch_tiles(const NdsScanArgs& a, cudaStream_t s) {
+    chunk_scan_tiles<R, kFloat, kHash><<<a.grid, a.threads, a.smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int launch_rows(const NdsScanArgs& a, cudaStream_t s) {
+    const bool hash = a.hash != nullptr;
+    if (a.float_lane)
+        return hash ? launch_tiles<R, true, true>(a, s)
+                    : launch_tiles<R, true, false>(a, s);
+    return hash ? launch_tiles<R, false, true>(a, s)
+                : launch_tiles<R, false, false>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+// rows, threads, grid and smem from the host plan (kernels.py scan_plan);
+// nothing is launched for an empty chunk (plen 0)
 int nds_chunk_scan(const NdsScanArgs* args, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (args->plen > 0)
-        chunk_scan_kernel<<<grid_for(args->plen), kThreads, 0, s>>>(*args);
-    return (int)cudaGetLastError();
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const NdsScanArgs& a = *args;
+    if (a.plen <= 0) return static_cast<int>(cudaGetLastError());
+    if (a.grid <= 0 || a.threads <= 0 || a.threads > kMaxThreads ||
+        a.smem != 8 * a.staged_words || a.staged_words > a.total_words ||
+        a.ncols > NDS_SCAN_MAX_COLS || a.nkeys > NDS_SCAN_MAX_KEYS ||
+        a.threads < a.ncols || a.threads < a.nkeys)
+        return static_cast<int>(cudaErrorInvalidValue);
+    switch (a.rows) {
+    case 4: return launch_rows<4>(a, s);
+    case 8: return launch_rows<8>(a, s);
+    case 16: return launch_rows<16>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
 }
 
-int nds_chunk_scan_sizeof() { return (int)sizeof(NdsScanArgs); }
+int nds_chunk_scan_sizeof() { return static_cast<int>(sizeof(NdsScanArgs)); }
 
 }  // extern "C"

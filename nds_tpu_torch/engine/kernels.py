@@ -35,8 +35,15 @@ of K1-K3 has two kernels, chosen by :func:`segment_plan` from ``ngroups``
 and the shared-memory bytes a group takes (16, or 4 for a count-only
 ``segment_sum_f64``): block-private shared-memory partials for as many groups as a block's
 shared memory holds, one global atomic a row above that.
-``join_probe`` builds a radix directory over the build side on each call
-and searches only the probe hash's bucket (:func:`probe_bits`,
+``chunk_scan`` is bound by the bytes of the columns its spec reads: the
+spec is packed once per pipeline into int64 words (:func:`pack_scan_spec`),
+and each block stages what of it fits 48 KB in shared memory
+(:func:`scan_staged_words`); each thread then takes a tile of 4, 8 or 16
+consecutive rows and runs the entries over it one at a time, with vector
+loads, one decode per column and the mask bits in a register, under the
+plan :func:`scan_plan` gives (rows a tile, threads a block, a persistent
+grid). ``join_probe`` builds a radix directory over the build side on each
+call and searches only the probe hash's bucket (:func:`probe_bits`,
 :func:`probe_directory_plain`). The notes at the top of each CUDA source
 say more.
 
@@ -64,6 +71,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nds_tpu_torch.engine.prim import true_div
+
 I64 = torch.int64
 F64 = torch.float64
 
@@ -73,7 +82,8 @@ LAUNCHES = {"segment_sum_i64": 0, "segment_sum_f64": 0,
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("segment_agg.cu", "chunk_scan.cu", "join_probe.cu")
+_SOURCES = ("segment_agg.cu", "chunk_scan.cu", "chunk_scan_pr2.cu",
+            "join_probe.cu")
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -177,6 +187,7 @@ def _lib():
                              "nds_seg_minmax_f64"):
                     getattr(lib, name).restype = ctypes.c_int
                 for name, struct in (("nds_chunk_scan", _ScanArgs),
+                                     ("nds_chunk_scan_pr2", _ScanArgsPr2),
                                      ("nds_join_probe", _ProbeArgs)):
                     fn = getattr(lib, name)
                     fn.argtypes = [ctypes.POINTER(struct), vp]
@@ -611,7 +622,7 @@ def _eval_entries(spec: ScanSpec, datas, valids, tables):
             else:
                 val = d.to(F64)
             if sdiv != 1.0:
-                val = val / sdiv
+                val = true_div(val, sdiv)
             if kind in ("fin", "fnotin"):
                 c = torch.zeros(shape, dtype=torch.bool, device=dev)
                 for v in e[2]:
@@ -660,9 +671,186 @@ def chunk_scan_plain(chunk_flat, n_dev, spec: ScanSpec):
     return mask, (fold_hash(keybufs) if keybufs else None)
 
 
+# The packed spec (csrc/chunk_scan.cu reads it, a block stages it in shared
+# memory): int64 words in five regions, in this order
+#   entries  SCAN_ENT_WORDS a row: op, column, a, b, fa bits, fb bits, IN-list
+#            offset (from its region), IN-list length
+#   columns  SCAN_COL_WORDS a row: fmode, FOR base, 10^scale divisor bits,
+#            dict table offset (from the table region), table length
+#   ivals    int IN-list values
+#   fvals    float IN-list values (bits)
+#   tables   dict value tables, concatenated
+SCAN_ENT_WORDS, SCAN_COL_WORDS = 8, 5
+# a block stages the longest prefix of whole regions that fits this budget
+# (48 KB: the dynamic shared memory a launch may take without raising its
+# limit), and reads what does not fit from global memory
+SCAN_SMEM_BUDGET = 48 * 1024
+# the kernel's static shared memory: 16 column and 8 key records
+SCAN_STATIC_SMEM = 16 * 64 + 8 * 16
+# the plan: R rows a thread's tile, threads a block, blocks an SM (a
+# persistent grid; chip_smoke.py's k4 sweep, PERF.md section 6)
+SCAN_TILE_ROWS = (4, 8, 16)
+SCAN_ROWS = 16
+SCAN_THREADS = 256
+SCAN_PER_SM = 2
+SCAN_MAX_THREADS = 256          # csrc/chunk_scan.cu kMaxThreads
+
+
+class ScanLayout(NamedTuple):
+    """Where each region of a packed spec starts, in words, and its
+    length: ``off_cols`` is also where the entries end."""
+    nentries: int
+    ncols: int
+    off_cols: int
+    off_ivals: int
+    off_fvals: int
+    off_tables: int
+    total: int
+
+
+def _f64_bits(x) -> int:
+    return int(np.asarray(float(x), dtype=np.float64).view(np.int64))
+
+
+def pack_scan_spec(spec: ScanSpec):
+    """``(words, layout)``: the spec as the int64 words the K4 kernel
+    reads (the region layout above) and where its regions start."""
+    ent, ivals, fvals = [], [], []
+    for e in spec.entries:
+        kind, ci = e[0], e[1]
+        a = b = off = ln = 0
+        fa = fb = 0.0
+        if kind in ("iin", "inotin"):
+            off, ln = len(ivals), len(e[2])
+            ivals.extend(_clamp_i64(v) for v in e[2])
+        elif kind in ("fin", "fnotin"):
+            off, ln = len(fvals), len(e[2])
+            fvals.extend(_f64_bits(v) for v in e[2])
+        elif kind in ("frange", "fnrange"):
+            fa, fb = float(e[2]), float(e[3])
+        elif kind in ("feq", "fne", "flt", "fle", "fgt", "fge"):
+            fa = float(e[2])
+        elif kind in ("irange", "nrange"):
+            a, b = _clamp_i64(e[2]), _clamp_i64(e[3])
+        elif kind in ("ieq", "ine", "ile", "ige"):
+            a = _clamp_i64(e[2])
+        ent.extend((_SCAN_OPS[kind], ci, a, b, _f64_bits(fa), _f64_bits(fb),
+                    off, ln))
+    tables, toff = [], []
+    for t in spec.tables:
+        toff.append(len(tables))
+        tables.extend(int(v) for v in np.asarray(t, dtype=np.int64))
+    cols = []
+    for (_ds, _vs, fmode, base, tbl, sd) in spec.cols:
+        has_tbl = fmode == "dict"
+        cols.extend((_FMODES[fmode], int(base), _f64_bits(sd),
+                     toff[tbl] if has_tbl else 0,
+                     len(spec.tables[tbl]) if has_tbl else 0))
+    words = ent + cols + ivals + fvals + tables
+    o_cols = len(ent)
+    o_iv = o_cols + len(cols)
+    o_fv = o_iv + len(ivals)
+    o_tb = o_fv + len(fvals)
+    layout = ScanLayout(len(spec.entries), len(spec.cols), o_cols, o_iv,
+                        o_fv, o_tb, len(words))
+    return np.asarray(words, dtype=np.int64), layout
+
+
+def scan_staged_words(layout: ScanLayout,
+                      budget: int = SCAN_SMEM_BUDGET) -> int:
+    """The words of a packed spec a block copies to shared memory: the
+    longest prefix of whole regions (entries, columns, int IN-lists, float
+    IN-lists, dict tables) within ``budget`` bytes. The kernel reads each
+    region that lies past it from global memory."""
+    staged = 0
+    for end in (layout.off_cols, layout.off_ivals, layout.off_fvals,
+                layout.off_tables, layout.total):
+        if 8 * end > budget:
+            break
+        staged = end
+    return staged
+
+
+class ScanPlan(NamedTuple):
+    """How one K4 launch runs: ``rows`` a thread's tile (4, 8 or 16),
+    ``threads`` a block, ``grid`` blocks, ``smem`` bytes of staged spec
+    (``staged`` words)."""
+    rows: int
+    threads: int
+    grid: int
+    smem: int
+    staged: int
+
+
+def _scan_layout(spec: ScanSpec) -> ScanLayout:
+    got = spec._blobs.get("layout")
+    if got is None:
+        got = spec._blobs["layout"] = pack_scan_spec(spec)[1]
+    return got
+
+
+def scan_plan(plen: int, spec: ScanSpec, sms: int = 132,
+              rows: int = SCAN_ROWS, threads: int = SCAN_THREADS,
+              per_sm: int = SCAN_PER_SM,
+              budget: int = SCAN_SMEM_BUDGET) -> ScanPlan:
+    """The launch of K4 over a ``plen``-row chunk on a card of ``sms``
+    SMs: tiles of ``rows`` rows, a persistent grid of at most ``per_sm``
+    blocks of ``threads`` an SM (fewer where the staged spec or the
+    threads an SM run out), no more blocks than the tiles fill; grid 0 for
+    an empty chunk."""
+    if rows not in SCAN_TILE_ROWS:
+        raise ValueError(f"chunk_scan: rows must be one of {SCAN_TILE_ROWS}")
+    if not 32 <= threads <= SCAN_MAX_THREADS or threads % 32:
+        raise ValueError("chunk_scan: threads must be a multiple of 32 up "
+                         f"to {SCAN_MAX_THREADS}")
+    staged = scan_staged_words(_scan_layout(spec), budget)
+    smem = 8 * staged
+    if plen <= 0:
+        return ScanPlan(rows, threads, 0, smem, staged)
+    fit = min(per_sm, 2048 // threads,
+              SMEM_SM // (smem + SCAN_STATIC_SMEM + SMEM_RESERVED))
+    tiles = -(-plen // rows)
+    grid = max(1, min(sms * max(1, fit), -(-tiles // threads)))
+    return ScanPlan(rows, threads, grid, smem, staged)
+
+
+def scan_plans(plen: int, spec: ScanSpec, sms: int) -> list[ScanPlan]:
+    """Every plan the k4 sweep times: each tile size at 1, 2 and 4 blocks
+    of 256 threads an SM, and 128-thread blocks at 8 and
+    16 an SM, plus the first kernel's one-thread-a-row launch (``rows``
+    0)."""
+    plans = [scan_plan(plen, spec, sms, rows=r, per_sm=q)
+             for r in SCAN_TILE_ROWS for q in (1, 2, 4)]
+    plans += [scan_plan(plen, spec, sms, threads=128, per_sm=q)
+              for q in (8, 16)]
+    plans.append(ScanPlan(0, 256, 0, 0, 0))
+    return sorted(set(plans), key=plans.index)
+
+
 class _ScanArgs(ctypes.Structure):
     """The argument block of ``nds_chunk_scan`` (csrc/chunk_scan.cu
     ``NdsScanArgs``, field for field)."""
+    _fields_ = [("data", ctypes.c_void_p * _SCAN_MAX_COLS),
+                ("valid", ctypes.c_void_p * _SCAN_MAX_COLS),
+                ("keys", ctypes.c_void_p * _SCAN_MAX_KEYS),
+                ("data_tag", ctypes.c_int * _SCAN_MAX_COLS),
+                ("key_tag", ctypes.c_int * _SCAN_MAX_KEYS),
+                ("ncols", ctypes.c_int), ("nentries", ctypes.c_int),
+                ("nkeys", ctypes.c_int), ("float_lane", ctypes.c_int),
+                ("spec", ctypes.c_void_p),
+                ("off_cols", ctypes.c_int), ("off_ivals", ctypes.c_int),
+                ("off_fvals", ctypes.c_int), ("off_tables", ctypes.c_int),
+                ("total_words", ctypes.c_int),
+                ("staged_words", ctypes.c_int),
+                ("rows", ctypes.c_int), ("threads", ctypes.c_int),
+                ("grid", ctypes.c_int), ("smem", ctypes.c_int),
+                ("n_dev", ctypes.c_void_p), ("plen", ctypes.c_longlong),
+                ("mask", ctypes.c_void_p), ("hash", ctypes.c_void_p)]
+
+
+class _ScanArgsPr2(ctypes.Structure):
+    """The argument block of ``nds_chunk_scan_pr2`` (csrc/chunk_scan_pr2.cu,
+    the first K4 kernel, which only the k4 sweep launches)."""
     _fields_ = [("data", ctypes.c_void_p * _SCAN_MAX_COLS),
                 ("valid", ctypes.c_void_p * _SCAN_MAX_COLS),
                 ("keys", ctypes.c_void_p * _SCAN_MAX_KEYS),
@@ -683,56 +871,47 @@ def _clamp_i64(v) -> int:
 
 
 def _scan_blob(spec: ScanSpec, dev) -> dict:
-    """The spec flattened into device arrays, once per (spec, device):
-    chunk-invariant, so no chunk uploads it again."""
+    """The packed spec on ``dev`` (``spec``: the words, ``layout``: its
+    regions), once per (spec, device): chunk-invariant, so no chunk
+    uploads it again."""
     key = str(dev)
     blob = spec._blobs.get(key)
     if blob is not None:
         return blob
-    ent, fent, ivals, fvals = [], [], [], []
-    for e in spec.entries:
-        kind, ci = e[0], e[1]
-        a = b = off = ln = 0
-        fa = fb = 0.0
-        if kind in ("iin", "inotin"):
-            off, ln = len(ivals), len(e[2])
-            ivals.extend(_clamp_i64(v) for v in e[2])
-        elif kind in ("fin", "fnotin"):
-            off, ln = len(fvals), len(e[2])
-            fvals.extend(float(v) for v in e[2])
-        elif kind in ("frange", "fnrange"):
-            fa, fb = float(e[2]), float(e[3])
-        elif kind in ("feq", "fne", "flt", "fle", "fgt", "fge"):
-            fa = float(e[2])
-        elif kind in ("irange", "nrange"):
-            a, b = _clamp_i64(e[2]), _clamp_i64(e[3])
-        elif kind in ("ieq", "ine", "ile", "ige"):
-            a = _clamp_i64(e[2])
-        ent.extend((_SCAN_OPS[kind], ci, a, b, off, ln))
-        fent.extend((fa, fb))
-    colmeta, sdiv, tables, toff = [], [], [], []
-    for t in spec.tables:
-        toff.append(len(tables))
-        tables.extend(int(v) for v in np.asarray(t, dtype=np.int64))
-    for (_ds, _vs, fmode, base, tbl, sd) in spec.cols:
-        has_tbl = fmode == "dict"
-        colmeta.extend((_FMODES[fmode], int(base),
-                        toff[tbl] if has_tbl else 0,
-                        len(spec.tables[tbl]) if has_tbl else 0))
-        sdiv.append(float(sd))
+    from nds_tpu_torch.engine.ops import upload
+    words, layout = pack_scan_spec(spec)
+    blob = {"spec": upload(words.tolist() or [0], dev, I64),
+            "layout": layout}
+    spec._blobs[key] = blob
+    return blob
 
+
+def _scan_blob_pr2(spec: ScanSpec, dev) -> dict:
+    """The first kernel's flattened spec (separate device arrays)."""
+    key = "pr2:" + str(dev)
+    blob = spec._blobs.get(key)
+    if blob is not None:
+        return blob
+    words, lay = pack_scan_spec(spec)
+    ent = words[:lay.off_cols].reshape(-1, SCAN_ENT_WORDS)
+    cols = words[lay.off_cols:lay.off_ivals].reshape(-1, SCAN_COL_WORDS)
     from nds_tpu_torch.engine.ops import upload
 
     def dev_i64(x):
-        return upload(x or [0], dev, I64)
+        return upload([int(v) for v in x] or [0], dev, I64)
 
-    def dev_f64(x):
-        return upload(x or [0.0], dev, F64)
+    def dev_f64(bits):
+        return upload(np.asarray(bits, dtype=np.int64).view(np.float64)
+                      .tolist() or [0.0], dev, F64)
 
-    blob = {"ent": dev_i64(ent), "fent": dev_f64(fent),
-            "colmeta": dev_i64(colmeta), "sdiv": dev_f64(sdiv),
-            "ivals": dev_i64(ivals), "fvals": dev_f64(fvals),
-            "tables": dev_i64(tables)}
+    old_ent = ent[:, [0, 1, 2, 3, 6, 7]].reshape(-1)
+    colmeta = np.stack([cols[:, 0], cols[:, 1], cols[:, 3], cols[:, 4]],
+                       axis=1).reshape(-1) if len(cols) else []
+    blob = {"ent": dev_i64(old_ent), "fent": dev_f64(ent[:, 4:6].reshape(-1)),
+            "colmeta": dev_i64(colmeta), "sdiv": dev_f64(cols[:, 2]),
+            "ivals": dev_i64(words[lay.off_ivals:lay.off_fvals]),
+            "fvals": dev_f64(words[lay.off_fvals:lay.off_tables]),
+            "tables": dev_i64(words[lay.off_tables:])}
     spec._blobs[key] = blob
     return blob
 
@@ -753,8 +932,11 @@ def _cuda_1d(name, t, dev, n, dtypes=None):
     return t.contiguous()
 
 
-def _scan_args(chunk_flat, n_dev, spec: ScanSpec):
-    """(argument block, keep-alive tensors, mask, hash) of one K4 launch."""
+def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
+               plan: ScanPlan | None = None):
+    """(argument block, keep-alive tensors, mask, hash) of one K4 launch;
+    ``plan`` defaults to :func:`scan_plan` on this card (``rows`` 0: the
+    first kernel, for the sweep)."""
     datas, valids, keybufs = _scan_inputs(chunk_flat, spec)
     dev = datas[0].device
     if dev.type != "cuda":
@@ -767,7 +949,9 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec):
         raise ValueError("chunk_scan: n_dev must be an int64 scalar on the "
                          "chunk's device")
     plen = int(datas[0].shape[0])
-    a = _ScanArgs()
+    if plan is None:
+        plan = scan_plan(plen, spec, _sm_count(dev))
+    a = _ScanArgsPr2() if plan.rows == 0 else _ScanArgs()
     keep = []
     for i, (d, v) in enumerate(zip(datas, valids)):
         d = _cuda_1d("chunk_scan", d, dev, plen)
@@ -783,11 +967,24 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec):
         a.keys[i] = k.data_ptr()
         a.key_tag[i] = _tag("chunk_scan", k)
         keep.append(k)
-    blob = _scan_blob(spec, dev)
     a.ncols, a.nentries, a.nkeys = len(datas), len(spec.entries), \
         len(keybufs)
-    for f in ("ent", "fent", "colmeta", "sdiv", "ivals", "fvals", "tables"):
-        setattr(a, f, blob[f].data_ptr())
+    if plan.rows == 0:
+        blob = _scan_blob_pr2(spec, dev)
+        for f in ("ent", "fent", "colmeta", "sdiv", "ivals", "fvals",
+                  "tables"):
+            setattr(a, f, blob[f].data_ptr())
+    else:
+        blob = _scan_blob(spec, dev)
+        lay = blob["layout"]
+        a.spec = blob["spec"].data_ptr()
+        a.off_cols, a.off_ivals = lay.off_cols, lay.off_ivals
+        a.off_fvals, a.off_tables = lay.off_fvals, lay.off_tables
+        a.total_words, a.staged_words = lay.total, plan.staged
+        a.float_lane = int(any(_SCAN_OPS[e[0]] >= _SCAN_OPS["feq"]
+                               for e in spec.entries))
+        a.rows, a.threads, a.grid, a.smem = plan.rows, plan.threads, \
+            plan.grid, plan.smem
     n_dev = n_dev.reshape(())
     keep.append(n_dev)
     a.n_dev = n_dev.data_ptr()
@@ -806,7 +1003,8 @@ def chunk_scan(chunk_flat, n_dev, spec: ScanSpec):
     hash over ``spec.key_slots`` (int32 holding uint32 bits; None without
     key slots). ``chunk_flat`` is the pipeline's flattened chunk (data,
     validity per column), ``n_dev`` the live row count as a 0-d int64
-    tensor on the chunk's device."""
+    tensor on the chunk's device. On the card the launch takes
+    :func:`scan_plan`."""
     first = chunk_flat[spec.cols[0][0]]
     if first.device.type == "cpu":
         return chunk_scan_plain(chunk_flat, n_dev, spec)
@@ -952,20 +1150,23 @@ def join_probe(views, valids, n_valid, excluded, rh_sorted):
 # ---------------------------------------------------------------------------
 
 
-def launcher(name: str, *args, plan: SegmentPlan | None = None):
+def launcher(name: str, *args, plan=None):
     """A function that launches kernel ``name`` (a key of ``LAUNCHES``)
     once on outputs allocated here, with no input check, allocation or
     count per call: what a measurement of the kernel's own device time
     calls in a loop. ``args`` are the wrapper's arguments (for
     ``segment_sum_f64`` the values may be None: a count-only launch);
-    K1-K3 also take ``plan=`` (a :class:`SegmentPlan`) in place of the
-    card's own, for a sweep. Sums accumulate across calls; nothing reads
-    them."""
+    K1-K3 also take ``plan=`` (a :class:`SegmentPlan`) and K4 a
+    :class:`ScanPlan` in place of the card's own, for a sweep. Sums
+    accumulate across calls; nothing reads them."""
     if name in ("chunk_scan", "join_probe"):
-        build_args, fn_name = {"chunk_scan": (_scan_args, "nds_chunk_scan"),
-                               "join_probe": (_probe_args,
-                                              "nds_join_probe")}[name]
-        block, keep, out, out2 = build_args(*args)
+        if name == "chunk_scan":
+            block, keep, out, out2 = _scan_args(*args, plan=plan)
+            fn_name = "nds_chunk_scan_pr2" if isinstance(block, _ScanArgsPr2) \
+                else "nds_chunk_scan"
+        else:
+            block, keep, out, out2 = _probe_args(*args)
+            fn_name = "nds_join_probe"
         fn = getattr(_lib(), fn_name)
         ref, stream = ctypes.byref(block), _stream(out)
 

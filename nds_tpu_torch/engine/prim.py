@@ -200,6 +200,14 @@ def f64_to_i64(x: torch.Tensor) -> torch.Tensor:
                                          device=x.device), out)
 
 
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as one IEEE division, on every device. On CUDA,
+    torch divides by a Python (host) scalar as a multiplication by its
+    reciprocal, which may differ from the quotient in the last bit; a
+    divisor on the tensor's own device takes the true division."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def searchsorted(sorted_seq: torch.Tensor, vals: torch.Tensor,
                  right: bool = False) -> torch.Tensor:
     """``searchsorted`` on signed int64/float64 keys (int64 result)."""

@@ -109,13 +109,109 @@ def _scan_case(name):
         c8 = np.arange(-128, 128, dtype=np.int8).repeat(2)
         return ((c8, None), 512, [("ile", 0, -1), ("iin", 0, (-128, -1, 5))],
                 [(0, -1, "id", 0, -1, 1.0)], (), (0,))
+    if name == "every_dtype_tag":
+        # one column of each tag, an int and a float entry on each, half
+        # with validity; 1,000 + 7 rows: no multiple of a tile
+        cap = 1007
+        bufs, entries, cols = [], [], []
+        for ci, dt in enumerate(_TAG_DTYPES):
+            d = _tag_data(rng, dt, cap)
+            v = rng.random(cap) > 0.05 if ci % 2 else None
+            bufs += [d, v]
+            lo, hi = np.quantile(d.astype(np.float64), [0.05, 0.97])
+            fmode = ("id", "for", "dict")[ci % 3]
+            if fmode == "dict" and np.dtype(dt).kind == "f":
+                fmode = "id"    # the reference gathers only at int codes
+            cols.append((2 * ci, 2 * ci + 1 if v is not None else -1, fmode,
+                         -3 if fmode == "for" else 0,
+                         0 if fmode == "dict" else -1,
+                         10.0 if ci % 4 == 3 else 1.0))
+            entries += [("irange", ci, int(lo), int(hi) + 1),
+                        ("fgt", ci, -1e300)]
+        table = np.arange(-5, 300, dtype=np.int64) * 3
+        return (tuple(bufs), cap - 20, entries, cols, (table,), (0, 6, 8))
+    if name == "wide_16_cols_8_keys":
+        cap = 3005
+        dts = (np.int64, np.float32, np.float64, np.int32)
+        bufs, entries, cols = [], [], []
+        for ci in range(16):
+            d = _tag_data(rng, dts[ci % 4], cap)
+            v = rng.random(cap) > 0.02 if ci % 3 == 0 else None
+            bufs += [d, v]
+            cols.append((2 * ci, 2 * ci + 1 if v is not None else -1, "id",
+                         0, -1, 1.0))
+            entries.append(("fge", ci, float(np.quantile(
+                d.astype(np.float64), 0.04))))
+        return (tuple(bufs), cap, entries, cols, (),
+                tuple(2 * (k * 2 % 16) for k in range(8)))
+    if name == "in_lists_of_200":
+        cap = 4099
+        d = rng.integers(0, 1000, cap).astype(np.int32)
+        f = rng.integers(0, 1000, cap).astype(np.float64) / 4
+        ivals = tuple(int(x) for x in rng.choice(1000, 200, replace=False))
+        fvals = tuple(float(x) / 4 for x in rng.choice(1000, 200,
+                                                       replace=False))
+        return ((d, None, f, None), cap - 3,
+                [("iin", 0, ivals), ("fnotin", 1, fvals[:100]),
+                 ("inotin", 0, ivals[:200:7]), ("fin", 1, fvals + (0.25,))],
+                [(0, -1, "id", 0, -1, 1.0), (2, -1, "id", 0, -1, 1.0)],
+                (), ())
+    if name == "dict_table_over_budget":
+        # 7,000 values (56,000 B) > the 48 KB staging budget: the table
+        # stays in global memory
+        cap = 5003
+        table = np.sort(rng.integers(-(1 << 40), 1 << 40, 7000)).astype(
+            np.int64)
+        # negative codes clip to the first value; none past the table (the
+        # reference's Pallas kernel pads its tables to 128 with zeros and
+        # reads a zero there, where its jnp twin clips to the last value)
+        codes = rng.integers(-5, 7000, cap).astype(np.int16)
+        v = rng.random(cap) > 0.1
+        return ((codes, v), cap - 1,
+                [("fge", 0, float(table[1000]) / 100),
+                 ("flt", 0, float(table[6500]) / 100), ("ine", 0, 17)],
+                [(0, 1, "dict", 0, 0, 100.0)], (table,), (0,))
+    if name == "nan_and_zeros_at_tile_edges":
+        cap = 16 * 40 + 9
+        f64 = rng.random(cap) * 4 - 2
+        for edge in range(4, cap - 2, 4):
+            f64[edge - 1:edge + 2] = (np.nan, -0.0, 0.0)[edge % 3:] + \
+                (np.nan, -0.0, 0.0)[:edge % 3]
+        f32 = f64.astype(np.float32)
+        return ((f64, None, f32, None), cap - 2,
+                [("fne", 0, 1.0), ("fge", 0, -0.0), ("fle", 1, 0.0),
+                 ("fnotin", 1, (float("nan"), 5.0)), ("fnrange", 0, 0.5,
+                                                      0.75)],
+                [(0, -1, "id", 0, -1, 1.0), (2, -1, "id", 0, -1, 1.0)],
+                (), (0, 2))
     raise KeyError(name)
 
 
 _SCAN_CASES = ["all_survivors", "zero_survivors", "tile_boundary_rows",
                "dict_code_out_of_range", "validity_and_hash",
                "rich_predicates", "float_lane_nan_and_signed_zero",
-               "narrow_codes_sign_extend"]
+               "narrow_codes_sign_extend", "every_dtype_tag",
+               "wide_16_cols_8_keys", "in_lists_of_200",
+               "dict_table_over_budget", "nan_and_zeros_at_tile_edges"]
+# one column dtype for each of K4's dtype tags (bool shares uint8's)
+_TAG_DTYPES = (np.int8, np.int16, np.int32, np.int64, np.float32,
+               np.float64, np.uint8, np.bool_)
+
+
+def _tag_data(rng, dt, n):
+    """``n`` values of dtype ``dt`` spanning its range, with its extremes
+    (finite floats, so the int lane's truncation is defined)."""
+    dt = np.dtype(dt)
+    if dt == np.bool_:
+        return rng.random(n) > 0.5
+    if dt.kind == "f":
+        x = (rng.standard_normal(n) * 1e3).astype(dt)
+        x[:3] = (-0.0, 0.0, 1e18)
+        return x
+    info = np.iinfo(dt)
+    x = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+    x[:2] = (info.min, info.max)
+    return x
 
 
 
@@ -195,6 +291,148 @@ def test_cuda_chunk_scan_matches_plain(cuda, name):
     assert (h is None) == (ph is None)
     if h is not None:
         assert torch.equal(h, ph)
+
+
+def _assert_scan_equal(flat, nd, spec, plan=None):
+    """K4 (its wrapper, or a raw launch of ``plan``) against the plain
+    version: mask and hash bit for bit."""
+    if plan is None:
+        m, h = K.chunk_scan(flat, nd, spec)
+    else:
+        _keep, m, h = K.launcher("chunk_scan", flat, nd, spec, plan=plan)()
+    pm, ph = K.chunk_scan_plain(flat, nd, spec)
+
+    def where(a, b):
+        rows = torch.nonzero(a != b).flatten()[:4].tolist()
+        return (plan, spec.entries, spec.cols, rows,
+                [(flat[spec.cols[0][0]][r].item(), a[r].item(), b[r].item())
+                 for r in rows])
+    assert torch.equal(m, pm), where(m, pm)
+    assert (h is None) == (ph is None)
+    if h is not None:
+        assert torch.equal(h, ph), where(h, ph)
+
+
+def _k4_plans(plen, spec, dev):
+    """Every plan the sweep times, and the card's own with a grid of 3
+    blocks (each thread walks many tiles)."""
+    sms = K._sm_count(dev)
+    return [p for p in K.scan_plans(plen, spec, sms) if p.rows] + [
+        K.scan_plan(plen, spec, sms)._replace(grid=3)]
+
+
+def _offset_view(t):
+    """``t`` as a view at storage offset 1 (no 16-byte alignment)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", _SCAN_CASES)
+def test_k4_every_plan_bit_exact(cuda, name):
+    """Every plan at n_dev 0, the case's own and plen; then with every
+    buffer a view at storage offset 1, and with one column alone so (the
+    scalar loads inside the same kernel)."""
+    bufs, n, entries, cols, tables, key_slots = _scan_case(name)
+    spec = K.ScanSpec(entries, cols, tables=tables, key_slots=key_slots)
+    flat = tuple(None if b is None else _t(b).to(cuda) for b in bufs)
+    plen = flat[0].shape[0]
+    plans = _k4_plans(plen, spec, cuda)
+    for live in (0, n, plen):
+        nd = torch.tensor(live, dtype=torch.int64, device=cuda)
+        for plan in plans:
+            _assert_scan_equal(flat, nd, spec, plan)
+    nd = torch.tensor(n, dtype=torch.int64, device=cuda)
+    shifted = tuple(None if b is None else _offset_view(b) for b in flat)
+    one = tuple(_offset_view(b) if i == cols[-1][0] else b
+                for i, b in enumerate(flat))
+    for views in (shifted, one):
+        _assert_scan_equal(views, nd, spec)
+        for plan in plans:
+            _assert_scan_equal(views, nd, spec, plan)
+
+
+def _k4_edge_case(rng, plen):
+    d16 = rng.integers(-300, 300, plen).astype(np.int16)
+    v = rng.random(plen) > 0.2
+    f64 = rng.standard_normal(plen)
+    k32 = rng.integers(-(1 << 31), 1 << 31, plen).astype(np.int32)
+    entries = [("irange", 0, -200, 250), ("fge", 1, -1.0),
+               ("iin", 0, (1, 2, 3, -7, 150))]
+    cols = [(0, 1, "for", 3, -1, 1.0), (2, -1, "id", 0, -1, 1.0)]
+    return (d16, v, f64, None, k32, None), entries, cols, (0, 2, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plen", [0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 4099])
+def test_k4_plen_edges(cuda, plen):
+    """plen 0, 1, R - 1, R, R + 1 for R = 4, 8, 16, and one that is no
+    multiple of a tile, under every plan and n_dev 0 / plen."""
+    bufs, entries, cols, key_slots = _k4_edge_case(
+        np.random.default_rng(plen), plen)
+    spec = K.ScanSpec(entries, cols, key_slots=key_slots)
+    flat = tuple(None if b is None else _t(b).to(cuda) for b in bufs)
+    for live in (0, plen):
+        nd = torch.tensor(live, dtype=torch.int64, device=cuda)
+        _assert_scan_equal(flat, nd, spec)
+        for plan in _k4_plans(plen, spec, cuda):
+            _assert_scan_equal(flat, nd, spec, plan)
+
+
+_INT_KINDS = ("ieq", "ine", "ile", "ige", "irange", "nrange", "iin",
+              "inotin")
+_FLOAT_KINDS = ("feq", "fne", "flt", "fle", "fgt", "fge", "frange",
+                "fnrange", "fin", "fnotin")
+
+
+def _k4_entries(kind, ci, vals):
+    """One entry of ``kind`` on column ``ci`` with operands drawn from the
+    values it compares (``vals``: the int lane's or the float lane's)."""
+    finite = vals[np.isfinite(vals.astype(np.float64))]
+    q = [finite[int(len(finite) * f)] for f in (0.1, 0.5, 0.9)]
+    cast = float if kind[0] == "f" else int
+    lo, mid, hi = (cast(x) for x in sorted(q))
+    if kind in ("iin", "inotin", "fin", "fnotin"):
+        return (kind, ci, tuple(cast(x) for x in finite[:40:3]) + (mid,))
+    if kind in ("irange", "nrange", "frange", "fnrange"):
+        return (kind, ci, lo, hi)
+    return (kind, ci, mid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", _TAG_DTYPES, ids=lambda d: np.dtype(d).name)
+def test_k4_every_opcode_and_tag(cuda, dt):
+    """Each opcode alone on a column of each dtype tag (the float lane
+    through identity, FOR and dict decodes), with validity, with and
+    without the hash over the column, under every plan."""
+    rng = np.random.default_rng(np.dtype(dt).num)
+    n = 16 * 64 + 5
+    d = _tag_data(rng, dt, n)
+    v = rng.random(n) > 0.1
+    table = np.arange(-3, 200, dtype=np.int64) * 7
+    cols = [(0, 1, "id", 0, -1, 1.0), (0, 1, "for", -5, -1, 100.0),
+            (0, -1, "dict", 0, 0, 10.0)]
+    flat = (_t(d).to(cuda), _t(v).to(cuda))
+    nd = torch.tensor(n - 2, dtype=torch.int64, device=cuda)
+    ints = d.astype(np.int64)
+    lanes = {0: d.astype(np.float64),
+             1: (ints + np.int64(-5)).astype(np.float64) / 100.0,
+             2: table[np.clip(ints, 0, len(table) - 1)].astype(
+                 np.float64) / 10.0}
+    entries = [(kind, 0) for kind in ("false", "true", "isnull",
+                                      "notnull")]
+    entries += [_k4_entries(kind, 0, ints) for kind in _INT_KINDS]
+    entries += [_k4_entries(kind, ci, lanes[ci]) for kind in _FLOAT_KINDS
+                for ci in range(3)]
+    for entry in entries:
+        # with and without the hash: the kernels with and without its path
+        for key_slots in ((0,), ()):
+            spec = K.ScanSpec([entry], cols, tables=(table,),
+                              key_slots=key_slots)
+            _assert_scan_equal(flat, nd, spec)
+            for plan in _k4_plans(n, spec, cuda):
+                _assert_scan_equal(flat, nd, spec, plan)
 
 
 @pytest.mark.gpu

@@ -65,11 +65,7 @@ def test_chunk_scan_cases_are_not_trivial():
     assert 0 < int(m.sum()) < n
 
 
-def test_scan_blob_flattens_every_entry_kind():
-    """The spec the CUDA kernel reads: one row of (op, column, a, b,
-    offset, length) and one (fa, fb) pair per entry, whatever the kind —
-    a ``false`` entry included, which carries no operand."""
-    entries = [("false", 0), ("true", 1), ("isnull", 0), ("notnull", 1),
+_EVERY_KIND = [("false", 0), ("true", 1), ("isnull", 0), ("notnull", 1),
                ("ieq", 0, 5), ("ine", 0, -5), ("ile", 0, 2 ** 70),
                ("ige", 0, -2 ** 70), ("irange", 0, 1, 9),
                ("nrange", 0, 3, 4), ("iin", 0, (1, 2, 3)),
@@ -78,27 +74,255 @@ def test_scan_blob_flattens_every_entry_kind():
                ("fge", 1, 4.5), ("fin", 1, (0.25, 0.75)),
                ("fnotin", 1, (9.0,)), ("frange", 1, 1.0, 2.0),
                ("fnrange", 1, -1.0, 1.0)]
-    spec = K.ScanSpec(entries, [(0, -1, "id", 0, -1, 1.0),
-                                (2, 3, "for", 10, -1, 100.0)])
+_OP_NAMES = {v: k for k, v in K._SCAN_OPS.items()}
+_FMODE_NAMES = {v: k for k, v in K._FMODES.items()}
+
+
+def _f64(bits):
+    return float(np.asarray(bits, dtype=np.int64).view(np.float64))
+
+
+def _read_packed(words, lay):
+    """A reader of the packed layout that knows only its word format:
+    (entries, [(fmode, base, table or None, sdiv)]) as the spec gave
+    them (thresholds clamped to int64)."""
+    assert lay.total == len(words)
+    ent = words[:lay.off_cols].reshape(-1, K.SCAN_ENT_WORDS)
+    cols = words[lay.off_cols:lay.off_ivals].reshape(-1, K.SCAN_COL_WORDS)
+    iv = words[lay.off_ivals:lay.off_fvals]
+    fv = words[lay.off_fvals:lay.off_tables]
+    tb = words[lay.off_tables:]
+    assert len(ent) == lay.nentries and len(cols) == lay.ncols
+    entries = []
+    for op, ci, a, b, fa, fb, off, ln in ent.tolist():
+        kind = _OP_NAMES[op]
+        if kind in ("iin", "inotin"):
+            entries.append((kind, ci, tuple(iv[off:off + ln].tolist())))
+        elif kind in ("fin", "fnotin"):
+            entries.append((kind, ci, tuple(_f64(x) for x in
+                                            fv[off:off + ln])))
+        elif kind in ("frange", "fnrange"):
+            entries.append((kind, ci, _f64(fa), _f64(fb)))
+        elif kind[0] == "f" and kind != "false":
+            entries.append((kind, ci, _f64(fa)))
+        elif kind in ("irange", "nrange"):
+            entries.append((kind, ci, a, b))
+        elif kind in ("ieq", "ine", "ile", "ige"):
+            entries.append((kind, ci, a))
+        else:
+            entries.append((kind, ci))
+    out_cols = [(_FMODE_NAMES[fm], base, tb[off:off + ln].tolist()
+                 if _FMODE_NAMES[fm] == "dict" else None, _f64(sd))
+                for fm, base, sd, off, ln in cols.tolist()]
+    return entries, out_cols
+
+
+def _as_packed(spec):
+    """The spec as :func:`_read_packed` gives it back."""
+    def clamp(v):
+        return max(min(int(v), (1 << 63) - 1), -(1 << 63))
+    entries = []
+    for e in spec.entries:
+        kind = e[0]
+        if kind in ("iin", "inotin"):
+            entries.append((kind, e[1], tuple(clamp(v) for v in e[2])))
+        elif kind in ("fin", "fnotin"):
+            entries.append((kind, e[1], tuple(float(v) for v in e[2])))
+        elif kind[0] == "f" and kind != "false":
+            entries.append((kind, e[1], *(float(v) for v in e[2:])))
+        else:
+            entries.append((kind, e[1], *(clamp(v) for v in e[2:])))
+    cols = [(fm, int(base), np.asarray(spec.tables[tbl]).tolist()
+             if fm == "dict" else None, float(sd))
+            for (_d, _v, fm, base, tbl, sd) in spec.cols]
+    return entries, cols
+
+
+def _bitwise(x):
+    """Floats by their bits (so -0.0 and NaN compare exactly)."""
+    if isinstance(x, float):
+        return ("f", int(np.asarray(x).view(np.int64)))
+    if isinstance(x, (tuple, list)):
+        return tuple(_bitwise(v) for v in x)
+    return x
+
+
+def test_scan_blob_flattens_every_entry_kind():
+    """The spec the CUDA kernel reads: one row of (op, column, a, b, fa
+    bits, fb bits, offset, length) per entry, whatever the kind (a
+    ``false`` entry included, which carries no operand), then the column
+    rows, the int and the float IN-lists, the tables."""
+    spec = K.ScanSpec(_EVERY_KIND, [(0, -1, "id", 0, -1, 1.0),
+                                    (2, 3, "for", 10, -1, 100.0)])
     blob = K._scan_blob(spec, torch.device("cpu"))
-    ent = blob["ent"].reshape(-1, 6).tolist()
-    fent = blob["fent"].reshape(-1, 2).tolist()
+    lay = blob["layout"]
+    words = blob["spec"].numpy()
+    ent = words[:lay.off_cols].reshape(-1, 8).tolist()
     big = (1 << 63) - 1
+    assert lay == K.ScanLayout(22, 2, 176, 186, 190, 193, 193)
     assert [r[0] for r in ent] == list(range(22))
-    assert [r[1] for r in ent] == [e[1] for e in entries]
+    assert [r[1] for r in ent] == [e[1] for e in _EVERY_KIND]
     assert [r[2:4] for r in ent[4:10]] == [
         [5, 0], [-5, 0], [big, 0], [-big - 1, 0], [1, 9], [3, 4]]
-    assert [r[4:] for r in ent[10:12]] == [[0, 3], [3, 1]]
-    assert blob["ivals"].tolist() == [1, 2, 3, 7]
-    assert [r[4:] for r in ent[18:20]] == [[0, 2], [2, 1]]
-    assert blob["fvals"].tolist() == [0.25, 0.75, 9.0]
+    assert [r[6:] for r in ent[10:12]] == [[0, 3], [3, 1]]
+    assert words[lay.off_ivals:lay.off_fvals].tolist() == [1, 2, 3, 7]
+    assert [r[6:] for r in ent[18:20]] == [[0, 2], [2, 1]]
+    assert words[lay.off_fvals:lay.off_tables].view(np.float64).tolist() \
+        == [0.25, 0.75, 9.0]
+    fent = words[:lay.off_cols].reshape(-1, 8)[:, 4:6].copy().view(
+        np.float64).tolist()
     assert fent[12:18] == [[0.5, 0.0], [-0.0, 0.0], [1.5, 0.0],
                            [2.5, 0.0], [3.5, 0.0], [4.5, 0.0]]
+    assert np.signbit(fent[13][0])
     assert fent[20:] == [[1.0, 2.0], [-1.0, 1.0]]
-    assert all(r[2:] == [0, 0, 0, 0] for r in ent[:4])
+    assert all(r[2:] == [0] * 6 for r in ent[:4])
     assert fent[:12] == [[0.0, 0.0]] * 12
-    assert blob["colmeta"].tolist() == [0, 0, 0, 0, 1, 10, 0, 0]
-    assert blob["sdiv"].tolist() == [1.0, 100.0]
+    cols = words[lay.off_cols:lay.off_ivals].reshape(-1, 5)
+    assert cols[:, [0, 1, 3, 4]].tolist() == [[0, 0, 0, 0], [1, 10, 0, 0]]
+    assert cols[:, 2].copy().view(np.float64).tolist() == [1.0, 100.0]
+
+
+@pytest.mark.parametrize("name", _SCAN_CASES + ["every_kind"])
+def test_packed_spec_reads_back(name):
+    """A reader that knows only the packed word format gives back every
+    entry, column decode and dict table of the spec."""
+    if name == "every_kind":
+        spec = K.ScanSpec(_EVERY_KIND, [
+            (0, -1, "id", 0, -1, 1.0), (2, 3, "dict", 0, 1, 100.0)],
+            tables=(np.asarray([5, 6], np.int64),
+                    np.asarray([-1, 0, 1 << 50], np.int64)))
+    else:
+        _b, _n, entries, cols, tables, key_slots = _scan_case(name)
+        spec = K.ScanSpec(entries, cols, tables=tables, key_slots=key_slots)
+    words, lay = K.pack_scan_spec(spec)
+    assert words.dtype == np.int64
+    assert _bitwise(_read_packed(words, lay)) == _bitwise(_as_packed(spec))
+
+
+def _eval_packed(words, lay, datas, valids, n_dev):
+    """The survivor mask computed from the packed words alone, entry by
+    entry as the kernel reads them."""
+    ent = words[:lay.off_cols].reshape(-1, K.SCAN_ENT_WORDS)
+    cols = words[lay.off_cols:lay.off_ivals].reshape(-1, K.SCAN_COL_WORDS)
+    iv = words[lay.off_ivals:lay.off_fvals]
+    fv = words[lay.off_fvals:lay.off_tables].view(np.float64)
+    tb = words[lay.off_tables:]
+    plen = len(datas[0])
+    m = np.ones(plen, dtype=bool)
+    for op, ci, a, b, fa, fb, off, ln in ent.tolist():
+        kind = _OP_NAMES[op]
+        v = np.ones(plen, dtype=bool) if valids[ci] is None else valids[ci]
+        if kind == "false":
+            m[:] = False
+            continue
+        if kind in ("true", "notnull", "isnull"):
+            m &= ~v if kind == "isnull" else v
+            continue
+        with np.errstate(invalid="ignore"):   # NaN rows of a float lane
+            x = datas[ci].astype(np.int64)
+        if op <= K._SCAN_OPS["inotin"]:
+            hit = np.isin(x, iv[off:off + ln])
+            c = {"ieq": x == a, "ine": x != a, "ile": x <= a, "ige": x >= a,
+                 "irange": (x >= a) & (x <= b),
+                 "nrange": ~((x >= a) & (x <= b)), "iin": hit,
+                 "inotin": ~hit}[kind]
+        else:
+            fm, base, sd, toff, tlen = cols[ci].tolist()
+            fmode = _FMODE_NAMES[fm]
+            if fmode == "for":
+                val = (x + np.int64(base)).astype(np.float64)
+            elif fmode == "dict":
+                val = tb[toff + np.clip(x, 0, tlen - 1)].astype(np.float64)
+            else:
+                val = datas[ci].astype(np.float64)
+            if _f64(sd) != 1.0:
+                val = val / _f64(sd)
+            L, H = _f64(fa), _f64(fb)
+            with np.errstate(invalid="ignore"):
+                hit = (val[:, None] == fv[None, off:off + ln]).any(axis=1)
+                c = {"feq": val == L, "fne": val != L, "flt": val < L,
+                     "fle": val <= L, "fgt": val > L, "fge": val >= L,
+                     "frange": (val >= L) & (val <= H),
+                     "fnrange": ~((val >= L) & (val <= H)), "fin": hit,
+                     "fnotin": ~hit}[kind]
+        m &= c & v
+    return m & (np.arange(plen) < n_dev)
+
+
+@pytest.mark.parametrize("name", _SCAN_CASES)
+def test_packed_spec_evaluates_like_plain(name):
+    """The packed words alone (IN-list offsets from their region, table
+    offsets from theirs, divisor bits) give the plain version's mask."""
+    bufs, n, entries, cols, tables, key_slots = _scan_case(name)
+    spec = K.ScanSpec(entries, cols, tables=tables, key_slots=key_slots)
+    words, lay = K.pack_scan_spec(spec)
+    datas = [bufs[c[0]] for c in cols]
+    valids = [None if c[1] < 0 else bufs[c[1]] for c in cols]
+    want, _h = K.chunk_scan_plain(
+        tuple(None if b is None else _t(b) for b in bufs),
+        torch.tensor(n, dtype=torch.int64), spec)
+    np.testing.assert_array_equal(_eval_packed(words, lay, datas, valids, n),
+                                  want.numpy())
+
+
+def _dict_spec(table_len, in_list=0):
+    return K.ScanSpec(
+        [("fge", 0, 1.0), ("iin", 0, tuple(range(in_list)))],
+        [(0, -1, "dict", 0, 0, 1.0)],
+        tables=(np.arange(table_len, dtype=np.int64),))
+
+
+def test_staged_words_at_the_edge_of_the_budget():
+    """A block stages whole regions while they fit 48 KB: the dict table
+    up to the last word, then only what comes before it; an IN-list past
+    the budget leaves entries and columns; entries past it stage
+    nothing."""
+    budget_words = K.SCAN_SMEM_BUDGET // 8
+    head = K.pack_scan_spec(_dict_spec(0))[1].total       # words but table
+    fits = K.pack_scan_spec(_dict_spec(budget_words - head))[1]
+    assert fits.total == budget_words
+    assert K.scan_staged_words(fits) == fits.total
+    over = K.pack_scan_spec(_dict_spec(budget_words - head + 1))[1]
+    assert K.scan_staged_words(over) == over.off_tables < over.total
+    lists = K.pack_scan_spec(_dict_spec(4, in_list=budget_words))[1]
+    assert K.scan_staged_words(lists) == lists.off_ivals
+    assert K.scan_staged_words(lists, budget=8 * lists.off_cols - 8) == 0
+    plan = K.scan_plan(1 << 22, _dict_spec(budget_words - head + 1), 132)
+    assert (plan.staged, plan.smem) == (over.off_tables,
+                                        8 * over.off_tables)
+
+
+def test_scan_plan_rule():
+    spec = _dict_spec(16)
+    full = K.scan_plan(1 << 22, spec, 132)
+    assert full.rows == K.SCAN_ROWS and full.threads == K.SCAN_THREADS
+    assert full.grid == 132 * K.SCAN_PER_SM       # persistent grid
+    assert full.smem == 8 * full.staged == 8 * K.pack_scan_spec(spec)[1].total
+    # no more blocks than the tiles fill
+    small = K.scan_plan(5000, spec, 132)
+    assert small.grid == -(-(-(-5000 // K.SCAN_ROWS)) // K.SCAN_THREADS)
+    assert K.scan_plan(1, spec, 132).grid == 1
+    assert K.scan_plan(0, spec, 132).grid == 0
+    # the threads an SM cap the blocks, and so does the staged spec
+    assert K.scan_plan(1 << 24, spec, 132, per_sm=16).grid == 132 * 8
+    big = _dict_spec(K.SCAN_SMEM_BUDGET // 8 - 40)
+    assert K.scan_plan(1 << 24, big, 132, per_sm=8).grid == 132 * (
+        K.SMEM_SM // (K.scan_plan(1, big).smem + K.SCAN_STATIC_SMEM
+                      + K.SMEM_RESERVED))
+    with pytest.raises(ValueError):
+        K.scan_plan(100, spec, 132, rows=32)
+    with pytest.raises(ValueError):
+        K.scan_plan(100, spec, 132, threads=512)
+
+
+def test_scan_plans_cover_every_tile_size():
+    spec = _dict_spec(16)
+    plans = K.scan_plans(1 << 22, spec, 132)
+    tiled = [p for p in plans if p.rows]
+    assert {p.rows for p in tiled} == set(K.SCAN_TILE_ROWS)
+    assert K.scan_plan(1 << 22, spec, 132) in tiled
+    assert len(set(plans)) == len(plans)
+    assert all(p.grid >= 1 and p.smem == 8 * p.staged for p in tiled)
 
 
 def test_hash_mix_matches_reference_partition_pass():
