@@ -19,7 +19,8 @@ and suppresses the final ``ok`` line):
                call's (K3: ``scatter_reduce_`` amin then amax, two calls;
                count-only K2: ``bincount``), the bytes bound (16 B a row,
                8 B for count-only) and the path the plan takes; the
-               build's ptxas report (spills) and the atomics in SASS;
+               build's ptxas report (spills, registers), the atomics in
+               SASS and K4's 16-byte and local-memory loads and stores;
    k1 sweep    K1's two paths across G and blocks an SM, bit-exact, with
                ``index_add_`` beside them: the evidence for
                ``kernels.PRIV_PER_SM`` and for running the private path
@@ -473,10 +474,11 @@ def demangle(names):
 
 
 def build_report(K, text):
-    """The ptxas report's spills and each kernel's registers, and the
-    atomics in the SASS of the grouped-aggregation row kernels
-    (``cuobjdump``, where the toolkit has it): shared (ATOMS) and global
-    (ATOM, RED) ones, per kernel instance."""
+    """The ptxas report's spills and each kernel's registers, the atomics
+    in the SASS of the grouped-aggregation row kernels (``cuobjdump``,
+    where the toolkit has it): shared (ATOMS) and global (ATOM, RED) ones,
+    per kernel instance; and K4's 16-byte loads and stores and its
+    local-memory loads and stores, per instance."""
     import re
     spills, regs, name = {}, {}, None
     for line in text.splitlines():
@@ -491,29 +493,37 @@ def build_report(K, text):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
-    atoms = None
+    atoms = scan = None
     tool = toolkit_tool("cuobjdump")
     if tool:
         out = subprocess.run([tool, "-sass", K.build()], capture_output=True,
                              text=True, timeout=300).stdout
-        atoms, fn = {}, None
+        atoms, scan, fn = {}, {}, None
         for line in out.splitlines():
             m = re.search(r"Function : (\w+)", line)
             if m:
                 fn = m.group(1)
+            elif fn and "chunk_scan_tiles" in fn:
+                # K4: 16-byte loads and stores, local-memory traffic
+                m = re.search(r"\b(LDG\.E\.128|STG\.E\.128|LDL|STL)\b",
+                              line)
+                if m:
+                    ops = scan.setdefault(fn, {})
+                    ops[m.group(1)] = ops.get(m.group(1), 0) + 1
             elif fn and re.search(r"seg_priv|seg_minmax_kernel|"
                                   r"seg_sum_f64_kernel", fn):
                 m = re.search(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[\w.]+)",
                               line)
                 if m:
                     atoms.setdefault(fn, set()).add(m.group(1))
-        names = demangle(sorted(atoms))
+        names = demangle(sorted(atoms) + sorted(scan))
         atoms = {names[k]: sorted(v) for k, v in atoms.items()}
+        scan = {names[k]: v for k, v in scan.items()}
     names = demangle(sorted(k for k in regs if re.search(
-        r"priv|probe|minmax|seg_sum_f64", k)))
+        r"priv|probe|minmax|seg_sum_f64|chunk_scan", k)))
     return {"spills": spills,
             "registers": {v: regs[k] for k, v in names.items()},
-            "seg_atomics": atoms}
+            "seg_atomics": atoms, "scan_sass": scan}
 
 
 def scan_inputs(torch, K, rng):
@@ -566,8 +576,7 @@ def spec_words(spec):
 
 
 def plan_key(plan) -> str:
-    return "pr2" if plan.rows == 0 else \
-        f"r{plan.rows}/t{plan.threads}/g{plan.grid}"
+    return f"r{plan.rows}/t{plan.threads}/g{plan.grid}"
 
 
 def k4_record(torch, K, flat, n_dev, spec):
@@ -599,8 +608,6 @@ def k4_record(torch, K, flat, n_dev, spec):
         plans_ok = plans_ok and pgood
         sweep[plan_key(p)] = {"ms": cuda_ms(torch, pl, reps=KERNEL_REPS),
                               "ok": pgood}
-        if p.rows == 0:
-            sweep[plan_key(p)]["cold_ms"] = cold_ms(torch, pl)[0]
         del pl, pmask, phash
     rec = dict(
         n=plen, ok=good and plans_ok, max_abs_err=err, tol="bit-exact",

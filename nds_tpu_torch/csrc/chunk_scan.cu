@@ -47,7 +47,7 @@
 //     fit is read from global memory through the read-only path. The
 //     chunk's column pointers, tags and alignment go to shared memory with
 //     it;
-//   * each thread owns a tile of R consecutive rows (R = 4, 8 or 16) and
+//   * each thread owns a tile of R consecutive rows (R = 8 or 16) and
 //     keeps their mask bits in a register. Entries run entry-major: for
 //     each entry the switch on opcode and tag is taken once a tile (the
 //     same for the whole warp), the column's R codes come in with 16-byte
@@ -138,7 +138,7 @@ struct NdsScanArgs {
     int off_tables;
     int total_words;
     int staged_words;          // the prefix a block copies to shared memory
-    int rows;                  // plan: R rows a thread's tile (4, 8, 16)
+    int rows;                  // plan: R rows a thread's tile (8 or 16)
     int threads;               // plan: threads a block
     int grid;                  // plan: blocks
     int smem;                  // plan: dynamic shared bytes (8 * staged)
@@ -824,7 +824,6 @@ int nds_chunk_scan(const NdsScanArgs* args, void* stream) {
         a.threads < a.ncols || a.threads < a.nkeys)
         return static_cast<int>(cudaErrorInvalidValue);
     switch (a.rows) {
-    case 4: return launch_rows<4>(a, s);
     case 8: return launch_rows<8>(a, s);
     case 16: return launch_rows<16>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -82,8 +82,7 @@ LAUNCHES = {"segment_sum_i64": 0, "segment_sum_f64": 0,
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("segment_agg.cu", "chunk_scan.cu", "chunk_scan_pr2.cu",
-            "join_probe.cu")
+_SOURCES = ("segment_agg.cu", "chunk_scan.cu", "join_probe.cu")
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
@@ -187,7 +186,6 @@ def _lib():
                              "nds_seg_minmax_f64"):
                     getattr(lib, name).restype = ctypes.c_int
                 for name, struct in (("nds_chunk_scan", _ScanArgs),
-                                     ("nds_chunk_scan_pr2", _ScanArgsPr2),
                                      ("nds_join_probe", _ProbeArgs)):
                     fn = getattr(lib, name)
                     fn.argtypes = [ctypes.POINTER(struct), vp]
@@ -689,7 +687,7 @@ SCAN_SMEM_BUDGET = 48 * 1024
 SCAN_STATIC_SMEM = 16 * 64 + 8 * 16
 # the plan: R rows a thread's tile, threads a block, blocks an SM (a
 # persistent grid; chip_smoke.py's k4 sweep, PERF.md section 6)
-SCAN_TILE_ROWS = (4, 8, 16)
+SCAN_TILE_ROWS = (8, 16)
 SCAN_ROWS = 16
 SCAN_THREADS = 256
 SCAN_PER_SM = 2
@@ -772,7 +770,7 @@ def scan_staged_words(layout: ScanLayout,
 
 
 class ScanPlan(NamedTuple):
-    """How one K4 launch runs: ``rows`` a thread's tile (4, 8 or 16),
+    """How one K4 launch runs: ``rows`` a thread's tile (8 or 16),
     ``threads`` a block, ``grid`` blocks, ``smem`` bytes of staged spec
     (``staged`` words)."""
     rows: int
@@ -823,7 +821,6 @@ def scan_plans(plen: int, spec: ScanSpec, sms: int) -> list[ScanPlan]:
              for r in SCAN_TILE_ROWS for q in (1, 2, 4)]
     plans += [scan_plan(plen, spec, sms, threads=128, per_sm=q)
               for q in (8, 16)]
-    plans.append(ScanPlan(0, 256, 0, 0, 0))
     return sorted(set(plans), key=plans.index)
 
 
@@ -848,24 +845,6 @@ class _ScanArgs(ctypes.Structure):
                 ("mask", ctypes.c_void_p), ("hash", ctypes.c_void_p)]
 
 
-class _ScanArgsPr2(ctypes.Structure):
-    """The argument block of ``nds_chunk_scan_pr2`` (csrc/chunk_scan_pr2.cu,
-    the first K4 kernel, which only the k4 sweep launches)."""
-    _fields_ = [("data", ctypes.c_void_p * _SCAN_MAX_COLS),
-                ("valid", ctypes.c_void_p * _SCAN_MAX_COLS),
-                ("keys", ctypes.c_void_p * _SCAN_MAX_KEYS),
-                ("data_tag", ctypes.c_int * _SCAN_MAX_COLS),
-                ("key_tag", ctypes.c_int * _SCAN_MAX_KEYS),
-                ("ncols", ctypes.c_int), ("nentries", ctypes.c_int),
-                ("nkeys", ctypes.c_int), ("pad_", ctypes.c_int),
-                ("ent", ctypes.c_void_p), ("fent", ctypes.c_void_p),
-                ("colmeta", ctypes.c_void_p), ("sdiv", ctypes.c_void_p),
-                ("ivals", ctypes.c_void_p), ("fvals", ctypes.c_void_p),
-                ("tables", ctypes.c_void_p), ("n_dev", ctypes.c_void_p),
-                ("plen", ctypes.c_longlong), ("mask", ctypes.c_void_p),
-                ("hash", ctypes.c_void_p)]
-
-
 def _clamp_i64(v) -> int:
     return max(min(int(v), (1 << 63) - 1), -(1 << 63))
 
@@ -882,36 +861,6 @@ def _scan_blob(spec: ScanSpec, dev) -> dict:
     words, layout = pack_scan_spec(spec)
     blob = {"spec": upload(words.tolist() or [0], dev, I64),
             "layout": layout}
-    spec._blobs[key] = blob
-    return blob
-
-
-def _scan_blob_pr2(spec: ScanSpec, dev) -> dict:
-    """The first kernel's flattened spec (separate device arrays)."""
-    key = "pr2:" + str(dev)
-    blob = spec._blobs.get(key)
-    if blob is not None:
-        return blob
-    words, lay = pack_scan_spec(spec)
-    ent = words[:lay.off_cols].reshape(-1, SCAN_ENT_WORDS)
-    cols = words[lay.off_cols:lay.off_ivals].reshape(-1, SCAN_COL_WORDS)
-    from nds_tpu_torch.engine.ops import upload
-
-    def dev_i64(x):
-        return upload([int(v) for v in x] or [0], dev, I64)
-
-    def dev_f64(bits):
-        return upload(np.asarray(bits, dtype=np.int64).view(np.float64)
-                      .tolist() or [0.0], dev, F64)
-
-    old_ent = ent[:, [0, 1, 2, 3, 6, 7]].reshape(-1)
-    colmeta = np.stack([cols[:, 0], cols[:, 1], cols[:, 3], cols[:, 4]],
-                       axis=1).reshape(-1) if len(cols) else []
-    blob = {"ent": dev_i64(old_ent), "fent": dev_f64(ent[:, 4:6].reshape(-1)),
-            "colmeta": dev_i64(colmeta), "sdiv": dev_f64(cols[:, 2]),
-            "ivals": dev_i64(words[lay.off_ivals:lay.off_fvals]),
-            "fvals": dev_f64(words[lay.off_fvals:lay.off_tables]),
-            "tables": dev_i64(words[lay.off_tables:])}
     spec._blobs[key] = blob
     return blob
 
@@ -935,8 +884,7 @@ def _cuda_1d(name, t, dev, n, dtypes=None):
 def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
                plan: ScanPlan | None = None):
     """(argument block, keep-alive tensors, mask, hash) of one K4 launch;
-    ``plan`` defaults to :func:`scan_plan` on this card (``rows`` 0: the
-    first kernel, for the sweep)."""
+    ``plan`` defaults to :func:`scan_plan` on this card."""
     datas, valids, keybufs = _scan_inputs(chunk_flat, spec)
     dev = datas[0].device
     if dev.type != "cuda":
@@ -951,7 +899,7 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
     plen = int(datas[0].shape[0])
     if plan is None:
         plan = scan_plan(plen, spec, _sm_count(dev))
-    a = _ScanArgsPr2() if plan.rows == 0 else _ScanArgs()
+    a = _ScanArgs()
     keep = []
     for i, (d, v) in enumerate(zip(datas, valids)):
         d = _cuda_1d("chunk_scan", d, dev, plen)
@@ -969,22 +917,16 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
         keep.append(k)
     a.ncols, a.nentries, a.nkeys = len(datas), len(spec.entries), \
         len(keybufs)
-    if plan.rows == 0:
-        blob = _scan_blob_pr2(spec, dev)
-        for f in ("ent", "fent", "colmeta", "sdiv", "ivals", "fvals",
-                  "tables"):
-            setattr(a, f, blob[f].data_ptr())
-    else:
-        blob = _scan_blob(spec, dev)
-        lay = blob["layout"]
-        a.spec = blob["spec"].data_ptr()
-        a.off_cols, a.off_ivals = lay.off_cols, lay.off_ivals
-        a.off_fvals, a.off_tables = lay.off_fvals, lay.off_tables
-        a.total_words, a.staged_words = lay.total, plan.staged
-        a.float_lane = int(any(_SCAN_OPS[e[0]] >= _SCAN_OPS["feq"]
-                               for e in spec.entries))
-        a.rows, a.threads, a.grid, a.smem = plan.rows, plan.threads, \
-            plan.grid, plan.smem
+    blob = _scan_blob(spec, dev)
+    lay = blob["layout"]
+    a.spec = blob["spec"].data_ptr()
+    a.off_cols, a.off_ivals = lay.off_cols, lay.off_ivals
+    a.off_fvals, a.off_tables = lay.off_fvals, lay.off_tables
+    a.total_words, a.staged_words = lay.total, plan.staged
+    a.float_lane = int(any(_SCAN_OPS[e[0]] >= _SCAN_OPS["feq"]
+                           for e in spec.entries))
+    a.rows, a.threads, a.grid, a.smem = plan.rows, plan.threads, \
+        plan.grid, plan.smem
     n_dev = n_dev.reshape(())
     keep.append(n_dev)
     a.n_dev = n_dev.data_ptr()
@@ -1162,8 +1104,7 @@ def launcher(name: str, *args, plan=None):
     if name in ("chunk_scan", "join_probe"):
         if name == "chunk_scan":
             block, keep, out, out2 = _scan_args(*args, plan=plan)
-            fn_name = "nds_chunk_scan_pr2" if isinstance(block, _ScanArgsPr2) \
-                else "nds_chunk_scan"
+            fn_name = "nds_chunk_scan"
         else:
             block, keep, out, out2 = _probe_args(*args)
             fn_name = "nds_join_probe"

@@ -317,7 +317,7 @@ def _k4_plans(plen, spec, dev):
     """Every plan the sweep times, and the card's own with a grid of 3
     blocks (each thread walks many tiles)."""
     sms = K._sm_count(dev)
-    return [p for p in K.scan_plans(plen, spec, sms) if p.rows] + [
+    return K.scan_plans(plen, spec, sms) + [
         K.scan_plan(plen, spec, sms)._replace(grid=3)]
 
 
@@ -365,9 +365,9 @@ def _k4_edge_case(rng, plen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("plen", [0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 4099])
+@pytest.mark.parametrize("plen", [0, 1, 7, 8, 9, 15, 16, 17, 4099])
 def test_k4_plen_edges(cuda, plen):
-    """plen 0, 1, R - 1, R, R + 1 for R = 4, 8, 16, and one that is no
+    """plen 0, 1, R - 1, R, R + 1 for R = 8 and 16, and one that is no
     multiple of a tile, under every plan and n_dev 0 / plen."""
     bufs, entries, cols, key_slots = _k4_edge_case(
         np.random.default_rng(plen), plen)

@@ -318,11 +318,10 @@ def test_scan_plan_rule():
 def test_scan_plans_cover_every_tile_size():
     spec = _dict_spec(16)
     plans = K.scan_plans(1 << 22, spec, 132)
-    tiled = [p for p in plans if p.rows]
-    assert {p.rows for p in tiled} == set(K.SCAN_TILE_ROWS)
-    assert K.scan_plan(1 << 22, spec, 132) in tiled
+    assert {p.rows for p in plans} == set(K.SCAN_TILE_ROWS)
+    assert K.scan_plan(1 << 22, spec, 132) in plans
     assert len(set(plans)) == len(plans)
-    assert all(p.grid >= 1 and p.smem == 8 * p.staged for p in tiled)
+    assert all(p.grid >= 1 and p.smem == 8 * p.staged for p in plans)
 
 
 def test_hash_mix_matches_reference_partition_pass():
