@@ -67,16 +67,16 @@
 //     neither path (every real spec of the stream phase is int-lane only);
 //   * a persistent grid walks the tiles; R, the threads a block and the
 //     blocks an SM come from the host's plan (kernels.py scan_plan):
-//     16 rows, 256 threads, 2 blocks an SM, the best or within 3 % of it
-//     at every shape of chip_smoke.py's k4 sweep (the R = 16 kernels take
-//     109-128 registers, so two blocks of 256 is what an SM holds);
+//     16 rows, 256 threads, 2 blocks an SM: the best at every real shape
+//     of chip_smoke.py's k4 sweep and within 2 % of it on the synthetic
+//     spec (the R = 16 kernels take 109-128 registers, so two blocks of
+//     256 is what an SM holds; NVIDIA H100 80GB HBM3, 700.00 W);
 //   * a tile past the last full one, and a column whose pointer is not
 //     16-byte aligned (a view with a storage offset), take scalar loads and
 //     stores inside the same kernel.
-// Tried and dropped (the k4 sweep, NVIDIA H100 80GB HBM3, 700.00 W): 32-row
-// tiles for int-only specs (more bytes in flight a thread, 179 registers:
-// 4-25 % slower), and an uncached int64 lane (more registers, not fewer:
-// 10 % slower on query37's shape).
+// Tried on the card and dropped: 32-row tiles for int-only specs (more
+// bytes in flight a thread, but more registers and slower at every real
+// shape) and an uncached int64 lane (more registers, not fewer).
 // Not done: a kernel compiled per spec (what Pallas does by tracing the
 // spec). On this card it means nvcc or NVRTC at the first sight of each
 // spec, seconds that every streamed statement would pay, and the real

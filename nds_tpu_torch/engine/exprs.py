@@ -94,7 +94,7 @@ def _as_f64(col: Column) -> torch.Tensor:
     col = _plain(col)
     d = col.data.to(F64)
     if is_dec(col.kind):
-        d = d / (10.0 ** col.scale)
+        d = prim.true_div(d, 10.0 ** col.scale)
     return d
 
 
@@ -645,8 +645,8 @@ def fn_round(col: Column, digits: int = 0) -> Column:
     scale = 10.0 ** digits
     d = _as_f64(col) * scale
     # SQL ROUND: half away from zero (torch.round is half-to-even)
-    out = torch.where(d >= 0, torch.floor(d + 0.5),
-                      torch.ceil(d - 0.5)) / scale
+    out = prim.true_div(torch.where(d >= 0, torch.floor(d + 0.5),
+                                    torch.ceil(d - 0.5)), scale)
     return Column("f64", out, col.valid)
 
 

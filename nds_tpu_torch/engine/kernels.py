@@ -38,11 +38,11 @@ shared memory holds, one global atomic a row above that.
 ``chunk_scan`` is bound by the bytes of the columns its spec reads: the
 spec is packed once per pipeline into int64 words (:func:`pack_scan_spec`),
 and each block stages what of it fits 48 KB in shared memory
-(:func:`scan_staged_words`); each thread then takes a tile of 4, 8 or 16
+(:func:`scan_staged_words`); each thread then takes a tile of 16
 consecutive rows and runs the entries over it one at a time, with vector
 loads, one decode per column and the mask bits in a register, under the
 plan :func:`scan_plan` gives (rows a tile, threads a block, a persistent
-grid). ``join_probe`` builds a radix directory over the build side on each
+grid of two blocks an SM). ``join_probe`` builds a radix directory over the build side on each
 call and searches only the probe hash's bucket (:func:`probe_bits`,
 :func:`probe_directory_plain`). The notes at the top of each CUDA source
 say more.
@@ -695,8 +695,9 @@ SCAN_MAX_THREADS = 256          # csrc/chunk_scan.cu kMaxThreads
 
 
 class ScanLayout(NamedTuple):
-    """Where each region of a packed spec starts, in words, and its
-    length: ``off_cols`` is also where the entries end."""
+    """The entry and column counts of a packed spec, where each of its
+    regions starts and its total length, in words (``off_cols`` is also
+    where the entries end)."""
     nentries: int
     ncols: int
     off_cols: int

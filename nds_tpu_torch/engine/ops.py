@@ -1120,7 +1120,7 @@ def agg_avg(col: Column, gids, ngroups) -> Column:
         isums, counts = segment_sum_i64(col.data.to(I64), g, ngroups)
         sums = isums.to(F64)
         if is_dec(col.kind):
-            sums = sums / (10.0 ** col.scale)
+            sums = prim.true_div(sums, 10.0 ** col.scale)
     out = torch.where(counts > 0, sums / counts.clamp(min=1).to(F64),
                       torch.zeros((), dtype=F64, device=sums.device))
     return Column("f64", out, counts > 0)
@@ -1143,7 +1143,7 @@ def agg_stddev_samp(col: Column, gids, ngroups) -> Column:
     col = plain_col(col)
     data = col.data.to(F64)
     if is_dec(col.kind):
-        data = data / (10.0 ** col.scale)
+        data = prim.true_div(data, 10.0 ** col.scale)
     out, enough = _agg_stddev_impl(data, col.valid, gids, ngroups)
     return Column("f64", out, enough)
 

@@ -146,7 +146,7 @@ class WindowContext:
             if agg == "avg":
                 sf = s.to(F64)
                 if is_dec(col.kind):
-                    sf = sf / (10.0 ** col.scale)
+                    sf = prim.true_div(sf, 10.0 ** col.scale)
                 per_row = self._per_row(sf / c.clamp(min=1))
                 return self._scatter(per_row, "f64",
                                      valid_sorted=self._per_row(c > 0))
@@ -230,7 +230,7 @@ class WindowContext:
             if agg == "avg":
                 sf = run.to(F64)
                 if is_dec(col.kind):
-                    sf = sf / (10.0 ** col.scale)
+                    sf = prim.true_div(sf, 10.0 ** col.scale)
                 return self._scatter(sf / vcount.clamp(min=1), "f64",
                                      valid_sorted=has_any)
             kind = ("f64" if is_f

@@ -216,3 +216,15 @@ def test_host_reads_are_counted_and_counts_batch():
 def test_bucket_len_matches_reference():
     for n in (0, 1, 16, 17, 1000, 1 << 20, (1 << 20) + 1):
         assert PO.bucket_len(n) == RO.bucket_len(n)
+
+
+@pytest.mark.parametrize("scale", [1, 2, 4])
+def test_true_div_decodes_decimals_as_the_reference(scale):
+    """The decimal-to-double decode (``prim.true_div`` by 10^scale) gives
+    the reference's quotient bit for bit, the one IEEE division rounds."""
+    codes = np.arange(-300_000, 300_000, 7, dtype=np.int64)
+    got = prim.true_div(torch.from_numpy(codes).to(torch.float64),
+                        10.0 ** scale)
+    want = np.asarray(jnp.asarray(codes, dtype=jnp.float64) / 10.0 ** scale)
+    np.testing.assert_array_equal(got.numpy().view(np.int64),
+                                  want.view(np.int64))
