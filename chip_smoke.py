@@ -50,6 +50,11 @@ and suppresses the final ``ok`` line):
                per-query ms, syncs and kernel launches; lines before it
                count K1's (``k1_groups``) and K2's and K3's
                (``k23_groups``) launches by group count and path;
+   census      the same 25 statements again under ``torch.profiler``
+               (the Power Run's ``--profile``): every CUDA kernel they
+               launch and its device time, with ``prim.true_div``'s
+               divisors kept as the port keeps them and with a fresh one
+               filled for each call, and the calls of ``true_div``;
 6. stream      SF10 transcoded to parquet (the port's ``write_table``); a
                cuda session that streams every table above 1.5e9 bytes
                in 2^22-row chunks (store_sales: 7 chunks) against an
@@ -565,18 +570,19 @@ def scan_bytes(flat, spec, plen) -> int:
     row) and the hash (4 B a row, with keys) once."""
     used = {c[0] for c in spec.cols} | {c[1] for c in spec.cols
                                         if c[1] >= 0} | set(spec.key_slots)
-    words = len(spec_words(spec))
+    words = spec_words(spec)
     return sum(flat[i].element_size() * plen for i in used) + 8 * words + \
         plen * (1 + (4 if spec.key_slots else 0))
 
 
-def spec_words(spec):
+def spec_words(spec) -> int:
+    """The packed spec's length in words (the one the launches use)."""
     from nds_tpu_torch.engine import kernels as K
-    return K.pack_scan_spec(spec)[0]
+    return K.packed_scan_spec(spec)[1].total
 
 
 def plan_key(plan) -> str:
-    return f"r{plan.rows}/t{plan.threads}/g{plan.grid}"
+    return f"t{plan.threads}/g{plan.grid}"
 
 
 def k4_record(torch, K, flat, n_dev, spec):
@@ -613,7 +619,7 @@ def k4_record(torch, K, flat, n_dev, spec):
         n=plen, ok=good and plans_ok, max_abs_err=err, tol="bit-exact",
         survivors=int(m.sum()), entries=len(spec.entries),
         plan=plan_key(plan), staged_words=plan.staged,
-        spec_words=len(spec_words(spec)), ms=warm, cold_ms=cold,
+        spec_words=spec_words(spec), ms=warm, cold_ms=cold,
         flush_ms=flush,
         wrapper_ms=cuda_ms(torch, lambda: K.chunk_scan(flat, n_dev, spec)),
         plain_ms=cuda_ms(torch, lambda: K.chunk_scan_plain(flat, n_dev,
@@ -1303,6 +1309,76 @@ class K4Capture:
                 for r in self.shapes.values()]
 
 
+def trace_kernels(folder) -> dict:
+    """Per statement, the CUDA kernels in its ``torch.profiler`` trace
+    (``<query>.json`` in ``folder``) and how many of them are fills."""
+    out = {}
+    for fn in sorted(os.listdir(folder)):
+        with open(os.path.join(folder, fn)) as f:
+            events = json.load(f).get("traceEvents", [])
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
+        out[fn[:-len(".json")]] = (len(names),
+                                   sum("FillFunctor" in n for n in names))
+    return out
+
+
+def launch_census(torch, sf1, queries, run_query_stream):
+    """The CI statements at SF1 through the Power Run entry with
+    ``profile_folder``, once with a fresh device divisor filled for each
+    ``prim.true_div`` call and once with the kept ones: per arm, the
+    device events the profiler summed (kernels, memcpys, memsets) and
+    their device ms, the kernels and fill kernels of the traces, and the
+    ``true_div`` calls. (ok, line)."""
+    from nds_tpu_torch.engine import prim
+    kept = prim.true_div
+    arms = {}
+    for arm in ("fresh_divisor", "kept_divisor"):
+        calls = [0]
+
+        def counted(x, d, fresh=arm == "fresh_divisor"):
+            calls[0] += 1
+            if fresh:
+                return x / torch.full((), d, dtype=x.dtype, device=x.device)
+            return kept(x, d)
+        summ = os.path.join(OUT, f"census_{arm}")
+        traces = os.path.join(DATA, f"census_{arm}")
+        for d in (summ, traces):
+            shutil.rmtree(d, ignore_errors=True)
+        prim.true_div = counted
+        try:
+            run_query_stream(
+                sf1, None, queries, os.path.join(OUT, f"census_{arm}.csv"),
+                sub_queries=CI_QUERIES, input_format="raw",
+                json_summary_folder=summ, allow_failure=True, device="cuda",
+                profile_folder=traces)
+            torch.cuda.synchronize()
+        finally:
+            prim.true_div = kept
+        per_q = {}
+        for fn in sorted(os.listdir(summ)):
+            if fn.endswith(".json"):
+                with open(os.path.join(summ, fn)) as f:
+                    js = json.load(f)
+                per_q[js["query"]] = (js["queryStatus"][-1],
+                                      js.get("profile", {}))
+        kern = trace_kernels(traces)
+        arms[arm] = {
+            "completed": sum(st == "Completed" for st, _p in per_q.values()),
+            "device_events": sum(p.get("kernelLaunches", 0)
+                                 for _st, p in per_q.values()),
+            "device_kernel_ms": round(sum(p.get("deviceKernelMs", 0)
+                                          for _st, p in per_q.values()), 3),
+            "kernels": sum(k for k, _f in kern.values()),
+            "fill_kernels": sum(f for _k, f in kern.values()),
+            "true_div_calls": calls[0],
+            "kernels_by_query": {q: list(v) for q, v in kern.items()}}
+    ok = all(a["completed"] == len(CI_QUERIES) and a["kernels"] > 0
+             for a in arms.values())
+    return ok, {"phase": "census", "scale": 1, "ok": ok,
+                "statements": len(CI_QUERIES), **arms}
+
+
 def k4_real_phase(torch, K, capture):
     """K4 at each spec shape the stream phase launched, on the first
     chunk it saw, repeated to ``SCAN_ROWS`` rows where shorter (the live
@@ -1541,6 +1617,18 @@ def main() -> int:
         emit({"phase": "power", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("power")
+    try:
+        ok, line = launch_census(torch, os.path.join(DATA, "sf1"),
+                                 gen_sql_from_stream(stream_file(1)),
+                                 run_query_stream)
+        emit(line)
+        if not ok:
+            failed.append("census")
+    except Exception:
+        import traceback
+        emit({"phase": "census", "ok": False,
+              "error": traceback.format_exc()[-2000:]})
+        failed.append("census")
 
     # 6. the streamed path at STREAM_SCALE, against all-resident; K4's
     # launches by spec shape and statement, K1-K3's by group count

@@ -43,18 +43,19 @@
 //   * the packed spec (kernels.py pack_scan_spec: entries, per-column
 //     decode metadata, IN-lists, dict tables, in that order) is staged once
 //     a block into shared memory, as far as whole regions fit the budget
-//     the host gives (kernels.py scan_staged_words); a region that does not
-//     fit is read from global memory through the read-only path. The
-//     chunk's column pointers, tags and alignment go to shared memory with
-//     it;
-//   * each thread owns a tile of R consecutive rows (R = 8 or 16) and
-//     keeps their mask bits in a register. Entries run entry-major: for
-//     each entry the switch on opcode and tag is taken once a tile (the
-//     same for the whole warp), the column's R codes come in with 16-byte
-//     vector loads (fewer bytes when R codes take less), are decoded once,
-//     compared, and ANDed into the bits. Codes of at most 4 bytes compare
-//     in 32 bits (an int64 threshold past int32 decides the whole tile);
-//     wider ones in 64. The validity bytes become bits four at a time;
+//     the host gives (kernels.py scan_staged_words: 48 KB less the static
+//     column and key records, so that no launch has to opt in to more); a
+//     region that does not fit is read from global memory through the
+//     read-only path. The chunk's column pointers, tags and alignment go to
+//     shared memory with it;
+//   * each thread owns a tile of R = 16 consecutive rows and keeps their
+//     mask bits in a register. Entries run entry-major: for each entry the
+//     switch on opcode and tag is taken once a tile (the same for the
+//     whole warp), the column's R codes come in with 16-byte vector loads,
+//     are decoded once, compared, and ANDed into the bits. Codes of at
+//     most 4 bytes compare in 32 bits (an int64 threshold past int32
+//     decides the whole tile); wider ones in 64. The validity bytes become
+//     bits four at a time;
 //   * consecutive entries on one column reuse its validity and its decoded
 //     int64 or float tile (the float decode, with its division, is the one
 //     that costs);
@@ -65,18 +66,18 @@
 //   * the float lane and the hash are template switches: a spec without
 //     float entries, or a launch without keys, runs a kernel that carries
 //     neither path (every real spec of the stream phase is int-lane only);
-//   * a persistent grid walks the tiles; R, the threads a block and the
+//   * a persistent grid walks the tiles; the threads a block and the
 //     blocks an SM come from the host's plan (kernels.py scan_plan):
-//     16 rows, 256 threads, 2 blocks an SM: the best at every real shape
-//     of chip_smoke.py's k4 sweep and within 2 % of it on the synthetic
-//     spec (the R = 16 kernels take 109-128 registers, so two blocks of
-//     256 is what an SM holds; NVIDIA H100 80GB HBM3, 700.00 W);
+//     256 threads, 2 blocks an SM: the best at every real shape of
+//     chip_smoke.py's k4 sweep and within 2 % of it on the synthetic spec
+//     (the kernels take 109-128 registers, so two blocks of 256 is what an
+//     SM holds; NVIDIA H100 80GB HBM3, 700.00 W);
 //   * a tile past the last full one, and a column whose pointer is not
 //     16-byte aligned (a view with a storage offset), take scalar loads and
 //     stores inside the same kernel.
-// Tried on the card and dropped: 32-row tiles for int-only specs (more
-// bytes in flight a thread, but more registers and slower at every real
-// shape) and an uncached int64 lane (more registers, not fewer).
+// Tried on the card and dropped: 4-, 8- and 32-row tiles (fewer bytes in
+// flight a thread, or more registers; slower at every real shape) and an
+// uncached int64 lane (more registers, not fewer).
 // Not done: a kernel compiled per spec (what Pallas does by tracing the
 // spec). On this card it means nvcc or NVRTC at the first sight of each
 // spec, seconds that every streamed statement would pay, and the real
@@ -138,7 +139,6 @@ struct NdsScanArgs {
     int off_tables;
     int total_words;
     int staged_words;          // the prefix a block copies to shared memory
-    int rows;                  // plan: R rows a thread's tile (8 or 16)
     int threads;               // plan: threads a block
     int grid;                  // plan: blocks
     int smem;                  // plan: dynamic shared bytes (8 * staged)
@@ -151,6 +151,8 @@ struct NdsScanArgs {
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int R = 16;                     // rows a thread's tile
+constexpr unsigned kAll = (1u << R) - 1u; // the mask bits of a whole tile
 
 // one column of the chunk as a block sees it (shared memory; kernels.py
 // SCAN_STATIC_SMEM counts these two arrays)
@@ -173,6 +175,14 @@ struct KeyInfo {
     int vec;
 };
 
+// the kernel's static shared memory (kernels.py SCAN_STATIC_SMEM), and the
+// most static and dynamic shared memory a block takes without opting in to
+// more (cudaFuncAttributeMaxDynamicSharedMemorySize)
+constexpr int kStaticSmem = static_cast<int>(
+    NDS_SCAN_MAX_COLS * sizeof(ColInfo) + NDS_SCAN_MAX_KEYS * sizeof(KeyInfo));
+static_assert(kStaticSmem == 1152, "kernels.py SCAN_STATIC_SMEM");
+constexpr int kSmemDefault = 48 * 1024;
+
 __device__ __forceinline__ double dval(long long b) {
     return __longlong_as_double(b);
 }
@@ -181,39 +191,24 @@ __device__ __forceinline__ long long dbits(double v) {
     return __double_as_longlong(v);
 }
 
-// the mask bits of a whole tile of R rows
-template <int R>
-__host__ __device__ constexpr unsigned all_bits() {
-    return (1u << R) - 1u;
-}
-
 // R elements of S bytes at p[row0 ..] as raw bit patterns, zero-extended:
-// 16-byte vector loads (fewer bytes when R * S < 16) when ``vec`` (a full
-// tile of a 16-byte aligned buffer; row0 is a multiple of R, so the tile is
-// aligned to R * S), else scalar loads of the first n and zeros after.
-template <int S, int R>
+// 16-byte vector loads when ``vec`` (a full tile of a 16-byte aligned
+// buffer; row0 is a multiple of R, so the tile is aligned to R * S), else
+// scalar loads of the first n and zeros after.
+template <int S>
 __device__ __forceinline__ void load_tile(const void* p, long long row0,
                                           int n, bool vec,
                                           unsigned long long (&raw)[R]) {
     if (vec) {
-        constexpr int BYTES = R * S;
-        unsigned w[BYTES / 4];
+        unsigned w[R * S / 4];
         const char* q = static_cast<const char*>(p) + row0 * S;
-        if constexpr (BYTES >= 16) {
 #pragma unroll
-            for (int k = 0; k < BYTES / 16; ++k) {
-                const uint4 v = __ldg(reinterpret_cast<const uint4*>(q) + k);
-                w[4 * k] = v.x;
-                w[4 * k + 1] = v.y;
-                w[4 * k + 2] = v.z;
-                w[4 * k + 3] = v.w;
-            }
-        } else if constexpr (BYTES == 8) {
-            const uint2 v = __ldg(reinterpret_cast<const uint2*>(q));
-            w[0] = v.x;
-            w[1] = v.y;
-        } else {
-            w[0] = __ldg(reinterpret_cast<const unsigned*>(q));
+        for (int k = 0; k < R * S / 16; ++k) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(q) + k);
+            w[4 * k] = v.x;
+            w[4 * k + 1] = v.y;
+            w[4 * k + 2] = v.z;
+            w[4 * k + 3] = v.w;
         }
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -255,36 +250,16 @@ __device__ __forceinline__ unsigned nonzero_nibble(unsigned x) {
 }
 
 // validity bits of the tile (bit j: row row0 + j is valid); no mask: all
-template <int R>
 __device__ __forceinline__ unsigned load_valid(const unsigned char* v,
                                                bool vec, long long row0,
                                                int n) {
-    constexpr unsigned kAll = all_bits<R>();
     if (v == nullptr) return kAll;
-    unsigned b = 0;
     if (vec) {
-        const unsigned char* q = v + row0;
-        unsigned w[R / 4];
-        if constexpr (R >= 16) {
-#pragma unroll
-            for (int k = 0; k < R / 16; ++k) {
-                const uint4 x = __ldg(reinterpret_cast<const uint4*>(q) + k);
-                w[4 * k] = x.x;
-                w[4 * k + 1] = x.y;
-                w[4 * k + 2] = x.z;
-                w[4 * k + 3] = x.w;
-            }
-        } else if constexpr (R == 8) {
-            const uint2 x = __ldg(reinterpret_cast<const uint2*>(q));
-            w[0] = x.x;
-            w[1] = x.y;
-        } else {
-            w[0] = __ldg(reinterpret_cast<const unsigned*>(q));
-        }
-#pragma unroll
-        for (int k = 0; k < R / 4; ++k) b |= nonzero_nibble(w[k]) << (4 * k);
-        return b;
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(v + row0));
+        return nonzero_nibble(x.x) | nonzero_nibble(x.y) << 4 |
+               nonzero_nibble(x.z) << 8 | nonzero_nibble(x.w) << 12;
     }
+    unsigned b = 0;
 #pragma unroll
     for (int j = 0; j < R; ++j)
         if (j < n) b |= (__ldg(v + row0 + j) != 0 ? 1u : 0u) << j;
@@ -293,31 +268,30 @@ __device__ __forceinline__ unsigned load_valid(const unsigned char* v,
 
 // the narrow int lane: R codes of a tag of at most 4 bytes (int8, uint8,
 // int16, int32) widened to int32
-template <int R>
 __device__ __forceinline__ void load_ints32(const void* p, int tag, bool vec,
                                             long long row0, int n,
                                             int (&x)[R]) {
     unsigned long long raw[R];
     switch (tag) {
     case TAG_I8:
-        load_tile<1, R>(p, row0, n, vec, raw);
+        load_tile<1>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             x[j] = static_cast<signed char>(static_cast<unsigned char>(raw[j]));
         break;
     case TAG_U8:
-        load_tile<1, R>(p, row0, n, vec, raw);
+        load_tile<1>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j) x[j] = static_cast<int>(raw[j]);
         break;
     case TAG_I16:
-        load_tile<2, R>(p, row0, n, vec, raw);
+        load_tile<2>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             x[j] = static_cast<short>(static_cast<unsigned short>(raw[j]));
         break;
     default:   // TAG_I32
-        load_tile<4, R>(p, row0, n, vec, raw);
+        load_tile<4>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             x[j] = static_cast<int>(static_cast<unsigned>(raw[j]));
@@ -332,51 +306,50 @@ __device__ __forceinline__ bool narrow_tag(int tag) {
 
 // the int lane: R codes widened to int64 (the switch on the tag is taken
 // once a tile)
-template <int R>
 __device__ __forceinline__ void load_ints(const void* p, int tag, bool vec,
                                           long long row0, int n,
                                           long long (&t)[R]) {
     unsigned long long raw[R];
     switch (tag) {
     case TAG_I8:
-        load_tile<1, R>(p, row0, n, vec, raw);
+        load_tile<1>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = static_cast<signed char>(static_cast<unsigned char>(raw[j]));
         break;
     case TAG_U8:
-        load_tile<1, R>(p, row0, n, vec, raw);
+        load_tile<1>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
         break;
     case TAG_I16:
-        load_tile<2, R>(p, row0, n, vec, raw);
+        load_tile<2>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = static_cast<short>(static_cast<unsigned short>(raw[j]));
         break;
     case TAG_I32:
-        load_tile<4, R>(p, row0, n, vec, raw);
+        load_tile<4>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = static_cast<int>(static_cast<unsigned>(raw[j]));
         break;
     case TAG_F32:
-        load_tile<4, R>(p, row0, n, vec, raw);
+        load_tile<4>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = static_cast<long long>(
                 __uint_as_float(static_cast<unsigned>(raw[j])));
         break;
     case TAG_F64:
-        load_tile<8, R>(p, row0, n, vec, raw);
+        load_tile<8>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = static_cast<long long>(
                 dval(static_cast<long long>(raw[j])));
         break;
     default:   // TAG_I64
-        load_tile<8, R>(p, row0, n, vec, raw);
+        load_tile<8>(p, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
         break;
@@ -384,25 +357,24 @@ __device__ __forceinline__ void load_ints(const void* p, int tag, bool vec,
 }
 
 // the float lane: R decoded doubles (as bits in t), divided by 10^scale
-template <int R>
 __device__ __forceinline__ void load_floats(const ColInfo& c, bool full,
                                             bool tbl_sh, long long row0,
                                             int n, long long (&t)[R]) {
     const bool vec = full && c.vec;
     if (c.fmode == FM_ID && c.tag == TAG_F64) {
         unsigned long long raw[R];
-        load_tile<8, R>(c.data, row0, n, vec, raw);
+        load_tile<8>(c.data, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
     } else if (c.fmode == FM_ID && c.tag == TAG_F32) {
         unsigned long long raw[R];
-        load_tile<4, R>(c.data, row0, n, vec, raw);
+        load_tile<4>(c.data, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = dbits(static_cast<double>(
                 __uint_as_float(static_cast<unsigned>(raw[j]))));
     } else {
-        load_ints<R>(c.data, c.tag, vec, row0, n, t);
+        load_ints(c.data, c.tag, vec, row0, n, t);
         if (c.fmode == FM_FOR) {
             const unsigned long long base =
                 static_cast<unsigned long long>(c.base);
@@ -434,12 +406,10 @@ __device__ __forceinline__ void load_floats(const ColInfo& c, bool full,
 }
 
 // bits of an int-lane entry over the tile
-template <int R>
 __device__ __forceinline__ unsigned int_bits(int op, const long long* en,
                                              const long long (&t)[R],
                                              const long long* iv,
                                              bool iv_sh) {
-    constexpr unsigned kAll = all_bits<R>();
     const long long A = en[2];
     const long long B = en[3];
     unsigned c = 0;
@@ -484,12 +454,10 @@ __device__ __forceinline__ unsigned int_bits(int op, const long long* en,
 // bits of an int-lane entry over a narrow tile: the same answers as
 // int_bits, with the int64 thresholds taken into int32 first (a threshold
 // past either end of int32 decides the whole tile)
-template <int R>
 __device__ __forceinline__ unsigned int_bits32(int op, const long long* en,
                                                const int (&x)[R],
                                                const long long* iv,
                                                bool iv_sh) {
-    constexpr unsigned kAll = all_bits<R>();
     constexpr long long kMin = -2147483648LL;
     constexpr long long kMax = 2147483647LL;
     const long long A = en[2];
@@ -544,12 +512,10 @@ __device__ __forceinline__ unsigned int_bits32(int op, const long long* en,
 }
 
 // bits of a float-lane entry over the tile (t holds doubles as bits)
-template <int R>
 __device__ __forceinline__ unsigned flt_bits(int op, const long long* en,
                                              const long long (&t)[R],
                                              const long long* fv,
                                              bool fv_sh) {
-    constexpr unsigned kAll = all_bits<R>();
     const double L = dval(en[4]);
     const double H = dval(en[5]);
     unsigned c = 0;
@@ -601,52 +567,41 @@ __device__ __forceinline__ unsigned flt_bits(int op, const long long* en,
 
 // a key tile as the hash reads it: the value widened to int64, a float's
 // bit pattern (float32 sign-extended through int32)
-template <int R>
 __device__ __forceinline__ void load_key_bits(const KeyInfo& k, bool full,
                                               long long row0, int n,
                                               long long (&t)[R]) {
     const bool vec = full && k.vec;
     if (k.tag == TAG_F64) {
         unsigned long long raw[R];
-        load_tile<8, R>(k.data, row0, n, vec, raw);
+        load_tile<8>(k.data, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j) t[j] = static_cast<long long>(raw[j]);
     } else if (k.tag == TAG_F32) {
         unsigned long long raw[R];
-        load_tile<4, R>(k.data, row0, n, vec, raw);
+        load_tile<4>(k.data, row0, n, vec, raw);
 #pragma unroll
         for (int j = 0; j < R; ++j)
             t[j] = static_cast<int>(static_cast<unsigned>(raw[j]));
     } else {
-        load_ints<R>(k.data, k.tag, vec, row0, n, t);
+        load_ints(k.data, k.tag, vec, row0, n, t);
     }
 }
 
-template <int R>
 __device__ __forceinline__ void store_mask(unsigned char* out,
                                            long long row0, int n, bool full,
                                            unsigned m) {
     if (full) {
-        unsigned w[(R + 3) / 4];
+        unsigned w[R / 4];
 #pragma unroll
-        for (int k = 0; k < (R + 3) / 4; ++k)   // 4 bits -> 4 bytes of 0/1
+        for (int k = 0; k < R / 4; ++k)   // 4 bits -> 4 bytes of 0/1
             w[k] = (((m >> (4 * k)) & 0xfu) * 0x00204081u) & 0x01010101u;
-        unsigned char* q = out + row0;
-        if constexpr (R >= 16) {
-#pragma unroll
-            for (int k = 0; k < R / 16; ++k)
-                reinterpret_cast<uint4*>(q)[k] = make_uint4(
-                    w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
-        } else if constexpr (R == 8)
-            *reinterpret_cast<uint2*>(q) = make_uint2(w[0], w[1]);
-        else
-            *reinterpret_cast<unsigned*>(q) = w[0];
+        *reinterpret_cast<uint4*>(out + row0) =
+            make_uint4(w[0], w[1], w[2], w[3]);
     } else {
         for (int j = 0; j < n; ++j) out[row0 + j] = (m >> j) & 1u;
     }
 }
 
-template <int R>
 __device__ __forceinline__ void store_hash(unsigned* out, long long row0,
                                            int n, bool full,
                                            const unsigned (&h)[R]) {
@@ -666,13 +621,12 @@ __device__ __forceinline__ void store_hash(unsigned* out, long long row0,
 // kFloat: the spec has float-lane entries; kHash: the launch folds the
 // routing hash. A launch without them runs a kernel that carries neither
 // path, with fewer registers.
-template <int R, bool kFloat, bool kHash>
+template <bool kFloat, bool kHash>
 __global__ void __launch_bounds__(kMaxThreads)
 chunk_scan_tiles(const NdsScanArgs a) {
     extern __shared__ long long sh[];
     __shared__ ColInfo cols[NDS_SCAN_MAX_COLS];
     __shared__ KeyInfo keys[NDS_SCAN_MAX_KEYS];
-    constexpr unsigned kAll = all_bits<R>();
     const int tid = threadIdx.x;
 
     // stage the spec: the prefix of whole regions that fits, once a block
@@ -731,7 +685,7 @@ chunk_scan_tiles(const NdsScanArgs a) {
             }
             const ColInfo& c = cols[ci];
             if (vcol != ci) {
-                vb = load_valid<R>(c.valid, full && c.vvec, row0, n);
+                vb = load_valid(c.valid, full && c.vvec, row0, n);
                 vcol = ci;
             }
             if (op == OP_TRUE || op == OP_NOTNULL) {
@@ -746,22 +700,22 @@ chunk_scan_tiles(const NdsScanArgs a) {
             unsigned cb;
             if (int_lane && narrow_tag(c.tag)) {
                 int x[R];   // narrow codes compare in 32 bits, uncached
-                load_ints32<R>(c.data, c.tag, full && c.vec, row0, n, x);
-                cb = int_bits32<R>(op, en, x, iv, iv_sh);
+                load_ints32(c.data, c.tag, full && c.vec, row0, n, x);
+                cb = int_bits32(op, en, x, iv, iv_sh);
             } else if (int_lane) {
                 if (tcol != ci || tlane != 0) {
-                    load_ints<R>(c.data, c.tag, full && c.vec, row0, n, t);
+                    load_ints(c.data, c.tag, full && c.vec, row0, n, t);
                     tcol = ci;
                     tlane = 0;
                 }
-                cb = int_bits<R>(op, en, t, iv, iv_sh);
+                cb = int_bits(op, en, t, iv, iv_sh);
             } else if constexpr (kFloat) {
                 if (tcol != ci || tlane != 1) {
-                    load_floats<R>(c, full, tbl_sh, row0, n, t);
+                    load_floats(c, full, tbl_sh, row0, n, t);
                     tcol = ci;
                     tlane = 1;
                 }
-                cb = flt_bits<R>(op, en, t, fv, fv_sh);
+                cb = flt_bits(op, en, t, fv, fv_sh);
             } else {
                 cb = 0;   // not reached: the host sets float_lane for these
             }
@@ -769,13 +723,13 @@ chunk_scan_tiles(const NdsScanArgs a) {
         }
         const long long live = n_live - row0;
         if (live < R) m &= live <= 0 ? 0u : (1u << live) - 1u;
-        store_mask<R>(a.mask, row0, n, full, m);
+        store_mask(a.mask, row0, n, full, m);
         if constexpr (kHash) {
             unsigned h[R];
 #pragma unroll
             for (int j = 0; j < R; ++j) h[j] = 2166136261u;
             for (int k = 0; k < a.nkeys; ++k) {
-                load_key_bits<R>(keys[k], full, row0, n, t);
+                load_key_bits(keys[k], full, row0, n, t);
 #pragma unroll
                 for (int j = 0; j < R; ++j) {
                     const unsigned lo = static_cast<unsigned>(t[j]);
@@ -787,47 +741,40 @@ chunk_scan_tiles(const NdsScanArgs a) {
                     h[j] = x ^ (x >> 13);
                 }
             }
-            store_hash<R>(a.hash, row0, n, full, h);
+            store_hash(a.hash, row0, n, full, h);
         }
     }
 }
 
-template <int R, bool kFloat, bool kHash>
+template <bool kFloat, bool kHash>
 int launch_tiles(const NdsScanArgs& a, cudaStream_t s) {
-    chunk_scan_tiles<R, kFloat, kHash><<<a.grid, a.threads, a.smem, s>>>(a);
+    chunk_scan_tiles<kFloat, kHash><<<a.grid, a.threads, a.smem, s>>>(a);
     return static_cast<int>(cudaGetLastError());
-}
-
-template <int R>
-int launch_rows(const NdsScanArgs& a, cudaStream_t s) {
-    const bool hash = a.hash != nullptr;
-    if (a.float_lane)
-        return hash ? launch_tiles<R, true, true>(a, s)
-                    : launch_tiles<R, true, false>(a, s);
-    return hash ? launch_tiles<R, false, true>(a, s)
-                : launch_tiles<R, false, false>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows, threads, grid and smem from the host plan (kernels.py scan_plan);
-// nothing is launched for an empty chunk (plen 0)
+// threads, grid and smem from the host plan (kernels.py scan_plan); the
+// staged spec and the static records fit the shared memory a block takes
+// without opting in to more; nothing is launched for an empty chunk
 int nds_chunk_scan(const NdsScanArgs* args, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const NdsScanArgs& a = *args;
     if (a.plen <= 0) return static_cast<int>(cudaGetLastError());
     if (a.grid <= 0 || a.threads <= 0 || a.threads > kMaxThreads ||
         a.smem != 8 * a.staged_words || a.staged_words > a.total_words ||
+        a.smem + kStaticSmem > kSmemDefault ||
         a.ncols > NDS_SCAN_MAX_COLS || a.nkeys > NDS_SCAN_MAX_KEYS ||
         a.threads < a.ncols || a.threads < a.nkeys)
         return static_cast<int>(cudaErrorInvalidValue);
-    switch (a.rows) {
-    case 8: return launch_rows<8>(a, s);
-    case 16: return launch_rows<16>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const bool hash = a.hash != nullptr;
+    if (a.float_lane)
+        return hash ? launch_tiles<true, true>(a, s)
+                    : launch_tiles<true, false>(a, s);
+    return hash ? launch_tiles<false, true>(a, s)
+                : launch_tiles<false, false>(a, s);
 }
 
 int nds_chunk_scan_sizeof() { return static_cast<int>(sizeof(NdsScanArgs)); }

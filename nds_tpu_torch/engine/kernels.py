@@ -37,14 +37,14 @@ and the shared-memory bytes a group takes (16, or 4 for a count-only
 shared memory holds, one global atomic a row above that.
 ``chunk_scan`` is bound by the bytes of the columns its spec reads: the
 spec is packed once per pipeline into int64 words (:func:`pack_scan_spec`),
-and each block stages what of it fits 48 KB in shared memory
-(:func:`scan_staged_words`); each thread then takes a tile of 16
-consecutive rows and runs the entries over it one at a time, with vector
-loads, one decode per column and the mask bits in a register, under the
-plan :func:`scan_plan` gives (rows a tile, threads a block, a persistent
-grid of two blocks an SM). ``join_probe`` builds a radix directory over the build side on each
-call and searches only the probe hash's bucket (:func:`probe_bits`,
-:func:`probe_directory_plain`). The notes at the top of each CUDA source
+and each block stages what of it fits 48 KB, less the kernel's static
+records, in shared memory (:func:`scan_staged_words`); each thread then
+takes a tile of 16 consecutive rows and runs the entries over it one at a
+time, with vector loads, one decode per column and the mask bits in a
+register, under the plan :func:`scan_plan` gives (threads a block, a
+persistent grid of two blocks an SM). ``join_probe`` builds a radix
+directory over the build side on each call and searches only the probe
+hash's bucket (:func:`probe_bits`, :func:`probe_directory_plain`). The notes at the top of each CUDA source
 say more.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
@@ -679,16 +679,18 @@ def chunk_scan_plain(chunk_flat, n_dev, spec: ScanSpec):
 #   fvals    float IN-list values (bits)
 #   tables   dict value tables, concatenated
 SCAN_ENT_WORDS, SCAN_COL_WORDS = 8, 5
-# a block stages the longest prefix of whole regions that fits this budget
-# (48 KB: the dynamic shared memory a launch may take without raising its
-# limit), and reads what does not fit from global memory
-SCAN_SMEM_BUDGET = 48 * 1024
 # the kernel's static shared memory: 16 column and 8 key records
+# (csrc/chunk_scan.cu kStaticSmem)
 SCAN_STATIC_SMEM = 16 * 64 + 8 * 16
-# the plan: R rows a thread's tile, threads a block, blocks an SM (a
-# persistent grid; chip_smoke.py's k4 sweep, PERF.md section 6)
-SCAN_TILE_ROWS = (8, 16)
+# a block stages the longest prefix of whole regions that fits this budget
+# (48 KB, the static and dynamic shared memory a block takes without
+# raising its limit, less the static records), and reads what does not fit
+# from global memory
+SCAN_SMEM_BUDGET = 48 * 1024 - SCAN_STATIC_SMEM
+# rows a thread's tile (csrc/chunk_scan.cu R)
 SCAN_ROWS = 16
+# the plan: threads a block, blocks an SM (a persistent grid;
+# chip_smoke.py's k4 sweep, PERF.md section 6)
 SCAN_THREADS = 256
 SCAN_PER_SM = 2
 SCAN_MAX_THREADS = 256          # csrc/chunk_scan.cu kMaxThreads
@@ -713,7 +715,8 @@ def _f64_bits(x) -> int:
 
 def pack_scan_spec(spec: ScanSpec):
     """``(words, layout)``: the spec as the int64 words the K4 kernel
-    reads (the region layout above) and where its regions start."""
+    reads (the region layout above) and where its regions start
+    (:func:`packed_scan_spec` keeps one per spec)."""
     ent, ivals, fvals = [], [], []
     for e in spec.entries:
         kind, ci = e[0], e[1]
@@ -771,55 +774,49 @@ def scan_staged_words(layout: ScanLayout,
 
 
 class ScanPlan(NamedTuple):
-    """How one K4 launch runs: ``rows`` a thread's tile (8 or 16),
-    ``threads`` a block, ``grid`` blocks, ``smem`` bytes of staged spec
-    (``staged`` words)."""
-    rows: int
+    """How one K4 launch runs: ``threads`` a block, ``grid`` blocks,
+    ``smem`` bytes of staged spec (``staged`` words)."""
     threads: int
     grid: int
     smem: int
     staged: int
 
 
-def _scan_layout(spec: ScanSpec) -> ScanLayout:
-    got = spec._blobs.get("layout")
+def packed_scan_spec(spec: ScanSpec):
+    """:func:`pack_scan_spec` of ``spec``, packed once and kept with it
+    (chunk-invariant)."""
+    got = spec._blobs.get("packed")
     if got is None:
-        got = spec._blobs["layout"] = pack_scan_spec(spec)[1]
+        got = spec._blobs["packed"] = pack_scan_spec(spec)
     return got
 
 
 def scan_plan(plen: int, spec: ScanSpec, sms: int = 132,
-              rows: int = SCAN_ROWS, threads: int = SCAN_THREADS,
-              per_sm: int = SCAN_PER_SM,
+              threads: int = SCAN_THREADS, per_sm: int = SCAN_PER_SM,
               budget: int = SCAN_SMEM_BUDGET) -> ScanPlan:
     """The launch of K4 over a ``plen``-row chunk on a card of ``sms``
-    SMs: tiles of ``rows`` rows, a persistent grid of at most ``per_sm``
-    blocks of ``threads`` an SM (fewer where the staged spec or the
-    threads an SM run out), no more blocks than the tiles fill; grid 0 for
-    an empty chunk."""
-    if rows not in SCAN_TILE_ROWS:
-        raise ValueError(f"chunk_scan: rows must be one of {SCAN_TILE_ROWS}")
+    SMs: tiles of ``SCAN_ROWS`` rows, a persistent grid of at most
+    ``per_sm`` blocks of ``threads`` an SM (fewer where the staged spec or
+    the threads an SM run out), no more blocks than the tiles fill; grid 0
+    for an empty chunk."""
     if not 32 <= threads <= SCAN_MAX_THREADS or threads % 32:
         raise ValueError("chunk_scan: threads must be a multiple of 32 up "
                          f"to {SCAN_MAX_THREADS}")
-    staged = scan_staged_words(_scan_layout(spec), budget)
+    staged = scan_staged_words(packed_scan_spec(spec)[1], budget)
     smem = 8 * staged
     if plen <= 0:
-        return ScanPlan(rows, threads, 0, smem, staged)
+        return ScanPlan(threads, 0, smem, staged)
     fit = min(per_sm, 2048 // threads,
               SMEM_SM // (smem + SCAN_STATIC_SMEM + SMEM_RESERVED))
-    tiles = -(-plen // rows)
+    tiles = -(-plen // SCAN_ROWS)
     grid = max(1, min(sms * max(1, fit), -(-tiles // threads)))
-    return ScanPlan(rows, threads, grid, smem, staged)
+    return ScanPlan(threads, grid, smem, staged)
 
 
 def scan_plans(plen: int, spec: ScanSpec, sms: int) -> list[ScanPlan]:
-    """Every plan the k4 sweep times: each tile size at 1, 2 and 4 blocks
-    of 256 threads an SM, and 128-thread blocks at 8 and
-    16 an SM, plus the first kernel's one-thread-a-row launch (``rows``
-    0)."""
-    plans = [scan_plan(plen, spec, sms, rows=r, per_sm=q)
-             for r in SCAN_TILE_ROWS for q in (1, 2, 4)]
+    """Every plan the k4 sweep times: 1, 2 and 4 blocks of 256 threads an
+    SM, and 128-thread blocks at 8 and 16 an SM."""
+    plans = [scan_plan(plen, spec, sms, per_sm=q) for q in (1, 2, 4)]
     plans += [scan_plan(plen, spec, sms, threads=128, per_sm=q)
               for q in (8, 16)]
     return sorted(set(plans), key=plans.index)
@@ -840,8 +837,8 @@ class _ScanArgs(ctypes.Structure):
                 ("off_fvals", ctypes.c_int), ("off_tables", ctypes.c_int),
                 ("total_words", ctypes.c_int),
                 ("staged_words", ctypes.c_int),
-                ("rows", ctypes.c_int), ("threads", ctypes.c_int),
-                ("grid", ctypes.c_int), ("smem", ctypes.c_int),
+                ("threads", ctypes.c_int), ("grid", ctypes.c_int),
+                ("smem", ctypes.c_int),
                 ("n_dev", ctypes.c_void_p), ("plen", ctypes.c_longlong),
                 ("mask", ctypes.c_void_p), ("hash", ctypes.c_void_p)]
 
@@ -850,19 +847,15 @@ def _clamp_i64(v) -> int:
     return max(min(int(v), (1 << 63) - 1), -(1 << 63))
 
 
-def _scan_blob(spec: ScanSpec, dev) -> dict:
-    """The packed spec on ``dev`` (``spec``: the words, ``layout``: its
-    regions), once per (spec, device): chunk-invariant, so no chunk
-    uploads it again."""
+def _scan_blob(spec: ScanSpec, dev) -> torch.Tensor:
+    """The packed words on ``dev``, once per (spec, device):
+    chunk-invariant, so no chunk uploads them again."""
     key = str(dev)
     blob = spec._blobs.get(key)
-    if blob is not None:
-        return blob
-    from nds_tpu_torch.engine.ops import upload
-    words, layout = pack_scan_spec(spec)
-    blob = {"spec": upload(words.tolist() or [0], dev, I64),
-            "layout": layout}
-    spec._blobs[key] = blob
+    if blob is None:
+        from nds_tpu_torch.engine.ops import upload
+        words = packed_scan_spec(spec)[0]
+        blob = spec._blobs[key] = upload(words.tolist() or [0], dev, I64)
     return blob
 
 
@@ -918,16 +911,14 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
         keep.append(k)
     a.ncols, a.nentries, a.nkeys = len(datas), len(spec.entries), \
         len(keybufs)
-    blob = _scan_blob(spec, dev)
-    lay = blob["layout"]
-    a.spec = blob["spec"].data_ptr()
+    lay = packed_scan_spec(spec)[1]
+    a.spec = _scan_blob(spec, dev).data_ptr()
     a.off_cols, a.off_ivals = lay.off_cols, lay.off_ivals
     a.off_fvals, a.off_tables = lay.off_fvals, lay.off_tables
     a.total_words, a.staged_words = lay.total, plan.staged
     a.float_lane = int(any(_SCAN_OPS[e[0]] >= _SCAN_OPS["feq"]
                            for e in spec.entries))
-    a.rows, a.threads, a.grid, a.smem = plan.rows, plan.threads, \
-        plan.grid, plan.smem
+    a.threads, a.grid, a.smem = plan.threads, plan.grid, plan.smem
     n_dev = n_dev.reshape(())
     keep.append(n_dev)
     a.n_dev = n_dev.data_ptr()

@@ -200,12 +200,23 @@ def f64_to_i64(x: torch.Tensor) -> torch.Tensor:
                                          device=x.device), out)
 
 
+# the divisors of true_div, one 0-d tensor per (value, dtype, device)
+_DIVISORS: dict = {}
+
+
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` rounded as one IEEE division, on every device. On CUDA,
     torch divides by a Python (host) scalar as a multiplication by its
     reciprocal, which may differ from the quotient in the last bit; a
-    divisor on the tensor's own device takes the true division."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+    divisor on the tensor's own device takes the true division. Each
+    divisor is filled once (on the stream current then) and kept, so a
+    decode launches no fill kernel of its own."""
+    key = (d, x.dtype, x.device)
+    div = _DIVISORS.get(key)
+    if div is None:
+        div = _DIVISORS[key] = torch.full((), d, dtype=x.dtype,
+                                          device=x.device)
+    return x / div
 
 
 def searchsorted(sorted_seq: torch.Tensor, vals: torch.Tensor,

@@ -228,3 +228,20 @@ def test_true_div_decodes_decimals_as_the_reference(scale):
     want = np.asarray(jnp.asarray(codes, dtype=jnp.float64) / 10.0 ** scale)
     np.testing.assert_array_equal(got.numpy().view(np.int64),
                                   want.view(np.int64))
+
+
+def test_true_div_fills_each_divisor_once():
+    """A decode divides by the divisor kept for its (value, dtype,
+    device), filled at the first call: the later calls make no new one and
+    give the same quotient."""
+    x = torch.arange(-50, 50, dtype=torch.float64)
+    first = prim.true_div(x, 1000.0)
+    kept = prim._DIVISORS[(1000.0, torch.float64, x.device)]
+    assert kept.dim() == 0 and kept.item() == 1000.0
+    again = prim.true_div(x * 3, 1000.0)
+    assert torch.equal(first, x / kept)
+    assert prim._DIVISORS[(1000.0, torch.float64, x.device)] is kept
+    assert torch.equal(again, (x * 3) / kept)
+    f32 = prim.true_div(x.to(torch.float32), 1000.0)
+    assert f32.dtype == torch.float32
+    assert prim._DIVISORS[(1000.0, torch.float32, x.device)] is not kept

@@ -154,9 +154,12 @@ def test_scan_blob_flattens_every_entry_kind():
     rows, the int and the float IN-lists, the tables."""
     spec = K.ScanSpec(_EVERY_KIND, [(0, -1, "id", 0, -1, 1.0),
                                     (2, 3, "for", 10, -1, 100.0)])
+    words, lay = K.packed_scan_spec(spec)
+    # packed once a spec, uploaded once a device
+    assert K.packed_scan_spec(spec)[0] is words
     blob = K._scan_blob(spec, torch.device("cpu"))
-    lay = blob["layout"]
-    words = blob["spec"].numpy()
+    assert K._scan_blob(spec, torch.device("cpu")) is blob
+    assert blob.tolist() == words.tolist()
     ent = words[:lay.off_cols].reshape(-1, 8).tolist()
     big = (1 << 63) - 1
     assert lay == K.ScanLayout(22, 2, 176, 186, 190, 193, 193)
@@ -273,10 +276,12 @@ def _dict_spec(table_len, in_list=0):
 
 
 def test_staged_words_at_the_edge_of_the_budget():
-    """A block stages whole regions while they fit 48 KB: the dict table
-    up to the last word, then only what comes before it; an IN-list past
-    the budget leaves entries and columns; entries past it stage
-    nothing."""
+    """A block stages whole regions while they fit 48 KB with the
+    kernel's static records: the dict table up to the last word, then only
+    what comes before it (also where the words alone would fit 48 KB); an
+    IN-list past the budget leaves entries and columns; entries past it
+    stage nothing."""
+    assert K.SCAN_SMEM_BUDGET + K.SCAN_STATIC_SMEM == 48 * 1024
     budget_words = K.SCAN_SMEM_BUDGET // 8
     head = K.pack_scan_spec(_dict_spec(0))[1].total       # words but table
     fits = K.pack_scan_spec(_dict_spec(budget_words - head))[1]
@@ -284,6 +289,10 @@ def test_staged_words_at_the_edge_of_the_budget():
     assert K.scan_staged_words(fits) == fits.total
     over = K.pack_scan_spec(_dict_spec(budget_words - head + 1))[1]
     assert K.scan_staged_words(over) == over.off_tables < over.total
+    for words in (budget_words + 72, 48 * 1024 // 8):
+        mid = K.pack_scan_spec(_dict_spec(words - head))[1]
+        assert mid.total == words
+        assert K.scan_staged_words(mid) == mid.off_tables
     lists = K.pack_scan_spec(_dict_spec(4, in_list=budget_words))[1]
     assert K.scan_staged_words(lists) == lists.off_ivals
     assert K.scan_staged_words(lists, budget=8 * lists.off_cols - 8) == 0
@@ -295,7 +304,7 @@ def test_staged_words_at_the_edge_of_the_budget():
 def test_scan_plan_rule():
     spec = _dict_spec(16)
     full = K.scan_plan(1 << 22, spec, 132)
-    assert full.rows == K.SCAN_ROWS and full.threads == K.SCAN_THREADS
+    assert full.threads == K.SCAN_THREADS
     assert full.grid == 132 * K.SCAN_PER_SM       # persistent grid
     assert full.smem == 8 * full.staged == 8 * K.pack_scan_spec(spec)[1].total
     # no more blocks than the tiles fill
@@ -310,18 +319,25 @@ def test_scan_plan_rule():
         K.SMEM_SM // (K.scan_plan(1, big).smem + K.SCAN_STATIC_SMEM
                       + K.SMEM_RESERVED))
     with pytest.raises(ValueError):
-        K.scan_plan(100, spec, 132, rows=32)
-    with pytest.raises(ValueError):
         K.scan_plan(100, spec, 132, threads=512)
+    with pytest.raises(ValueError):
+        K.scan_plan(100, spec, 132, threads=100)
 
 
 def test_scan_plans_cover_every_tile_size():
+    """The sweep's plans: the card's own among them, each distinct, 256-
+    and 128-thread blocks, and no grid past the tiles of ``SCAN_ROWS``
+    rows that the chunk holds."""
     spec = _dict_spec(16)
-    plans = K.scan_plans(1 << 22, spec, 132)
-    assert {p.rows for p in plans} == set(K.SCAN_TILE_ROWS)
-    assert K.scan_plan(1 << 22, spec, 132) in plans
+    plen = 1 << 22
+    plans = K.scan_plans(plen, spec, 132)
+    assert K.scan_plan(plen, spec, 132) in plans
     assert len(set(plans)) == len(plans)
-    assert all(p.grid >= 1 and p.smem == 8 * p.staged for p in plans)
+    assert {p.threads for p in plans} == {256, 128}
+    assert all(1 <= p.grid <= -(-(plen // K.SCAN_ROWS) // p.threads)
+               and p.smem == 8 * p.staged for p in plans)
+    small = K.scan_plans(K.SCAN_ROWS * 128 + 1, spec, 132)
+    assert {p.grid for p in small} == {1, 2}
 
 
 def test_hash_mix_matches_reference_partition_pass():
