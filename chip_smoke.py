@@ -49,7 +49,10 @@ and suppresses the final ``ok`` line):
                entry on ``cuda``, plus one MIN/MAX-of-double statement;
                per-query ms, syncs and kernel launches; lines before it
                count K1's (``k1_groups``) and K2's and K3's
-               (``k23_groups``) launches by group count and path;
+               (``k23_groups``) launches by group count and path; a
+               ``watchdog`` line times query78 (the most host syncs) with
+               ``NDS_TPU_STATEMENT_DEADLINE_S`` unset and set, in
+               alternating pairs, on the same session;
    census      the same 25 statements again under ``torch.profiler``
                (the Power Run's ``--profile``): every CUDA kernel they
                launch and its device time, with ``prim.true_div``'s
@@ -84,10 +87,23 @@ and suppresses the final ``ok`` line):
                MIN/MAX-of-double one, on ``cuda`` and on ``cpu``: exact
                kinds bit for bit, doubles within rel 1e-5; the line names
                each statement that differs and gives the phase's seconds.
+8. bench       ``python -m nds_tpu_torch.bench`` twice (runs A and B,
+               fresh processes) at SF1 over every statement of its
+               stream, on the SF1 raw data of the data phase, each with
+               its ledger under ``chiprun_out/smoke/``: both end
+               ``completed`` with every statement ``ok`` and K1 and K2
+               launched (the stream has no MIN/MAX of a double, so no
+               K3), both ledgers load, ``bench_compare --gate`` of A
+               against itself passes and its ``--inject-drift`` self-test
+               rejects. One line gives each run's geomean, the statements'
+               B/A ratios (the ten largest by name) and, as a finding, the
+               A-versus-B gate verdict at 1.10 / 1.50; a second line the
+               phase's seconds and the card.
 
 It needs a CUDA device and the rest of the repository; without either it
 exits non-zero and prints no result. Results that are too long for the
-output go to ``chiprun_out/smoke/``.
+output go to ``chiprun_out/smoke/``; ``phases.jsonl`` there has every
+line printed.
 """
 
 import json
@@ -169,13 +185,23 @@ STREAM_AB_FANOUT = (7, 8, 13)
 FANOUT_SCALE = 1
 FANOUT_CHUNK_ROWS = 1 << 19
 FANOUT_STREAM_BYTES = 1.5e8
-# tables transcoded at once (pyarrow releases the GIL while it parses and
-# writes)
-TRANSCODE_THREADS = 4
+# the bench phase: two runs of the port's bench entry over every statement
+# of its stream at SF1, each held to a round budget well inside the smoke's
+# time limit
+BENCH_SCALE = 1
+BENCH_BUDGET_S = 300
+BENCH_STATEMENTS = 103
+BENCH_KERNELS = ("segment_sum_i64", "segment_sum_f64")
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, and the same line appended to
+    ``chiprun_out/smoke/phases.jsonl`` (the tool keeps only the end of
+    stdout)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(os.path.join(OUT, "phases.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def smi_line() -> str:
@@ -867,39 +893,6 @@ def contains_rows(big, small) -> bool:
     return not (rows(small) - rows(big))
 
 
-def transcode(raw_dir, out_dir):
-    """The raw tables as parquet through the port's ``write_table``, one
-    file per table, ``TRANSCODE_THREADS`` tables at once, largest first.
-    Returns the seconds each table took."""
-    import concurrent.futures as cf
-    from nds_tpu_torch.io import read_raw_table
-    from nds_tpu_torch.io.columnar import write_table
-    from nds_tpu_torch.schema import get_schemas
-    shutil.rmtree(out_dir, ignore_errors=True)
-
-    def raw_path(tname):
-        path = os.path.join(raw_dir, tname)
-        return path if os.path.exists(path) else path + ".dat"
-
-    def size(path):
-        if os.path.isfile(path):
-            return os.path.getsize(path)
-        return sum(os.path.getsize(os.path.join(path, f))
-                   for f in os.listdir(path))
-
-    def one(tname, fields):
-        t = time.time()
-        arrow = read_raw_table(raw_path(tname), fields)
-        write_table(arrow, os.path.join(out_dir, tname), "parquet")
-        return round(time.time() - t, 3)
-
-    schemas = sorted(get_schemas(use_decimal=True).items(),
-                     key=lambda kv: -size(raw_path(kv[0])))
-    with cf.ThreadPoolExecutor(TRANSCODE_THREADS) as pool:
-        futs = {t: pool.submit(one, t, f) for t, f in schemas}
-        return {t: f.result() for t, f in futs.items()}
-
-
 def watch_chunk_loop(torch, S, PF):
     """Run every step of the streamed pipeline's chunk loop (the per-chunk
     program, the K4 pass, the partition routing, the ring's fetch) under
@@ -992,6 +985,7 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
                                      strip_stream_markers)
     t0 = time.time()
     pq = os.path.join(DATA, f"sf{STREAM_SCALE}_parquet")
+    from nds_tpu_torch.bench import transcode
     transcode_tables = transcode(raw_dir, pq)
     transcode_s = time.time() - t0
     pq_fanout = os.path.join(DATA, f"sf{FANOUT_SCALE}_parquet")
@@ -1323,6 +1317,55 @@ def trace_kernels(folder) -> dict:
     return out
 
 
+# the statement of the watchdog's cost: the CI statement with the most
+# host syncs, each a fetch the armed watchdog moves to a helper thread
+WATCHDOG_QUERY = "query78"
+WATCHDOG_PAIRS = 7
+WATCHDOG_DEADLINE_S = "600"
+
+
+def watchdog_cost(torch, session, sql):
+    """What arming the statement watchdog costs one statement: its wall
+    with ``NDS_TPU_STATEMENT_DEADLINE_S`` unset and set, in alternating
+    pairs (unset first, then set first) after a warm-up of each, with its
+    host syncs (equal in both arms)."""
+    from nds_tpu_torch.engine import ops as E
+    key = "NDS_TPU_STATEMENT_DEADLINE_S"
+    prev = os.environ.pop(key, None)
+    ms = {"unset": [], "set": []}
+    syncs = {"unset": set(), "set": set()}
+
+    def one(arm, record=True):
+        if arm == "set":
+            os.environ[key] = WATCHDOG_DEADLINE_S
+        else:
+            os.environ.pop(key, None)
+        s0 = E.sync_count()
+        t0 = time.perf_counter()
+        session.sql(sql).collect()
+        torch.cuda.synchronize()
+        if record:
+            ms[arm].append(round((time.perf_counter() - t0) * 1e3, 3))
+            syncs[arm].add(E.sync_count() - s0)
+
+    try:
+        one("unset", False)
+        one("set", False)
+        for i in range(WATCHDOG_PAIRS):
+            for arm in (("unset", "set") if i % 2 == 0 else ("set", "unset")):
+                one(arm)
+    finally:
+        os.environ.pop(key, None)
+        if prev is not None:
+            os.environ[key] = prev
+    med = {a: sorted(v)[len(v) // 2] for a, v in ms.items()}
+    return {"phase": "watchdog", "query": WATCHDOG_QUERY,
+            "deadline_s": float(WATCHDOG_DEADLINE_S),
+            "ok": syncs["unset"] == syncs["set"] and len(syncs["set"]) == 1,
+            "syncs": sorted(syncs["set"]), "ms": ms, "median_ms": med,
+            "median_delta_ms": round(med["set"] - med["unset"], 3)}
+
+
 def launch_census(torch, sf1, queries, run_query_stream):
     """The CI statements at SF1 through the Power Run entry with
     ``profile_folder``, once with a fresh device divisor filled for each
@@ -1432,6 +1475,112 @@ def tables_agree(a, b):
     return None
 
 
+def bench_run(label, raw_dir):
+    """One ``python -m nds_tpu_torch.bench`` run at ``BENCH_SCALE`` on
+    ``raw_dir``, in a fresh process, with a fresh ledger; returns (exit
+    code, ledger path, final JSON line or None)."""
+    ledger = os.path.join(OUT, f"bench_{label}.jsonl")
+    if os.path.exists(ledger):
+        os.remove(ledger)          # a leftover ledger would be resumed
+    env = dict(os.environ, NDS_BENCH_SCALE=str(BENCH_SCALE),
+               NDS_BENCH_BUDGET_S=str(BENCH_BUDGET_S),
+               NDS_BENCH_RESULTS_JSONL=ledger)
+    res = subprocess.run(
+        [sys.executable, "-m", "nds_tpu_torch.bench", "--raw-dir", raw_dir,
+         "--cache-root", os.path.join(DATA, "bench_cache"),
+         "--out-dir", os.path.join(OUT, f"bench_{label}")],
+        cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=BENCH_BUDGET_S + 60)
+    with open(os.path.join(OUT, f"bench_{label}.log"), "w") as f:
+        f.write(res.stdout + "\n# stderr\n" + res.stderr)
+    final = None
+    lines = res.stdout.strip().splitlines()
+    if lines:
+        try:
+            final = json.loads(lines[-1])
+        except ValueError:
+            pass
+    return res.returncode, ledger, final
+
+
+def bench_phase(raw_dir):
+    """Runs A and B of the bench entry, their ledgers loaded and gated.
+    Returns (ok, the result line, the seconds line)."""
+    import contextlib
+    import io
+    from nds_tpu_torch.obs.ledger import load_ledger
+    from nds_tpu_torch.tools import bench_compare as BC
+    t0 = time.time()
+    runs = {label: bench_run(label, raw_dir) for label in ("a", "b")}
+    problems = []
+    geo, launches, counts = {}, {}, {}
+    for label, (rc, ledger, final) in runs.items():
+        if rc != 0 or final is None or final.get("metric") != \
+                "power_geomean_ms" or final.get("value") is None:
+            problems.append(f"{label}: exit {rc}, final line {final}")
+        data = load_ledger(ledger)
+        statuses = {n: r["status"] for n, r in data.queries.items()}
+        counts[label] = len(statuses)
+        bad = {n: st for n, st in statuses.items() if st != "ok"}
+        if bad or len(statuses) != BENCH_STATEMENTS:
+            problems.append(f"{label}: {len(statuses)} statements, not ok: "
+                            f"{bad}")
+        if data.end is None or data.end.get("status") != "completed":
+            problems.append(f"{label}: end record {data.end}")
+        if data.meta.get("platform") != "torch-cuda" \
+                or not data.meta.get("card") \
+                or not data.meta.get("powerLimit"):
+            problems.append(f"{label}: meta {data.meta}")
+        if any(len(r.get("passMs", ())) != 2
+               for r in data.queries.values() if r["status"] == "ok"):
+            problems.append(f"{label}: a record without both timed walls")
+        # the bench's own launch counts (each child starts at 0), summed
+        # over the timed pass of every statement. The stream has no MIN or
+        # MAX of a double, so K3 launches only in the power phase's added
+        # statement; the stream's SUM/AVG and COUNT launch K1 and K2
+        total = {}
+        for r in data.queries.values():
+            for k, v in (r.get("kernelLaunches") or {}).items():
+                total[k] = total.get(k, 0) + v
+        launches[label] = total
+        if not all(total.get(k, 0) > 0 for k in BENCH_KERNELS):
+            problems.append(f"{label}: launches {total}")
+        geo[label] = final.get("value") if final else None
+    led_a, led_b = runs["a"][1], runs["b"][1]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        self_rc = BC.main([led_a, led_a, "--gate"])
+        drift_rc = BC.main([led_a, led_a, "--gate", "--inject-drift"])
+    drift_ok = drift_rc == 0 and "correctly rejected" in buf.getvalue()
+    if self_rc != 0:
+        problems.append(f"self gate exit {self_rc}")
+    if not drift_ok:
+        problems.append("the drift self-test did not reject")
+    # the finding: run-to-run spread, B against A at the gate's thresholds
+    a, b = BC.load_round(led_a), BC.load_round(led_b)
+    cmp = BC.compare(a, b)
+    violations = BC.gate(cmp, b_round=b)
+    ratios = sorted(((r["ratio"], r["query"]) for r in cmp["rows"]),
+                    reverse=True)
+    rs = [round(r, 4) for r, _q in reversed(ratios)] or [None]
+    line = {"phase": "bench", "ok": not problems, "scale": BENCH_SCALE,
+            "statements": counts, "geomean_ms": geo,
+            "geomean_ratio_b_a": round(cmp.get("geomean_ratio", 0), 4),
+            "ratio_b_a": {k: rs[min(int(f * len(rs)), len(rs) - 1)]
+                          for k, f in (("min", 0), ("p25", 0.25),
+                                       ("median", 0.5), ("p75", 0.75),
+                                       ("max", 1.0))},
+            "largest_ratios": [[n, round(r, 4)] for r, n in ratios[:10]],
+            "gate_a_b": {"threshold": 1.10, "per_query_threshold": 1.50,
+                         "passed": not violations,
+                         "violations": violations[:12]},
+            "self_gate_rc": self_rc, "drift_rejected": drift_ok,
+            "launches": launches, "problems": problems}
+    seconds = {"phase": "bench_time", "s": round(time.time() - t0, 3),
+               "nvidia_smi": smi_line()}
+    return not problems, line, seconds
+
+
 def load_session(Session, data_dir, device):
     from nds_tpu_torch.schema import get_schemas
     s = Session(device=device)
@@ -1463,6 +1612,8 @@ def main() -> int:
         return 3
     os.makedirs(OUT, exist_ok=True)
     os.makedirs(DATA, exist_ok=True)
+    if os.path.exists(os.path.join(OUT, "phases.jsonl")):
+        os.remove(os.path.join(OUT, "phases.jsonl"))
     t_all = time.time()
     failed = []
     smi = smi_line()
@@ -1611,6 +1762,11 @@ def main() -> int:
               "minmax_rows": len(mm), "launches": launches})
         if not (statuses_ok and mm_ok and counts_ok):
             failed.append("power")
+        line = watchdog_cost(torch, session, strip_stream_markers(
+            queries[WATCHDOG_QUERY]))
+        emit(line)
+        if not line["ok"]:
+            failed.append("watchdog")
         del session
     except Exception as e:
         import traceback
@@ -1722,6 +1878,22 @@ def main() -> int:
         emit({"phase": "agreement", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("agreement")
+
+    # 8. the bench entry, twice, at SF1
+    try:
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()       # the children need the card's memory
+        ok, line, seconds = bench_phase(os.path.join(DATA, "sf1"))
+        emit(line)
+        emit(seconds)
+        if not ok:
+            failed.append("bench")
+    except Exception:
+        import traceback
+        emit({"phase": "bench", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("bench")
 
     # the kernels line: K1-K3 at G = 1000, K5 at r = 102000; launches from
     # the main-path runs (the power phase for K1-K3, the stream phase for

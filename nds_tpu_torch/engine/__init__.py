@@ -6,7 +6,7 @@ One tensor per column plus a validity mask; strings are dictionary-encoded
 point; dates are int32 days since the epoch. Relational operators are built
 from sorts, segment reductions, searchsorted probes and gathers, and the
 grouped aggregations run on the hand-written kernels of ``kernels.py``.
-"""
 
-from nds_tpu_torch.engine.column import Column, from_arrow, to_arrow  # noqa: F401
-from nds_tpu_torch.engine.table import DeviceTable  # noqa: F401
+The package itself imports nothing, so the torch-free modules here
+(``faults``) load without torch.
+"""

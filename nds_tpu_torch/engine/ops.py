@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from nds_tpu_torch.engine import faults as _faults
 from nds_tpu_torch.engine import prim
 from nds_tpu_torch.engine.column import Column, encs_equal, is_dec
 from nds_tpu_torch.engine.table import DeviceTable
@@ -433,15 +434,43 @@ def host_read(tag: str, fetch):
     return val
 
 
+def _guarded_blocking_fetch(tag: str, fetch):
+    """The ``sync`` fault seam around one blocking device->host fetch: a
+    bounded retry of the idempotent read (a retried read still counts as
+    one sync, its wait covering every attempt), and the statement
+    watchdog (``NDS_TPU_STATEMENT_DEADLINE_S``), under which a hung fetch
+    raises :class:`faults.StatementTimeout`. Unarmed, the fetch runs
+    inline on this thread. Armed, it runs on a helper thread, whose
+    current CUDA stream is not this thread's: the fetch then runs on the
+    stream that was current here, so it reads after the kernels that
+    wrote its values."""
+    if _faults.statement_deadline_s() is not None \
+            and torch.cuda.is_initialized():
+        stream = torch.cuda.current_stream()
+        unbound = fetch
+
+        def fetch():
+            with torch.cuda.stream(stream):
+                return unbound()
+
+    def guarded():
+        _faults.fault_point("sync", tag)
+        return fetch()
+
+    return _faults.with_retry(
+        "sync", lambda: _faults.bounded_call("sync", guarded))
+
+
 def timed_read(tag: str, fetch):
     """host_read() with the fetch charged to the thread's sync/wait
     accounting — for blocking device->host reads that are not simple
-    scalar syncs (chunk spans, whole-column string/date fetches)."""
+    scalar syncs (chunk spans, whole-column string/date fetches). The
+    fetch runs behind the ``sync`` fault seam."""
 
     def timed():
         add_syncs()
         t0 = time.perf_counter_ns()
-        out = fetch()
+        out = _guarded_blocking_fetch(tag, fetch)
         add_sync_wait(time.perf_counter_ns() - t0)
         return out
 
@@ -457,7 +486,8 @@ def host_sync(value) -> int:
     def fetch():
         add_syncs()
         t0 = time.perf_counter_ns()
-        out = int(value.item()) if torch.is_tensor(value) else int(value)
+        out = _guarded_blocking_fetch("sync", lambda: int(value.item())) \
+            if torch.is_tensor(value) else int(value)
         add_sync_wait(time.perf_counter_ns() - t0)
         return out
 
@@ -567,7 +597,10 @@ def resolve_counts() -> None:
                 else torch.tensor(int(c.dev), dtype=I64) for c in pend]
         dev0 = devs[0].device
         vals = torch.stack([d.to(dev0, I64).reshape(()) for d in devs])
-        out = [int(v) for v in vals.cpu().tolist()]
+        # a failed transfer leaves the pending list untouched, so the
+        # seam's retry drains it
+        out = [int(v) for v in _guarded_blocking_fetch(
+            "counts", lambda: vals.cpu().tolist())]
         add_sync_wait(time.perf_counter_ns() - t0)
         add_syncs()
         return out

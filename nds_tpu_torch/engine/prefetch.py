@@ -35,6 +35,12 @@ vanish from the driver's accounting).
 The driver's blocked time on the ring accumulates in ``stall_ns`` — the
 ``prefetchStallMs`` of each streamed scan. With the ring off it holds the
 inline slice + encode + upload time instead.
+
+Faults: each prepare step runs behind the ``prefetch`` seam
+(engine/faults.py) with its bounded retry, on the worker or inline. A
+retry that recovers on the worker records its event through the ring,
+which re-records it on the driver thread at the next fetch, so it lands
+in the statement's own ``faultEvents``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import threading
 import time
 
 import torch
+
+from nds_tpu_torch.engine import faults as _F
 
 _ITEM = "item"
 _DONE = "done"
@@ -98,6 +106,13 @@ def _deliver(payload):
     return payload.consume() if isinstance(payload, Upload) else payload
 
 
+def _prepare_guarded(prepare, item):
+    """One prepare attempt behind the ``prefetch`` fault seam (a
+    ``device-put`` injection fires inside ``prepare`` itself)."""
+    _F.fault_point("prefetch")
+    return item if prepare is None else prepare(item)
+
+
 class _InlineRing:
     """Depth-0 pump: same interface, no thread — ``prepare`` runs on the
     driver at each fetch. ``stall_ns`` then measures the inline host fetch
@@ -114,8 +129,8 @@ class _InlineRing:
             item = next(self._it, None)
             if item is None:
                 return None
-            return _deliver(item if self._prepare is None
-                            else self._prepare(item))
+            return _deliver(_F.with_retry(
+                "prefetch", lambda: _prepare_guarded(self._prepare, item)))
         finally:
             self.stall_ns += time.perf_counter_ns() - t0
 
@@ -135,6 +150,9 @@ class ChunkRing:
         self._stop = threading.Event()
         self._exhausted = False
         self.stall_ns = 0
+        # recovery events of the worker, re-recorded on the driver
+        self._faults: list = []
+        self._faults_lock = threading.Lock()
         self._thread = threading.Thread(
             target=self._work, args=(iter(it), prepare), daemon=True,
             name=name)
@@ -151,12 +169,30 @@ class ChunkRing:
                 continue
         return False
 
+    def _sink(self, seam, action, attempt=0, detail=""):
+        """The worker's FaultEvent sink: fault events are thread-scoped,
+        so the worker parks them here for the driver."""
+        with self._faults_lock:
+            self._faults.append((seam, action, attempt, detail))
+
+    def _drain_worker_faults(self) -> None:
+        """Re-record the worker's recovery events on the driver thread."""
+        with self._faults_lock:
+            got, self._faults[:] = list(self._faults), []
+        for (seam, action, attempt, detail) in got:
+            _F.record_fault_event(seam, action, attempt=attempt,
+                                  detail=detail)
+
     def _work(self, it, prepare) -> None:
         try:
             for item in it:
                 if self._stop.is_set():
                     return
-                payload = item if prepare is None else prepare(item)
+                # exhausted or non-transient errors ride the queue and
+                # re-raise at the driver's next fetch
+                payload = _F.with_retry(
+                    "prefetch", lambda i=item: _prepare_guarded(prepare, i),
+                    record=self._sink)
                 if not self._put((_ITEM, payload)):
                     return
             self._put((_DONE, None))
@@ -171,6 +207,7 @@ class ChunkRing:
         t0 = time.perf_counter_ns()
         kind, value = self._q.get()
         self.stall_ns += time.perf_counter_ns() - t0
+        self._drain_worker_faults()
         if kind is _ITEM:
             return _deliver(value)
         self._exhausted = True
@@ -184,7 +221,8 @@ class ChunkRing:
 
     def close(self) -> None:
         """Clean shutdown (idempotent): signal the worker, drain the queue
-        so a blocked put wakes, join the thread."""
+        so a blocked put wakes, join the thread, and re-record any
+        recovery event still parked (a fault on the last chunk)."""
         self._stop.set()
         self._exhausted = True
         while True:
@@ -193,6 +231,7 @@ class ChunkRing:
             except queue.Empty:
                 break
         self._thread.join(timeout=60.0)
+        self._drain_worker_faults()
 
 
 def chunk_ring(it, prepare=None, depth=None, name="nds-prefetch"):

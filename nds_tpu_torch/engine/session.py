@@ -18,6 +18,7 @@ import time
 import pyarrow as pa
 
 from nds_tpu_torch import resolve_device
+from nds_tpu_torch.engine import faults as _faults
 from nds_tpu_torch.engine import ops as E
 from nds_tpu_torch.engine.column import from_arrow
 from nds_tpu_torch.engine.table import ChunkedTable, DeviceTable
@@ -190,9 +191,12 @@ class Session:
         # summaries)
         self.last_scanned = planner.scanned
         # statement-end barrier: lazy scalar-subquery checks must raise
-        # inside the statement that registered them
+        # inside the statement that registered them. The statement scope
+        # charges every blocking wait to one budget when
+        # NDS_TPU_STATEMENT_DEADLINE_S is armed (engine/faults.py)
         try:
-            with E.on_device(self.device, self.conf):
+            with E.on_device(self.device, self.conf), \
+                    _faults.statement_scope():
                 out = self._sql_dispatch(stmt, planner)
         except BaseException:
             E.discard_deferred_checks()

@@ -67,6 +67,12 @@ Settings (``Session(conf=...)`` keys, ``ops.STREAM_DEFAULTS``):
 ``stream_exec``, ``stream_partitions``,
 ``stream_acc_rows``, ``stream_fanout``, ``stream_skew``,
 ``prefetch_depth``, ``hbm_bytes``.
+
+Faults (engine/faults.py): the chunk uploads are the ``device-put``
+seam, retried in place; the record is the ``pipeline-compile`` seam; a
+classified fault there or in the drive (an exhausted retry) takes one
+step down the ladder, to the eager chunk loop, recorded as a fault event.
+A statement timeout raises, and any other exception raises as before.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ import weakref
 
 import torch
 
+from nds_tpu_torch.engine import faults as _F
 from nds_tpu_torch.engine import kernels as _K
 from nds_tpu_torch.engine import ops as E
 from nds_tpu_torch.engine import prefetch as _PF
@@ -84,6 +91,7 @@ from nds_tpu_torch.engine import prim
 from nds_tpu_torch.engine.column import Column, slice_col_prefix
 from nds_tpu_torch.engine.table import DeviceTable, upload_chunk
 from nds_tpu_torch.listener import record_stream_event
+from nds_tpu_torch.obs import metrics as _metrics
 from nds_tpu_torch.obs import trace as _obs
 
 log = logging.getLogger(__name__)
@@ -207,7 +215,9 @@ _PIPELINE_LOCK = threading.Lock()
 
 def _evict(key) -> None:
     with _PIPELINE_LOCK:
-        _PIPELINE_CACHE.pop(key, None)
+        gone = _PIPELINE_CACHE.pop(key, None) is not None
+    if gone:
+        _metrics.default().inc(_metrics.PIPE_EVICT)
 
 
 def _restore_counts(snapshot, checks_snapshot):
@@ -447,6 +457,7 @@ class StreamPipeline:
     # ---------------------------------------------------------------- run
 
     def _prepare_first(self, chunk: DeviceTable):
+        _F.fault_point("device-put")
         flat = _flatten_chunk(chunk)
         dev = flat[0].device
         n_dev = torch.full((), int(chunk.nrows), dtype=I64, device=dev)
@@ -460,6 +471,8 @@ class StreamPipeline:
             if device.type == "cuda" else None
 
         def prepare(hc):
+            _F.fault_point("device-put")
+
             def copy():
                 chunk = upload_chunk(hc, device, non_blocking=True)
                 flat = _flatten_chunk(chunk)
@@ -505,7 +518,10 @@ class StreamPipeline:
         n_chunks = 0
         h2d = 0
         try:
-            cur = self._prepare_first(first)
+            # the first chunk is already on the device (the record used
+            # it); it takes the seam's retry on the driver
+            cur = _F.with_retry("device-put",
+                                lambda: self._prepare_first(first))
             while cur is not None:
                 flat, n_dev, nb = cur
                 h2d += nb
@@ -730,18 +746,30 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
             pipe, resid_infos = None, ()
     parts_flat = tuple(tuple(flat) for (_spec, flat) in part_infos)
     _obs.annotate(pipelineCache="hit" if pipe is not None else "miss")
+    _metrics.default().inc(_metrics.PIPE_HIT if pipe is not None
+                           else _metrics.PIPE_MISS)
 
     if pipe is None:
-        pipe, resid_infos = _build_pipeline(
-            planner, parts, keep, alias, join_preds, where_conjuncts,
-            masked_sources, part_infos, outer_meta, first, chunk_spec,
-            chunk_cap, n_chunks)
+        try:
+            pipe, resid_infos = _build_pipeline(
+                planner, parts, keep, alias, join_preds, where_conjuncts,
+                masked_sources, part_infos, outer_meta, first, chunk_spec,
+                chunk_cap, n_chunks)
+        except _F.FaultInjected as exc:
+            # the pipeline-compile seam's recovery: compiled -> eager
+            _F.record_fault_event(exc.seam, "degrade",
+                                  detail=f"compiled->eager: {exc}")
+            return None, f"fault: {exc.seam} (degraded compiled->eager)"
         if pipe is None:
             return None, "not chunk-invariant"
+        n_evicted = 0
         with _PIPELINE_LOCK:
             while len(_PIPELINE_CACHE) >= _PIPELINE_MAX:
                 _PIPELINE_CACHE.pop(next(iter(_PIPELINE_CACHE)))
+                n_evicted += 1
             _PIPELINE_CACHE[key] = pipe
+        if n_evicted:
+            _metrics.default().inc(_metrics.PIPE_EVICT, n_evicted)
 
     resid_flat = tuple(tuple(flat) for (_spec, flat) in resid_infos)
     snapshot, checks_snapshot = _snapshot()
@@ -755,6 +783,19 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
         _evict(key)
         log.info("streamed pipeline fell back to eager: %s", exc)
         return None, f"replay diverged [{type(exc).__name__}]: {exc}"
+    except _F.StatementTimeout:
+        # the watchdog marked the statement: an eager rerun would pay the
+        # hang again (the event was recorded at the wait)
+        raise
+    except _F.FaultError as exc:
+        # a classified fault in the drive (an exhausted transient retry):
+        # the ladder's step to the eager loop, recorded as evidence
+        _evict(key)
+        _F.record_fault_event(exc.seam, "degrade",
+                              detail=f"drive fault -> eager rerun: {exc}")
+        log.info("streamed pipeline hit fault seam %s; re-running %s "
+                 "eagerly", exc.seam, alias)
+        return None, f"fault: {exc.seam} (degraded to eager)"
     finally:
         _restore_counts(snapshot, checks_snapshot)
     if out is None:
@@ -805,6 +846,9 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
     THIS execution's residual operands."""
     from nds_tpu_torch.engine.replay import _lift_log
     from nds_tpu_torch.sql.planner import _OuterBuild, _OuterProbe
+    # the pipeline-compile seam: stream_execute degrades a fault here to
+    # the eager loop
+    _F.fault_point("pipeline-compile")
     snapshot, checks_snapshot = _snapshot()
     sub = list(parts)
     aliased = planner._alias_table(first, alias)

@@ -171,3 +171,26 @@ def stream_event_json(e: StreamEvent) -> dict:
            if e.prefetch_stall_ms >= 0 else {}),
         **({"reason": e.reason} if e.reason else {}),
     }
+
+
+def stream_evidence(events) -> dict:
+    """Aggregate drained :class:`StreamEvent` objects into the compact
+    per-query evidence dict the ledger records: total syncs and chunks,
+    upload bytes, partition counts, the pipeline/eager split and the
+    fallback reasons — ``ledger.evidence_from_scans`` over the JSON
+    shape, for a driver that holds the live events."""
+    from nds_tpu_torch.obs.ledger import evidence_from_scans
+    return evidence_from_scans([stream_event_json(e) for e in events])
+
+
+def report_task_failure(where: str, exc: BaseException | str,
+                        fatal: bool = False) -> None:
+    """Engine-side hook: call on any retried task, capacity retry or
+    device error. ``exc`` may be a caught exception or a plain reason
+    string (for retries that raised nothing)."""
+    if isinstance(exc, BaseException):
+        reason = "".join(
+            traceback.format_exception_only(type(exc), exc)).strip()
+    else:
+        reason = str(exc)
+    Manager.notify_all(where, reason, fatal)

@@ -10,9 +10,11 @@ when any query failed. Usage::
     python -m nds_tpu_torch.power <input_prefix> <query_stream_file> \\
         [time_log] [--input_format raw|parquet|...] [--device cuda|cpu] \\
         [--json_summary_folder DIR] [--sub_queries q1,q2] [--trace-dir DIR]
-        [--profile DIR]
+        [--profile DIR] [--ledger FILE]
 
-The engine runs on ``cuda`` unless ``--device cpu`` is given.
+The engine runs on ``cuda`` unless ``--device cpu`` is given. ``--ledger``
+(or ``NDS_TPU_LEDGER``) appends every query to the evidence ledger
+(:mod:`nds_tpu_torch.obs.ledger`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from collections import OrderedDict
 
 from nds_tpu_torch.check import (check_json_summary_folder,
                                  check_query_subset_exists)
+from nds_tpu_torch.engine.faults import drain_fault_events, fault_event_json
 from nds_tpu_torch.listener import drain_stream_events, stream_event_json
 from nds_tpu_torch.queries import split_special_query
 from nds_tpu_torch.report import BenchReport
@@ -137,18 +140,26 @@ def run_query_stream(input_prefix: str,
                      allow_failure: bool = False,
                      trace_dir: str | None = None,
                      device=None,
-                     profile_folder: str | None = None):
+                     profile_folder: str | None = None,
+                     ledger_path: str | None = None):
     """The Power Run loop. ``device`` is ``cuda`` (the default) or ``cpu``.
     Each query's JSON summary carries its host syncs, blocked wait, fetched
     bytes and kernel launches beside the wall time; ``trace_dir`` writes
     one Chrome ``trace_event`` JSON per query. ``profile_folder`` runs
     each query under ``torch.profiler`` (device activity on cuda), writes
     its trace there as ``<query>.json`` and adds the device's kernel time
-    and top kernels to the summary (``profile``). Returns the Session."""
+    and top kernels to the summary (``profile``).
+
+    ``ledger_path`` (or ``NDS_TPU_LEDGER``) appends one validated record
+    per query to the evidence ledger — wall, syncs, phase rollup,
+    streamed-scan and fault evidence — flushed as it lands, a ``metrics``
+    rollup after each query and for the stream, and a terminal ``end``
+    record. Returns the Session."""
     from nds_tpu_torch.engine import kernels as _K
     from nds_tpu_torch.engine import ops as _ops
     from nds_tpu_torch.engine.session import Session
     from nds_tpu_torch.obs import export as _obs_export
+    from nds_tpu_torch.obs import metrics as _obs_metrics
     from nds_tpu_torch.obs import trace as _obs_trace
 
     queries_reports = []
@@ -174,12 +185,28 @@ def run_query_stream(input_prefix: str,
     if profile_folder:
         os.makedirs(profile_folder, exist_ok=True)
 
+    # live metrics: reset at stream start so the stream record covers
+    # exactly this pass; fed only at the per-query drain below
+    metrics_reg = _obs_metrics.default()
+    metrics_reg.reset()
+    ledger = None
+    ledger_path = ledger_path or os.environ.get("NDS_TPU_LEDGER")
+    if ledger_path:
+        from nds_tpu_torch.obs.ledger import Ledger
+        ledger = Ledger(ledger_path, driver="power",
+                        platform=f"torch-{session.device.type}",
+                        app=app_name, format=input_format)
+
     power_start = int(time.time())
+    # float twin of power_start: the stream record's wall must not round
+    # a sub-second pass to zero
+    power_start_f = time.time()
     for query_name, q_content in query_dict.items():
         print(f"====== Run {query_name} ======")
         q_report = BenchReport(session)
         _obs_trace.drain_spans()  # setup leftovers must not charge query 1
         drain_stream_events()
+        drain_fault_events()
         syncs_before = _ops.sync_count()
         wait_before = _ops.sync_wait_ns()
         fetch_before = _ops.fetch_bytes()
@@ -211,6 +238,12 @@ def run_query_stream(input_prefix: str,
         if stream_events:
             q_report.summary["streamedScans"] = [
                 stream_event_json(e) for e in stream_events]
+        # fault evidence (engine/faults.py): retries, ladder steps and
+        # watchdog timeouts this query went through
+        fault_events = drain_fault_events()
+        if fault_events:
+            q_report.summary["faultEvents"] = [
+                fault_event_json(e) for e in fault_events]
         trace_records = _obs_trace.drain_spans()
         if trace_records:
             roll = _obs_export.rollup(trace_records)
@@ -226,7 +259,41 @@ def run_query_stream(input_prefix: str,
                                     round(compile_ms, 1)))
         q_report.summary["query"] = query_name
         q_report.summary["phase"] = "Power"
+        status = "ok" if q_report.is_success() else "error"
+        if status == "error" and any(e.action == "timeout"
+                                     for e in fault_events):
+            status = "timeout"       # the statement watchdog fired
+        metrics_reg.inc("queries.total")
+        metrics_reg.inc(f"queries.{status}")
+        metrics_reg.observe(_obs_metrics.QUERY_WALL, elapsed)
+        metrics_reg.observe(_obs_metrics.SYNC_WAIT, sync_ms)
+        for s in q_report.summary.get("streamedScans", ()):
+            if s.get("prefetchStallMs", 0.0) > 0:
+                metrics_reg.observe(_obs_metrics.STALL,
+                                    s["prefetchStallMs"])
+        if fault_events:
+            metrics_reg.inc("faults.total", len(fault_events))
+        if ledger is not None:
+            # the durable slice of the summary; the ledger derives the
+            # evidence aggregate from streamedScans
+            rec = {"ms": elapsed, "phase": "Power"}
+            for k in ("hostSyncs", "syncWaitMs", "scanBytes", "compileMs",
+                      "kernelLaunches", "streamedScans", "faultEvents"):
+                if k in q_report.summary:
+                    rec[k] = q_report.summary[k]
+            if "trace" in q_report.summary:
+                rec["tracePhases"] = q_report.summary["trace"]
+            if status != "ok" and q_report.summary["exceptions"]:
+                rec["error"] = str(q_report.summary["exceptions"][-1])[:300]
+            ledger.query(query_name, status=status, **rec)
+            ledger.metrics(scope="query", query=query_name,
+                           **metrics_reg.query_rollup())
         queries_reports.append(q_report)
+        _obs_metrics.export_live(
+            registry=metrics_reg,
+            extra={"driver": "power", "app": app_name, "query": query_name,
+                   "done": len(queries_reports), "total": len(query_dict),
+                   "phase": "Power"})
         if json_summary_folder:
             if property_file:
                 summary_prefix = os.path.join(
@@ -247,6 +314,12 @@ def run_query_stream(input_prefix: str,
     execution_time_list.append(
         (session.app_id, "Power Test Time", power_elapse))
     execution_time_list.append((session.app_id, "Total Time", total_elapse))
+    if ledger is not None:
+        ledger.metrics(scope="stream", app=app_name, phase="Power",
+                       **metrics_reg.stream_rollup(
+                           time.time() - power_start_f))
+        ledger.close("completed", queries=len(queries_reports),
+                     wallS=round(total_elapse / 1e3, 1))
 
     header = ["application_id", "query", "time/milliseconds",
               "compile/milliseconds"]
@@ -360,6 +433,9 @@ def main(argv=None) -> None:
     parser.add_argument("--trace-dir",
                         help="folder for per-query Chrome trace_event JSON "
                         "files from the engine's span tracer.")
+    parser.add_argument("--ledger",
+                        help="evidence ledger JSONL to append every query "
+                        "to (default: NDS_TPU_LEDGER).")
     args = parser.parse_args(argv)
     query_dict = gen_sql_from_stream(args.query_stream_file)
     run_query_stream(args.input_prefix, args.property_file, query_dict,
@@ -367,7 +443,8 @@ def main(argv=None) -> None:
                      args.input_format, not args.floats, args.output_prefix,
                      args.output_format, args.json_summary_folder,
                      args.allow_failure, trace_dir=args.trace_dir,
-                     device=args.device, profile_folder=args.profile)
+                     device=args.device, profile_folder=args.profile,
+                     ledger_path=args.ledger)
 
 
 if __name__ == "__main__":

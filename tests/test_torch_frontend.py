@@ -4,6 +4,7 @@ the port imports neither JAX nor the reference package."""
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -86,6 +87,79 @@ def test_port_imports_neither_jax_nor_reference(path):
         for m in mods:
             top = m.split(".")[0]
             assert top not in ("jax", "jaxlib", "nds_tpu"), (path, m)
+
+
+# a module of the reference, by name or by path: "nds_tpu" or "nds_tpu.x",
+# the by-path loaders' "_nds_*" names, or a path through "nds_tpu/"
+_REF_MODULE = re.compile(r"^(nds_tpu(\.|$)|_nds_)")
+_REF_PATH = re.compile(r"(^|[/\\])nds_tpu([/\\]|$)")
+_LOADERS = ("spec_from_file_location", "SourceFileLoader", "import_module",
+            "__import__", "run_path", "run_module")
+
+
+def _strings(node):
+    return [n.value for n in ast.walk(node)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+
+
+def _is_sys_modules(node):
+    return (isinstance(node, ast.Attribute) and node.attr == "modules"
+            and isinstance(node.value, ast.Name) and node.value.id == "sys")
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_loads_no_reference_module_by_path(path):
+    """The by-path route around the import rule: a loader call or a
+    ``sys.modules`` lookup that names a module of the reference or a file
+    under ``nds_tpu/`` (``os.path.join(..., "nds_tpu", ...)`` included)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", "")
+            if name in _LOADERS:
+                for v in _strings(node):
+                    assert not (_REF_MODULE.match(v) or _REF_PATH.search(v)
+                                or v == "nds_tpu"), (path, node.lineno, v)
+            if isinstance(fn, ast.Attribute) and _is_sys_modules(fn.value):
+                for v in _strings(node):
+                    assert not _REF_MODULE.match(v), (path, node.lineno, v)
+            if name == "join":
+                assert "nds_tpu" not in _strings(node), (path, node.lineno)
+        elif isinstance(node, ast.Subscript) and _is_sys_modules(node.value):
+            for v in _strings(node.slice):
+                assert not _REF_MODULE.match(v), (path, node.lineno, v)
+        elif isinstance(node, ast.Compare) and any(
+                _is_sys_modules(c) for c in node.comparators):
+            for v in _strings(node.left):
+                assert not _REF_MODULE.match(v), (path, node.lineno, v)
+
+
+def test_the_by_path_scan_catches_each_route(tmp_path):
+    """The scan refuses each by-path form it names, and passes the
+    port's own names."""
+    bad = ["importlib.util.spec_from_file_location('x', "
+           "'/r/nds_tpu/obs/ledger.py')",
+           "importlib.util.spec_from_file_location('x', os.path.join("
+           "REPO, 'nds_tpu', 'obs', 'ledger.py'))",
+           "sys.modules.get('nds_tpu.obs.metrics')",
+           "sys.modules['_nds_metrics_stdlib']",
+           "'nds_tpu.engine.faults' in sys.modules",
+           "importlib.import_module('nds_tpu.obs.ledger')",
+           "os.path.join(REPO, 'nds_tpu', 'engine')"]
+    for i, line in enumerate(bad):
+        f = tmp_path / f"bad{i}.py"
+        f.write_text(line + "\n")
+        with pytest.raises(AssertionError):
+            test_port_loads_no_reference_module_by_path(str(f))
+    good = tmp_path / "good.py"
+    good.write_text("sys.modules.get('nds_tpu_torch.obs.ledger')\n"
+                    "importlib.import_module('nds_tpu_torch.bench')\n"
+                    "os.path.join(REPO, 'nds_tpu_torch', 'csrc')\n")
+    test_port_loads_no_reference_module_by_path(str(good))
 
 
 def test_port_schema_and_types_match_reference():
