@@ -1,10 +1,12 @@
 # Copyright (c) 2026, nds-tpu authors. Licensed under the Apache License, Version 2.0.
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE,...]
 
 Phases (each prints one JSON line; any failure makes the exit code non-zero
-and suppresses the final ``ok`` line):
+and suppresses the final ``ok`` line; ``--only`` runs the named ones of
+kernels, power, census, replay, stream, agreement and bench after device,
+build and data, and ends without the ``ok`` line):
 
 1. device      the card's name and power limit (nvidia-smi);
 2. build       the CUDA kernels of ``nds_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -58,6 +60,22 @@ and suppresses the final ``ok`` line):
                launch and its device time, with ``prim.true_div``'s
                divisors kept as the port keeps them and with a fresh one
                filled for each call, and the calls of ``true_div``;
+   replay      the SF1 resident session on ``cuda`` with
+               ``NDS_TPU_REPLAY=force`` over the 25 CI statements and the
+               MIN/MAX-of-double one: per statement its first-sight syncs
+               and eager wall, its record and capture ms, the median of 5
+               replay walls, syncs and launches per kernel of a replay,
+               and its tier or blacklist reason (``replay_statement``
+               lines); each replayed result against its eager one (exact
+               kinds bit for bit, doubles within rel 1e-5). The ``replay``
+               line counts captured and blacklisted statements, sums
+               eager and replay walls, gives the session's peak memory
+               with every graph held and the sync threshold the walls
+               decide; it fails on a differing result, on a statement
+               that does not capture (its reason printed), on a replay
+               with more than 1 sync before the fetch, or on launches
+               unequal to eager. The watchdog line runs with
+               replay off (it arms blocking reads, which a replay lacks);
 6. stream      SF10 transcoded to parquet (the port's ``write_table``); a
                cuda session that streams every table above 1.5e9 bytes
                in 2^22-row chunks (store_sales: 7 chunks) against an
@@ -72,6 +90,10 @@ and suppresses the final ``ok`` line):
                ``compiled`` within 6 syncs, K4/K5 launch, and no
                synchronizing CUDA call happens inside the chunk loop
                (``torch.cuda.set_sync_debug_mode("warn")`` around it);
+               a ``chunk_split`` line splits query37's cost a chunk into
+               host time replaying the per-chunk program, host time
+               waiting on the prefetch ring and device kernel time (a
+               second run under ``torch.profiler``);
                a ``k4_specs`` line counts K4's launches by spec shape
                (entry kinds, column dtypes and validity, dict table sizes,
                IN-list lengths, key dtypes, plen) and by the statement that
@@ -93,12 +115,16 @@ and suppresses the final ``ok`` line):
                its ledger under ``chiprun_out/smoke/``: both end
                ``completed`` with every statement ``ok`` and K1 and K2
                launched (the stream has no MIN/MAX of a double, so no
-               K3), both ledgers load, ``bench_compare --gate`` of A
-               against itself passes and its ``--inject-drift`` self-test
-               rejects. One line gives each run's geomean, the statements'
-               B/A ratios (the ten largest by name) and, as a finding, the
-               A-versus-B gate verdict at 1.10 / 1.50; a second line the
-               phase's seconds and the card.
+               K3) under the default replay policy, ``auto`` (the line
+               counts the statements each run replayed and names those
+               blacklisted, with the reason; a blacklist other than the
+               eviction of a slower replay fails it), both ledgers load,
+               ``bench_compare --gate`` of A against itself passes and
+               its ``--inject-drift`` self-test rejects. One line gives
+               each run's geomean, the statements' B/A ratios (the ten
+               largest by name) and, as a finding, the A-versus-B gate
+               verdict at 1.10 / 1.50; a second line the phase's seconds
+               and the card.
 
 It needs a CUDA device and the rest of the repository; without either it
 exits non-zero and prints no result. Results that are too long for the
@@ -114,6 +140,7 @@ import subprocess
 import sys
 import time
 
+T0 = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, ".smoke_data")
 OUT = os.path.join(REPO, "chiprun_out", "smoke")
@@ -197,11 +224,13 @@ BENCH_KERNELS = ("segment_sum_i64", "segment_sum_f64")
 def emit(obj) -> None:
     """One JSON line on stdout, and the same line appended to
     ``chiprun_out/smoke/phases.jsonl`` (the tool keeps only the end of
-    stdout)."""
+    stdout) with the seconds since the script started."""
     line = json.dumps(obj)
     print(line, flush=True)
     with open(os.path.join(OUT, "phases.jsonl"), "a") as f:
-        f.write(line + "\n")
+        # the file's lines also carry the script's seconds so far
+        f.write(json.dumps({"t_s": round(time.time() - T0, 3), **obj})
+                + "\n")
 
 
 def smi_line() -> str:
@@ -1132,10 +1161,14 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     finally:
         P.run_one_query = real_one
     drain_stream_events()
+    first = None
     for fn in sorted(os.listdir(summ)):
         with open(os.path.join(summ, fn)) as f:
             js = json.load(f)
         q = js["query"]
+        if q == "query37":
+            first = ((js.get("trace") or {}).get("phases", {}),
+                     js["queryTimes"][-1])
         sql = strip_stream_markers(queries[q])
         capture.context = "resident"
         want, res_ms, _s, _e = timed(resident, sql)
@@ -1155,6 +1188,13 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
             failures.append(f"{q}: {why} {js['queryStatus'][-1]}")
     drain_stream_events()
     launches = dict(K.LAUNCHES)
+    # one streamed chunk's cost, split (query37: 64 inventory chunks); its
+    # launches stay out of the counts above
+    capture.context = None
+    split = chunk_split(torch, power_s,
+                        strip_stream_markers(queries["query37"]), "query37",
+                        first)
+    drain_stream_events()
     if not (launches["chunk_scan"] > 0 and launches["join_probe"] > 0):
         failures.append(f"K4/K5 did not launch: {launches}")
     detector_ok = sync_detector_works(torch)
@@ -1180,7 +1220,8 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
             "sync_sites": sorted(set(syncs_in_loop))[:40],
             "overflow_reruns": [r["statement"] for r in records
                                 if r.get("overflow_rerun")],
-            "failures": failures[:40], "statements": records}
+            "failures": failures[:40], "statements": records,
+            "chunk_split": split}
 
 
 # ---------------------------------------------------------------------------
@@ -1266,7 +1307,7 @@ class K4Capture:
 
     def __init__(self, K):
         self.K, self.real = K, K.chunk_scan
-        self.context = "setup"
+        self.context = "setup"     # None: launches are not counted
         self.shapes = {}
 
     def note(self, flat, n_dev, spec):
@@ -1288,7 +1329,8 @@ class K4Capture:
     def __enter__(self):
         def scan(flat, n_dev, spec):
             out = self.real(flat, n_dev, spec)
-            if flat[spec.cols[0][0]].device.type == "cuda":
+            if flat[spec.cols[0][0]].device.type == "cuda" and \
+                    self.context is not None:
                 self.note(flat, n_dev, spec)
             return out
         self.K.chunk_scan = scan
@@ -1513,7 +1555,7 @@ def bench_phase(raw_dir):
     t0 = time.time()
     runs = {label: bench_run(label, raw_dir) for label in ("a", "b")}
     problems = []
-    geo, launches, counts = {}, {}, {}
+    geo, launches, counts, tiers = {}, {}, {}, {}
     for label, (rc, ledger, final) in runs.items():
         if rc != 0 or final is None or final.get("metric") != \
                 "power_geomean_ms" or final.get("value") is None:
@@ -1543,6 +1585,22 @@ def bench_phase(raw_dir):
             for k, v in (r.get("kernelLaunches") or {}).items():
                 total[k] = total.get(k, 0) + v
         launches[label] = total
+        # the one blacklist reason a resident bench may show is the
+        # eviction of a slower replay; any other (a failed capture, a
+        # mismatch) fails the phase
+        failed_replays = {n: t for n, r in data.queries.items()
+                          for t in [(r.get("replayTier") or [""])[-1]]
+                          if t.startswith("blacklisted: ") and t !=
+                          "blacklisted: replay slower than eager twice"}
+        if failed_replays:
+            problems.append(f"{label}: replays failed: {failed_replays}")
+        tiers[label] = {
+            "replayed": sum((r.get("replayTier") or [""])[-1] == "replayed"
+                            for r in data.queries.values()),
+            "blacklisted": {n: t[-1][len("blacklisted: "):]
+                            for n, r in data.queries.items()
+                            for t in [r.get("replayTier") or [""]]
+                            if t[-1].startswith("blacklisted: ")}}
         if not all(total.get(k, 0) > 0 for k in BENCH_KERNELS):
             problems.append(f"{label}: launches {total}")
         geo[label] = final.get("value") if final else None
@@ -1575,10 +1633,237 @@ def bench_phase(raw_dir):
                          "passed": not violations,
                          "violations": violations[:12]},
             "self_gate_rc": self_rc, "drift_rejected": drift_ok,
-            "launches": launches, "problems": problems}
+            "launches": launches, "replay": tiers, "problems": problems}
     seconds = {"phase": "bench_time", "s": round(time.time() - t0, 3),
                "nvidia_smi": smi_line()}
     return not problems, line, seconds
+
+
+# ---------------------------------------------------------------------------
+# whole-statement replay
+# ---------------------------------------------------------------------------
+
+REPLAY_REPS = 5
+REPLAY_SYNC_BUDGET = 1      # host syncs a replay may make before the fetch
+
+
+def _launch_delta(K, before):
+    return {k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()
+            if v != before.get(k, 0)}
+
+
+def replay_threshold(rows):
+    """The lowest first-sight sync count above which every measured
+    statement's replay wall is below its eager wall (None when no count
+    decides it: the statement with the most syncs replays slower)."""
+    pts = sorted((r["first_syncs"], r["replay_ms"] < r["eager_ms"])
+                 for r in rows if r.get("replay_ms") is not None)
+    for thr in sorted({s for s, _w in pts} | {0}):
+        above = [w for s, w in pts if s > thr]
+        if above and all(above):
+            return thr
+    return None
+
+
+def replay_phase(torch, K, Session, sf1, queries):
+    """The SF1 resident session on cuda with ``NDS_TPU_REPLAY=force``, over
+    the 25 CI statements and the MIN/MAX-of-double one: per statement
+    ``REPLAY_REPS`` warm eager runs with replay off after a cold one
+    (median wall with the fetch, launches per kernel), the first sight
+    (its syncs before the fetch), the second (record + capture: the two
+    spans' ms, the tier or the blacklist reason), one first replay and
+    ``REPLAY_REPS`` timed ones (median wall with the fetch, syncs before
+    and with the fetch, launches per kernel); each replayed result against
+    the eager one (``tables_agree``). Returns (ok, line, rows)."""
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.obs import trace as obs_trace
+    from nds_tpu_torch.power import strip_stream_markers
+    key = "NDS_TPU_REPLAY"
+    prev = os.environ.get(key)
+    os.environ[key] = "force"
+    try:
+        t0 = time.time()
+        sess = load_session(Session, sf1, "cuda")
+        load_s = time.time() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        todo = [(q, strip_stream_markers(queries[q])) for q in CI_QUERIES]
+        todo.append(("minmax", MINMAX_SQL))
+        rows, problems = [], []
+        smi = smi_line()
+
+        def one(sql):
+            torch.cuda.synchronize()
+            l0, s0 = dict(K.LAUNCHES), E.sync_count()
+            t = time.perf_counter()
+            res = sess.sql(sql)
+            before_fetch = E.sync_count() - s0
+            tab = res.to_arrow()
+            ms = (time.perf_counter() - t) * 1e3
+            return (tab, ms, before_fetch, E.sync_count() - s0,
+                    _launch_delta(K, l0), sess.last_tier)
+
+        for q, sql in todo:
+            # the eager wall: the median of REPLAY_REPS warm runs with
+            # replay off, after one cold run
+            os.environ[key] = "off"
+            one(sql)
+            eager_runs = sorted((one(sql) for _ in range(REPLAY_REPS)),
+                                key=lambda r: r[1])
+            eager, e_ms, _s, _a, e_launch, _t = \
+                eager_runs[len(eager_runs) // 2]
+            os.environ[key] = "force"
+            _f, f_ms, e_syncs, _e_all, _fl, _tier = one(sql)  # first sight
+            obs_trace.drain_spans()
+            _rec, r_ms, _rs, _ra, _rl, tier = one(sql)
+            spans = {sp.name: sp.dur_ns / 1e6 for sp in obs_trace.drain_spans()
+                     if getattr(sp, "name", "").startswith("replay.")}
+            row = {"statement": q, "first_syncs": e_syncs,
+                   "eager_ms": round(e_ms, 3),
+                   "eager_ms_all": [round(r[1], 3) for r in eager_runs],
+                   "first_sight_ms": round(f_ms, 3),
+                   "eager_launches": e_launch,
+                   "record_pass_ms": round(r_ms, 3),
+                   "record_ms": round(spans.get("replay.record", 0), 3),
+                   "capture_ms": round(spans.get("replay.compile", 0), 3),
+                   "tier": tier, "nvidia_smi": smi}
+            if tier != "record":
+                # a statement that does not capture fails the phase: its
+                # reason is printed, never passed over
+                row["reason"] = sess.replay_reason(sql)
+                problems.append(f"{q}: not captured: {row['reason']}")
+                rows.append(row)
+                continue
+            first = one(sql)
+            walls, syncs, launches, tiers, why = [], set(), [], set(), None
+            for _ in range(REPLAY_REPS):
+                tab, ms, s_before, s_all, lau, t = one(sql)
+                walls.append(ms)
+                syncs.add((s_before, s_all))
+                launches.append(lau)
+                tiers.add(t)
+                why = why or tables_agree(tab, eager)
+            walls.sort()
+            row.update({
+                "first_replay_ms": round(first[1], 3),
+                "replay_ms": round(walls[len(walls) // 2], 3),
+                "replay_ms_all": [round(w, 3) for w in walls],
+                "replay_syncs_before_fetch": max(s for s, _a in syncs),
+                "replay_syncs_with_fetch": max(a for _s, a in syncs),
+                "replay_launches": launches[0],
+                "launches_equal": all(x == e_launch for x in launches),
+                "tier": sorted(tiers)[0] if len(tiers) == 1 else
+                sorted(tiers), "equal": why is None})
+            if why:
+                problems.append(f"{q}: replayed rows differ: {why}")
+            if row["replay_syncs_before_fetch"] > REPLAY_SYNC_BUDGET:
+                problems.append(f"{q}: {row['replay_syncs_before_fetch']} "
+                                "syncs before the fetch")
+            if not row["launches_equal"] or tiers != {"replayed"}:
+                problems.append(f"{q}: launches {launches[0]} against "
+                                f"eager {e_launch}, tiers {sorted(tiers)}")
+            rows.append(row)
+        peak = torch.cuda.max_memory_allocated()
+        held = torch.cuda.memory_allocated()
+        captured = [r for r in rows if r.get("replay_ms") is not None]
+        if not captured:
+            problems.append("no statement captured")
+        line = {
+            "phase": "replay", "ok": not problems, "scale": 1,
+            "mode": "force", "statements": len(rows),
+            "captured": len(captured),
+            "blacklisted": {r["statement"]: r.get("reason")
+                            for r in rows if r.get("replay_ms") is None},
+            "eager_ms_sum": round(sum(r["eager_ms"] for r in captured), 3),
+            "replay_ms_sum": round(sum(r["replay_ms"] for r in captured), 3),
+            "eager_ms_sum_all": round(sum(r["eager_ms"] for r in rows), 3),
+            "captured_over_6_syncs": [r["statement"] for r in captured
+                                      if r["first_syncs"] > 6],
+            "sync_threshold_from_card": replay_threshold(rows),
+            "peak_bytes": int(peak), "held_bytes": int(held),
+            "graphs_held": len(sess._replay_cache),
+            "load_s": round(load_s, 3), "s": round(time.time() - t0, 3),
+            "nvidia_smi": smi, "problems": problems[:30]}
+        with open(os.path.join(OUT, "replay.json"), "w") as f:
+            json.dump({"line": line, "statements": rows}, f, indent=1)
+        del sess
+        return not problems, line, rows
+    finally:
+        if prev is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = prev
+
+
+def _split_of(phases, wall_ms):
+    """Per-chunk host split of one streamed statement from its span
+    rollup (``{name: {"ms", "count"}}``): replaying the per-chunk program
+    (``stream.drive`` + ``stream.kernel``), blocked on the prefetch ring
+    (``stream.prefetch``), and the statement's ms outside the chunk loop
+    (its wall less every ``stream.*`` span below ``stream``)."""
+    ms = {k: v["ms"] for k, v in phases.items()}
+    n = max(phases.get("stream.drive", {}).get("count", 0), 1)
+    loop = sum(v for k, v in ms.items() if k.startswith("stream."))
+    return n, {"wall": round(wall_ms / n, 3),
+               "python_replay": round((ms.get("stream.drive", 0.0)
+                                       + ms.get("stream.kernel", 0.0)) / n,
+                                      3),
+               "prefetch_wait": round(ms.get("stream.prefetch", 0.0) / n,
+                                      3)}, round(wall_ms - loop, 3)
+
+
+def chunk_split(torch, session, sql, name, first=None):
+    """One streamed statement's cost a chunk: host time in the per-chunk
+    replay (the ``stream.drive`` and ``stream.kernel`` spans), host time
+    blocked on the prefetch ring (``stream.prefetch``), both from an
+    unprofiled run, and device kernel time from a second run under
+    ``torch.profiler``; with each run's wall and chunk count. ``first``
+    (the statement's span rollup and wall in the Power Run, its first
+    sight) adds the same host split for the first sight."""
+    from nds_tpu_torch.obs import trace as obs_trace
+    from nds_tpu_torch.power import _profiler, profile_summary
+    obs_trace.drain_spans()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    session.sql(sql).collect()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    phases = {}
+    for sp in obs_trace.drain_spans():
+        nm = getattr(sp, "name", "")
+        if nm.startswith("stream."):
+            ph = phases.setdefault(nm, {"ms": 0.0, "count": 0})
+            ph["ms"] += sp.dur_ns / 1e6
+            ph["count"] += 1
+    n, per_chunk, outside = _split_of(phases, wall)
+    prof = _profiler(torch.device("cuda"))
+    with prof:
+        t = time.perf_counter()
+        session.sql(sql).collect()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t) * 1e3
+    dev_ms = profile_summary(prof)["deviceKernelMs"]
+    line = {"phase": "chunk_split", "statement": name,
+            "scale": STREAM_SCALE, "chunks": n, "wall_ms": round(wall, 3),
+            "per_chunk_ms": {**per_chunk, "device": round(dev_ms / n, 3)},
+            "outside_chunk_loop_ms": outside,
+            "span_ms": {k: round(v["ms"], 3)
+                        for k, v in sorted(phases.items())},
+            "profiled_wall_ms": round(prof_wall, 3),
+            "device_kernel_ms": dev_ms}
+    if first is not None:
+        f_phases, f_wall = first
+        fn, f_chunk, f_out = _split_of(f_phases, f_wall)
+        line["first_sight"] = {"wall_ms": f_wall, "chunks": fn,
+                               "per_chunk_ms": f_chunk,
+                               "outside_chunk_loop_ms": f_out,
+                               "device": "not measured"}
+    line["nvidia_smi"] = smi_line()
+    return line
+
+
+class _Skipped(Exception):
+    """A phase left out by ``--only``."""
 
 
 def load_session(Session, data_dir, device):
@@ -1594,7 +1879,26 @@ def load_session(Session, data_dir, device):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+PHASES = ("kernels", "power", "census", "replay", "stream", "agreement",
+          "bench")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one GPU (every phase by default).")
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run, of "
+                    f"{', '.join(PHASES)} (device, build and data always "
+                    "run); a partial run ends without the final ok line")
+    args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(PHASES):
+        ap.error(f"unknown phase(s) {sorted(only - set(PHASES))}")
+
+    def runs(phase):
+        return phase in only
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1631,8 +1935,9 @@ def main() -> int:
         gen_data(ndsgen, "0.01", os.path.join(DATA, "sf0.01"), 1),
         gen_data(ndsgen, 1, os.path.join(DATA, "sf1"), max(cpus - 2, 1))))
     stream_raw = os.path.join(DATA, f"sf{STREAM_SCALE}")
-    stream_f = pool.submit(gen_data, ndsgen, STREAM_SCALE, stream_raw,
-                           max(cpus - 2, 1))
+    if runs("stream"):
+        stream_f = pool.submit(gen_data, ndsgen, STREAM_SCALE, stream_raw,
+                               max(cpus - 2, 1))
 
     # 2. build
     t0 = time.time()
@@ -1654,39 +1959,54 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     records = {}
+    kernel_phases = runs("kernels")
     try:
+        if not kernel_phases:
+            raise _Skipped
         ok, records = kernel_phase(torch, K)
         for name, recs in records.items():
             emit({"phase": "kernel", "name": name, "ok": all(
                 r["ok"] for r in recs), "cases": recs})
         if not ok:
             failed.append("kernels")
+    except _Skipped:
+        pass
     except Exception as e:
         emit({"phase": "kernel", "ok": False, "error": repr(e)[:2000]})
         failed.append("kernels")
     try:
+        if not kernel_phases:
+            raise _Skipped
         ok, sweep = k1_sweep(torch, K)
         for rec in sweep:
             emit({"phase": "k1_sweep", **rec})
         if not ok:
             failed.append("k1_sweep")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "k1_sweep", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("k1_sweep")
     try:
+        if not kernel_phases:
+            raise _Skipped
         ok, sweep = k23_sweep(torch, K)
         for rec in sweep:
             emit({"phase": "k23_sweep", **rec})
         if not ok:
             failed.append("k23_sweep")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "k23_sweep", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("k23_sweep")
     try:
+        if not kernel_phases:
+            raise _Skipped
         ok, more, sweep = scan_probe_phase(torch, K)
         records.update(more)
         emit({"phase": "k4_sweep", "shape": "synthetic", "n": SCAN_ROWS,
@@ -1696,6 +2016,8 @@ def main() -> int:
                 r["ok"] for r in recs), "cases": recs})
         if not ok:
             failed.append("scan_probe_kernels")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "kernel", "name": "chunk_scan/join_probe",
@@ -1715,8 +2037,10 @@ def main() -> int:
 
     # 5. Power Run at SF1 on cuda through the port's Power Run entry
     launches = {}
+    sf1 = os.path.join(DATA, "sf1")
     try:
-        sf1 = os.path.join(DATA, "sf1")
+        if not runs("power"):
+            raise _Skipped
         queries = gen_sql_from_stream(stream_file(1))
         summ = os.path.join(OUT, "power_json")
         shutil.rmtree(summ, ignore_errors=True)
@@ -1762,34 +2086,70 @@ def main() -> int:
               "minmax_rows": len(mm), "launches": launches})
         if not (statuses_ok and mm_ok and counts_ok):
             failed.append("power")
-        line = watchdog_cost(torch, session, strip_stream_markers(
-            queries[WATCHDOG_QUERY]))
+        # the watchdog arms blocking reads, which only an eager run
+        # makes: replay off, so that query78 stays eager in both arms
+        os.environ["NDS_TPU_REPLAY"] = "off"
+        try:
+            line = watchdog_cost(torch, session, strip_stream_markers(
+                queries[WATCHDOG_QUERY]))
+        finally:
+            os.environ.pop("NDS_TPU_REPLAY", None)
         emit(line)
         if not line["ok"]:
             failed.append("watchdog")
         del session
-    except Exception as e:
+    except _Skipped:
+        pass
+    except Exception:
         import traceback
         emit({"phase": "power", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("power")
     try:
+        if not runs("census"):
+            raise _Skipped
         ok, line = launch_census(torch, os.path.join(DATA, "sf1"),
                                  gen_sql_from_stream(stream_file(1)),
                                  run_query_stream)
         emit(line)
         if not ok:
             failed.append("census")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "census", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("census")
 
+    # whole-statement replay: each statement captured as one CUDA graph
+    try:
+        if not runs("replay"):
+            raise _Skipped
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok, line, rows = replay_phase(torch, K, Session, sf1,
+                                      gen_sql_from_stream(stream_file(1)))
+        for row in rows:
+            emit({"phase": "replay_statement", **row})
+        emit(line)
+        if not ok:
+            failed.append("replay")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "replay", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("replay")
+
     # 6. the streamed path at STREAM_SCALE, against all-resident; K4's
     # launches by spec shape and statement, K1-K3's by group count
     capture = K4Capture(K)
     try:
+        if not runs("stream"):
+            raise _Skipped
         t0 = time.time()
         stream_f.result()
         wait_s = round(time.time() - t0, 3)
@@ -1810,7 +2170,7 @@ def main() -> int:
         with open(os.path.join(OUT, "stream.json"), "w") as f:
             json.dump(res, f, indent=1)
         emit({k: v for k, v in res.items()
-              if k not in ("statements", "k4_specs")})
+              if k not in ("statements", "k4_specs", "chunk_split")})
         for rec in res["statements"]:
             emit({"phase": "stream", **rec})
         emit({"phase": "k4_specs", "launches": res["launches"]["chunk_scan"],
@@ -1820,8 +2180,11 @@ def main() -> int:
                                      scale=f"{STREAM_SCALE} (ab7, ab8, "
                                      f"ab13 at {FANOUT_SCALE})"):
             emit(line)
+        emit(res["chunk_split"])
         if not res["ok"]:
             failed.append("stream")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "stream", "ok": False,
@@ -1830,6 +2193,8 @@ def main() -> int:
 
     # K4 at each real spec shape of the stream phase
     try:
+        if not runs("stream"):
+            raise _Skipped
         ok, real, sweeps = k4_real_phase(torch, K, capture)
         records["chunk_scan"] = records.get("chunk_scan", []) + real
         for rec in real:
@@ -1838,6 +2203,8 @@ def main() -> int:
             emit({"phase": "k4_sweep", **rec})
         if not ok:
             failed.append("k4_real")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "k4_real", "ok": False,
@@ -1847,6 +2214,8 @@ def main() -> int:
 
     # 7. agreement at SF0.01: cuda vs cpu, every statement of the stream
     try:
+        if not runs("agreement"):
+            raise _Skipped
         t0 = time.time()
         small = os.path.join(DATA, "sf0.01")
         queries = gen_sql_from_stream(stream_file("0.01"))
@@ -1873,6 +2242,8 @@ def main() -> int:
         if diffs or len(todo) != 103:
             failed.append("agreement")
         del sc, sh
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "agreement", "ok": False,
@@ -1881,6 +2252,8 @@ def main() -> int:
 
     # 8. the bench entry, twice, at SF1
     try:
+        if not runs("bench"):
+            raise _Skipped
         import gc
         gc.collect()
         torch.cuda.empty_cache()       # the children need the card's memory
@@ -1889,6 +2262,8 @@ def main() -> int:
         emit(seconds)
         if not ok:
             failed.append("bench")
+    except _Skipped:
+        pass
     except Exception:
         import traceback
         emit({"phase": "bench", "ok": False,
@@ -1944,6 +2319,9 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    if only != set(PHASES):
+        print(f"chip_smoke: partial run of {sorted(only)}", file=sys.stderr)
+        return 0
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -50,7 +50,10 @@ say more.
 Each wrapper launches its kernel for a CUDA tensor (or raises) and takes
 the plain PyTorch version only for a tensor on the CPU. ``LAUNCHES`` counts
 kernel launches per wrapper, and only those: the launches of
-:func:`launcher`, which times a kernel alone, are not counted.
+:func:`launcher`, which times a kernel alone, are not counted. A statement
+captured as a CUDA graph (engine/replay.py) launches its kernels without
+their wrappers: the capture's counts are taken back out (a capture runs
+nothing) and each replay of the graph adds them again.
 
 The shared library is built at first use with ``nvcc`` from the sources in
 ``csrc/`` into ``_build/<source hash>/`` beside this package (listed in
@@ -850,12 +853,14 @@ def _clamp_i64(v) -> int:
 def _scan_blob(spec: ScanSpec, dev) -> torch.Tensor:
     """The packed words on ``dev``, once per (spec, device):
     chunk-invariant, so no chunk uploads them again."""
+    from nds_tpu_torch.engine.ops import staging, upload
     key = str(dev)
-    blob = spec._blobs.get(key)
+    blob = None if staging() else spec._blobs.get(key)
     if blob is None:
-        from nds_tpu_torch.engine.ops import upload
         words = packed_scan_spec(spec)[0]
-        blob = spec._blobs[key] = upload(words.tolist() or [0], dev, I64)
+        blob = upload(words.tolist() or [0], dev, I64)
+        if not staging():            # never keep a graph pool's tensor
+            spec._blobs[key] = blob
     return blob
 
 

@@ -162,12 +162,14 @@ def fetch_bytes() -> int:
 
 
 def add_compile_ns(ns: int) -> None:
-    """Charge kernel-build (nvcc) nanoseconds to the calling thread."""
+    """Charge kernel-build (nvcc) and graph-capture nanoseconds to the
+    calling thread."""
     _sync_tls.compile_ns = getattr(_sync_tls, "compile_ns", 0) + ns
 
 
 def compile_ns() -> int:
-    """Nanoseconds of kernel building on the calling thread."""
+    """Nanoseconds of kernel building and graph capture on the calling
+    thread."""
     return getattr(_sync_tls, "compile_ns", 0)
 
 
@@ -361,6 +363,9 @@ class _ReplaySession:
         self._prev = (replay_mode(), getattr(_sync_tls, "replay_log", None),
                       getattr(_sync_tls, "replay_cursor", 0),
                       getattr(_sync_tls, "replay_operands", None))
+        # snapshot ENTRIES (not an index): resolve_counts clears the list
+        # mid-replay, so positions shift — restoration is by identity
+        self._pend_snapshot = list(_pending_counts())
         _sync_tls.replay_mode = self.mode
         _sync_tls.replay_log = self.log
         _sync_tls.replay_cursor = 0
@@ -368,6 +373,21 @@ class _ReplaySession:
         return self.log
 
     def __exit__(self, *exc):
+        if self.mode == "replay":
+            # counts created while replaying belong to the replayed
+            # program (on the card, to a captured graph whose tensors hold
+            # their values only after a replay): none may reach a later
+            # statement's batched resolve. Keep only the entries that
+            # existed when the replay began; drop deferred checks against
+            # the others unless they already hold their (logged) value.
+            snap = self._pend_snapshot
+            lst = _pending_counts()
+            lst[:] = [c for c in lst if any(c is s for s in snap)]
+            checks = getattr(_sync_tls, "checks", None)
+            if checks:
+                _sync_tls.checks = [
+                    (c, f) for c, f in checks
+                    if any(c is s for s in snap) or c._host is not None]
         (_sync_tls.replay_mode, _sync_tls.replay_log,
          _sync_tls.replay_cursor, _sync_tls.replay_operands) = self._prev
 
@@ -498,14 +518,94 @@ def upload(x, device, dtype=None) -> torch.Tensor:
     """A host array or list as a tensor on ``device``. On cuda the copy
     goes from page-locked memory without a host wait (a pageable copy
     waits for the device); the caching host allocator holds the pinned
-    block until the copy is done. A tensor already there passes through."""
+    block until the copy is done. A tensor already there passes through.
+    Inside a :func:`staged_uploads` region the copy is served by the
+    stage (see there)."""
     dev = torch.device(device)
     if torch.is_tensor(x) and x.device.type == dev.type:
         return x if dtype is None else x.to(dtype)
     t = torch.as_tensor(x, dtype=dtype)
     if dev.type != "cuda":
         return t
+    stage = getattr(_sync_tls, "upload_stage", None)
+    if stage is not None:
+        return stage.take(t, dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+class CaptureError(RuntimeError):
+    """A statement could not be captured as one CUDA graph (a host-to-
+    device copy or a synchronizing call inside the capture region)."""
+
+
+class UploadStage:
+    """The host arrays one captured statement uploads, each uploaded ONCE
+    before the capture. A replayed statement uploads what its text and
+    its recorded log determine (IN-lists, dictionary lookup tables), so
+    the warm-up replay fills the stage (``fill``: every upload copies and
+    is kept, by content) and the capture is served from it (``serve``: the
+    next kept tensor of equal dtype, shape and bytes; none raises
+    :class:`CaptureError`). Both run with the module caches bypassed
+    (:func:`staging`), so they take the same path and make the same
+    uploads in the same order. No copy is then captured: a captured copy
+    from pinned memory would read its host buffer again on every replay,
+    after the host allocator may have handed it out again. The kept
+    tensors live as long as the stage, which the compiled statement
+    holds."""
+
+    def __init__(self):
+        self.kept: dict = {}
+        self.serving = False
+        self._cursor: dict = {}
+
+    def take(self, t: torch.Tensor, dev) -> torch.Tensor:
+        key = (str(t.dtype), tuple(t.shape), t.numpy().tobytes())
+        got = self.kept.setdefault(key, [])
+        if not self.serving:
+            out = t.pin_memory().to(dev, non_blocking=True)
+            got.append(out)
+            return out
+        i = self._cursor.get(key, 0)
+        if i >= len(got):
+            raise CaptureError(
+                f"host-to-device copy of a {t.dtype} {tuple(t.shape)} "
+                "array inside the capture that the warm-up replay did not "
+                "make")
+        self._cursor[key] = i + 1
+        return got[i]
+
+
+class _StagedUploads:
+    def __init__(self, stage: UploadStage, serve: bool):
+        self.stage, self.serve = stage, serve
+
+    def __enter__(self):
+        self._prev = getattr(_sync_tls, "upload_stage", None)
+        self.stage.serving = self.serve
+        self.stage._cursor = {}
+        _sync_tls.upload_stage = self.stage
+        return self.stage
+
+    def __exit__(self, *exc):
+        _sync_tls.upload_stage = self._prev
+
+
+def staged_uploads(stage: UploadStage, serve: bool = False):
+    """Context: route this thread's cuda uploads through ``stage`` —
+    filling it (warm-up) or, with ``serve``, serving from it while a CUDA
+    graph captures."""
+    return _StagedUploads(stage, serve)
+
+
+def staging() -> bool:
+    """True while this thread prepares (the warm-up replay) or captures a
+    statement's CUDA graph. Module-level caches are then bypassed: they
+    neither answer nor fill. A tensor allocated during the capture comes
+    from the graph's private pool and holds its value only after a
+    replay, so it must never be kept; and a cache answer in the warm-up
+    that the capture would not get (or the other way round) would make
+    the two take different paths."""
+    return getattr(_sync_tls, "upload_stage", None) is not None
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -769,8 +869,10 @@ def _identity_cache(cache: dict, max_size: int, key_arrays: tuple, compute,
     A cache whose ``compute`` reads the host (``reads_host``) is BYPASSED
     under record/replay: record and replay must consume the same host-read
     sequence, and a record-time hit from an earlier statement would skip a
-    read that a replay on fresh intermediate tensors performs."""
-    if reads_host and replay_mode() != "off":
+    read that a replay on fresh intermediate tensors performs. Every cache
+    is bypassed while a CUDA graph is prepared or captured
+    (:func:`staging`)."""
+    if (reads_host and replay_mode() != "off") or staging():
         return compute()
     key = (static_key,) + tuple(id(a) for a in key_arrays)
     hit = cache.get(key)

@@ -210,7 +210,13 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     reciprocal, which may differ from the quotient in the last bit; a
     divisor on the tensor's own device takes the true division. Each
     divisor is filled once (on the stream current then) and kept, so a
-    decode launches no fill kernel of its own."""
+    decode launches no fill kernel of its own. While a CUDA graph is
+    prepared or captured (``ops.staging``) each call fills its own
+    divisor and keeps none: one filled in the capture would come from the
+    graph's pool."""
+    from nds_tpu_torch.engine.ops import staging
+    if staging():
+        return x / torch.full((), d, dtype=x.dtype, device=x.device)
     key = (d, x.dtype, x.device)
     div = _DIVISORS.get(key)
     if div is None:

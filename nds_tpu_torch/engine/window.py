@@ -19,9 +19,8 @@ F64 = torch.float64
 
 
 def _first_true(n: int, dev) -> torch.Tensor:
-    b = torch.zeros(n, dtype=torch.bool, device=dev)
-    b[0] = True
-    return b
+    # one kernel: ``b[0] = True`` would copy a host scalar to the device
+    return torch.arange(n, device=dev) == 0
 
 
 def _boundaries(cols, order):

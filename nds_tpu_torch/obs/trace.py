@@ -208,8 +208,11 @@ def span(name: str, **attrs):
 
     Zero host syncs by construction: enter/exit read the host clock and
     the thread's existing sync/wait/compile counters, nothing else. Under
-    a replay (the streamed pipeline's per-chunk program) it is a no-op:
-    the replay's phases are the pipeline's own ``stream.*`` spans."""
+    a replay (the streamed pipeline's per-chunk program, a replayed
+    statement) it is a no-op: the replay's phases are the pipeline's own
+    ``stream.*`` spans and the whole-statement ``replay.record``,
+    ``replay.compile`` and ``replay.drive`` spans, which engine/replay.py
+    and the session open outside the replayed region."""
     if _ops().replay_mode() == "replay":
         return NULL_SPAN
     return SpanRecord(name, attrs)

@@ -231,6 +231,9 @@ def run_query_stream(input_prefix: str,
         q_report.summary["kernelLaunches"] = {
             k: v - launches_before.get(k, 0) for k, v in _K.LAUNCHES.items()}
         q_report.summary["device"] = str(session.device)
+        # the replay tier that served the statement (engine/replay.py):
+        # eager, record, replayed or "blacklisted: <reason>"
+        q_report.summary["replayTier"] = session.last_tier
         # streamed scans (engine/stream.py): which path served each
         # ChunkedTable-bound scan — the chunk pipeline or the eager loop —
         # with its chunks, partitions, syncs and K4/K5 launches
@@ -278,7 +281,8 @@ def run_query_stream(input_prefix: str,
             # evidence aggregate from streamedScans
             rec = {"ms": elapsed, "phase": "Power"}
             for k in ("hostSyncs", "syncWaitMs", "scanBytes", "compileMs",
-                      "kernelLaunches", "streamedScans", "faultEvents"):
+                      "kernelLaunches", "replayTier", "streamedScans",
+                      "faultEvents"):
                 if k in q_report.summary:
                     rec[k] = q_report.summary[k]
             if "trace" in q_report.summary:

@@ -809,3 +809,155 @@ def test_count_only_launcher_matches_the_wrapper(cuda, G):
     s, c = K.launcher("segment_sum_f64", None, g, G)()
     assert torch.equal(c, want[1]) and not bool(s.any())
     assert K.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# whole-statement replay: a recorded statement captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+REPLAY_Q = ("select grp, count(*) c, sum(v) s, avg(v) a, min(x) lo, "
+            "max(x) hi from f, dim where d = sk and k < 40 and g in "
+            "('g1', 'g3', 'g5') group by grp order by grp")
+
+
+@pytest.fixture()
+def replay_session(cuda, monkeypatch):
+    import pyarrow as pa
+
+    from nds_tpu_torch.engine.session import Session
+    monkeypatch.setenv("NDS_TPU_REPLAY", "force")
+    rng = np.random.default_rng(7)
+    n = 50_000
+    s = Session(device="cuda")
+    s.create_temp_view("f", pa.table({
+        "k": pa.array(rng.integers(0, 50, n), pa.int64()),
+        "d": pa.array(rng.integers(1, 300, n), pa.int64()),
+        "v": pa.array([None if x % 13 == 0 else int(x % 9973)
+                       for x in rng.integers(0, 10**6, n)], pa.int64()),
+        "x": pa.array(rng.normal(size=n), pa.float64()),
+    }), base=True)
+    s.create_temp_view("dim", pa.table({
+        "sk": pa.array(np.arange(1, 301), pa.int64()),
+        "grp": pa.array([f"g{i % 9}" for i in range(300)]),
+        "g": pa.array([f"g{i % 7}" for i in range(300)]),
+    }), base=True)
+    return s
+
+
+def _replay_tiers(s, sql):
+    """Three sights of ``sql``: per sight its rows, syncs before the
+    fetch and kernel launches."""
+    from nds_tpu_torch.engine import ops as E
+    out = []
+    for _ in range(3):
+        l0, s0 = dict(K.LAUNCHES), E.sync_count()
+        res = s.sql(sql)
+        syncs = E.sync_count() - s0
+        rows = res.collect()
+        out.append((rows, syncs, {k: v - l0[k] for k, v in K.LAUNCHES.items()},
+                    s.last_tier))
+    return out
+
+
+@pytest.mark.gpu
+def test_replay_captures_the_statement_as_one_graph(replay_session):
+    """The third sight replays one captured graph: the eager rows, at most
+    one sync before the fetch, and per kernel the eager launches."""
+    s = replay_session
+    (r1, s1, l1, t1), (r2, _s2, _l2, t2), (r3, s3, l3, t3) = \
+        _replay_tiers(s, REPLAY_Q)
+    assert (t1, t2, t3) == ("eager", "record", "replayed"), \
+        s.replay_reason(REPLAY_Q)
+    cq = next(iter(s._replay_cache.values()))
+    assert cq.graph is not None
+    assert r1 == r2 == r3 and r1
+    assert s3 <= 1 and s1 >= 1
+    assert l3 == l1 and l1["segment_sum_i64"] > 0 \
+        and l1["segment_minmax_f64"] > 0
+    assert cq.launches == cq.warm_launches == \
+        {k: v for k, v in l1.items() if v}
+
+
+@pytest.mark.gpu
+def test_replay_keeps_a_held_result(replay_session):
+    """A result the caller holds is its own copy: overwriting the graph's
+    static outputs (as the next replay does) leaves it as it was, and the
+    next replay writes them again."""
+    s = replay_session
+    want = _replay_tiers(s, REPLAY_Q)[0][0]
+    held = s.sql(REPLAY_Q)
+    cq = next(iter(s._replay_cache.values()))
+    for c in cq.static_out.columns.values():
+        c.data.zero_()
+    assert held.collect() == want
+    assert s.sql(REPLAY_Q).collect() == want
+
+
+@pytest.mark.gpu
+def test_no_cached_tensor_is_allocated_while_capturing(replay_session,
+                                                       monkeypatch):
+    """Caches emptied between the warm-up and the capture stay free of the
+    graph's pool: every tensor the module caches hold afterwards lies in a
+    segment of the default pool."""
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.engine import prim
+    real = E.staged_uploads
+    warm = []
+
+    def emptying(stage, serve=False):
+        if serve:                    # the capture starts: caches cold
+            warm.append(len(prim._DIVISORS) + len(E._dev_cache))
+            prim._DIVISORS.clear()
+            E._dev_cache.clear()
+        return real(stage, serve)
+
+    monkeypatch.setattr(E, "staged_uploads", emptying)
+    s = replay_session
+    assert _replay_tiers(s, REPLAY_Q)[2][3] == "replayed"
+    assert warm and warm[0] > 0, "the statement fills no cache"
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if seg.get("device", 0) == torch.cuda.current_device()]
+    assert all("segment_pool_id" in seg for seg in segs)
+
+    def pool_of(t):
+        p = t.data_ptr()
+        for seg in segs:
+            if seg["address"] <= p < seg["address"] + seg["total_size"]:
+                return tuple(seg["segment_pool_id"])
+        raise AssertionError("tensor outside every segment")
+
+    cached = [t for t in prim._DIVISORS.values() if t.is_cuda]
+    cached += [v[1] for v in E._dev_cache.values()
+               if torch.is_tensor(v[1]) and v[1].is_cuda]
+    graph_pools = {pool_of(c.data) for cq in s._replay_cache.values()
+                   for c in cq.static_out.columns.values()}
+    assert graph_pools and (0, 0) not in graph_pools
+    assert {pool_of(t) for t in cached} <= {(0, 0)}
+
+
+@pytest.mark.gpu
+def test_failed_capture_blacklists_with_its_reason(replay_session,
+                                                   monkeypatch):
+    """A pageable host-to-device copy inside the capture fails it: the
+    statement is blacklisted with the reason, every sight still returns
+    the eager rows on the card, and no launch is left counted for the
+    capture."""
+    real = K.segment_sum_i64
+
+    def copying(values, gids, ngroups):
+        if torch.cuda.is_current_stream_capturing():
+            torch.as_tensor(np.arange(4)).to(gids.device)  # pageable
+        return real(values, gids, ngroups)
+
+    monkeypatch.setattr(K, "segment_sum_i64", copying)
+    s = replay_session
+    (r1, _s1, l1, t1), (r2, _s2, l2, t2), (r3, _s3, l3, t3) = \
+        _replay_tiers(s, REPLAY_Q)
+    assert r1 == r2 == r3 and r1
+    reason = s.replay_reason(REPLAY_Q)
+    assert reason and reason.startswith("capture failed")
+    assert t2 == t3 == f"blacklisted: {reason}"
+    assert not s._replay_cache
+    # the record pass and the warm-up replay launched; the capture did not
+    assert l3 == l1 and l2 == {k: 2 * v for k, v in l1.items()}
+    assert torch.cuda.get_sync_debug_mode() == 0
