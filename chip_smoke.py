@@ -58,8 +58,9 @@ build and data, and ends without the ``ok`` line):
    census      the same 25 statements again under ``torch.profiler``
                (the Power Run's ``--profile``): every CUDA kernel they
                launch and its device time, with ``prim.true_div``'s
-               divisors kept as the port keeps them and with a fresh one
-               filled for each call, and the calls of ``true_div``;
+               divisors kept as the port keeps them (the arm with a fresh
+               divisor a call, PR 6's comparison, was dropped for time),
+               and the calls of ``true_div``;
    replay      the SF1 resident session on ``cuda`` with
                ``NDS_TPU_REPLAY=force`` over the 25 CI statements and the
                MIN/MAX-of-double one: per statement its first-sight syncs
@@ -89,11 +90,22 @@ build and data, and ends without the ``ok`` line):
                resident rows, every ``must_stream`` statement runs
                ``compiled`` within 6 syncs, K4/K5 launch, and no
                synchronizing CUDA call happens inside the chunk loop
-               (``torch.cuda.set_sync_debug_mode("warn")`` around it);
-               a ``chunk_split`` line splits query37's cost a chunk into
-               host time replaying the per-chunk program, host time
-               waiting on the prefetch ring and device kernel time (a
-               second run under ``torch.profiler``);
+               (``torch.cuda.set_sync_debug_mode("warn")`` around it).
+               Every compiled scan runs its per-chunk program as a
+               captured CUDA graph (a refusal fails the phase, with its
+               reason); each statement runs again through the eager
+               drive (``Session.sql(..., graph=False)``): rows and K4/K5
+               launches equal. Per statement: ``graph`` (captured,
+               replayed or the reason), launches, synchronizing calls in
+               its chunk loops. A ``chunk_split`` line splits query37's
+               cost a chunk, in four arms (eager drive and graph, each
+               with the chunk store off and warm; the warm arms in a
+               child process, ``--chunk-split-child``), into wall, launch
+               or Python time, prefetch wait and device kernel time (a
+               second run under ``torch.profiler``), and splits each
+               first sight's time outside the chunk loop into codec
+               planning and encoding, record, capture, the first chunk's
+               upload and the rest;
                a ``k4_specs`` line counts K4's launches by spec shape
                (entry kinds, column dtypes and validity, dict table sizes,
                IN-list lengths, key dtypes, plen) and by the statement that
@@ -923,16 +935,20 @@ def contains_rows(big, small) -> bool:
 
 
 def watch_chunk_loop(torch, S, PF):
-    """Run every step of the streamed pipeline's chunk loop (the per-chunk
-    program, the K4 pass, the partition routing, the ring's fetch) under
-    ``torch.cuda.set_sync_debug_mode("warn")`` and collect the
-    synchronizing calls it reports, each with the port's frames that made
-    it. The eager chunk loop is not watched."""
+    """Run every step of the streamed pipeline's chunk loop (a replay of
+    the captured graph with the copy into its slots; in the eager drive
+    the per-chunk program, the K4 pass and the partition routing; the
+    ring's fetch) under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    collect the synchronizing calls it reports, each with the port's
+    frames that made it. The warm-up and the capture of a graph (which
+    runs under mode ``error`` itself) and the eager chunk loop are not
+    watched."""
     import threading
     import traceback
     import warnings
     found = []
     in_pipeline = threading.local()
+    in_capture = threading.local()
 
     def sites():
         frames = traceback.extract_stack()[:-2]
@@ -947,7 +963,8 @@ def watch_chunk_loop(torch, S, PF):
         real = getattr(owner, name)
 
         def inner(*a, **k):
-            if not (always or getattr(in_pipeline, "on", False)):
+            if getattr(in_capture, "on", False) or not (
+                    always or getattr(in_pipeline, "on", False)):
                 return real(*a, **k)
             with warnings.catch_warnings():
                 warnings.simplefilter("always")
@@ -975,13 +992,33 @@ def watch_chunk_loop(torch, S, PF):
         finally:
             in_pipeline.on = False
     S.StreamPipeline.run = run
-    for owner, name, always in ((S.StreamPipeline, "_body", True),
+    real_capture = S.StreamPipeline._capture
+
+    def capture(self, *a, **k):
+        in_capture.on = True
+        try:
+            return real_capture(self, *a, **k)
+        finally:
+            in_capture.on = False
+    S.StreamPipeline._capture = capture
+    for owner, name, always in ((S.StreamPipeline, "_step", True),
+                                (S.StreamPipeline, "_body", True),
                                 (S.StreamPipeline, "_scan", True),
                                 (S.StreamPipeline, "_route", True),
                                 (PF.ChunkRing, "next_chunk", False),
                                 (PF._InlineRing, "next_chunk", False)):
         wrap(owner, name, always)
     return found
+
+
+def memory_line(torch) -> dict:
+    """The card's peak and current allocated bytes, and the bytes its CUDA
+    graph pools reserve (segments outside the default pool)."""
+    pools = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    return {"peak_allocated": int(torch.cuda.max_memory_allocated()),
+            "allocated": int(torch.cuda.memory_allocated()),
+            "graph_pools_reserved": int(pools)}
 
 
 def sync_detector_works(torch) -> bool:
@@ -1038,21 +1075,67 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     chunked = chunks(streamed)
     syncs_in_loop = watch_chunk_loop(torch, S, PF)
 
-    def timed(s, sql):
+    last = {}
+
+    def timed(s, sql, graph=True):
+        """(rows, ms, syncs, stream events) of one statement; its K4/K5
+        launches and the synchronizing calls its chunk loops made land in
+        ``last``."""
         drain_stream_events()
         before = E.sync_count()
+        l0, w0 = dict(K.LAUNCHES), len(syncs_in_loop)
         t = time.perf_counter()
-        out = s.sql(sql).to_arrow()
+        out = s.sql(sql, graph=graph).to_arrow()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
+        last.update(launches=kernel_delta(l0),
+                    loop_syncs=len(syncs_in_loop) - w0)
         return out, ms, E.sync_count() - before, drain_stream_events()
+
+    def kernel_delta(l0):
+        return {k: K.LAUNCHES[k] - l0[k] for k in ("chunk_scan",
+                                                    "join_probe")}
 
     def scans(events):
         return [{"table": e.where, "path": e.path, "chunks": e.chunks,
                  "partitions": e.partitions, "k4": e.scan_launches,
                  "k5": e.probe_launches, "stall_ms": round(
-                     e.prefetch_stall_ms, 3), "reason": e.reason[:160]}
-                for e in events]
+                     e.prefetch_stall_ms, 3), "graph": e.graph[:200],
+                 "reason": e.reason[:160]} for e in events]
+
+    def graph_problem(graphs):
+        """Why a statement's compiled scans did not run as graphs (None
+        when each was captured or replayed)."""
+        bad = [g for g in graphs if g not in ("captured", "replayed")]
+        return f"graph: {bad}" if bad else None
+
+    def drive_launches(events):
+        """K4 and K5 launches of each compiled drive (a first
+        execution's record of the program is not a drive)."""
+        return [[e.scan_launches, e.probe_launches] for e in events
+                if e.path == "compiled"]
+
+    def against_eager_drive(s, sql, got, events):
+        """The statement again through the eager drive: (its record,
+        problems) — rows equal to ``got``, each drive's K4/K5 launches
+        equal to those of ``events`` (the graph run's)."""
+        rows, ms, _syncs, eager = timed(s, sql, graph=False)
+        why = tables_agree(got, rows)
+        rec = {"eager_drive_ms": round(ms, 3),
+               "eager_drive_launches": last["launches"],
+               "drive_launches": drive_launches(events),
+               "eager_drive_drive_launches": drive_launches(eager),
+               "equal_to_eager_drive": why is None,
+               "eager_drive_graph": sorted({e.graph for e in eager
+                                            if e.path == "compiled"})}
+        problems = []
+        if why:
+            problems.append(f"rows differ from the eager drive: {why}")
+        if rec["drive_launches"] != rec["eager_drive_drive_launches"]:
+            problems.append(f"drive launches {rec['drive_launches']} "
+                            "against the eager drive's "
+                            f"{rec['eager_drive_drive_launches']}")
+        return rec, problems
 
     dup = duplicate_key_matches(pq)
     emit({"phase": "stream_setup", "scale": STREAM_SCALE,
@@ -1091,6 +1174,7 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
             want, res_ms, _s, _e = timed(resident, STREAM_AB[i])
             capture.context = f"ab{i}"
             got, ms, syncs, events = timed(streamed, STREAM_AB[i])
+            graph_launches, loop_syncs = last["launches"], last["loop_syncs"]
             why = check(i, got, want, streamed)
             # the pipeline ran every scan — or ran it, found a bound-sized
             # pair bucket too small for this data (the overflow flag) and
@@ -1101,35 +1185,59 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
             reran = bool(events) and not compiled and all(
                 e.path == "compiled" or e.reason == "bound-bucket overflow"
                 for e in events)
-            records.append({"statement": f"ab{i}", "scale": scale,
-                            "ms": round(ms, 3),
-                            "resident_ms": round(res_ms, 3),
-                            "syncs": syncs, "rows": got.num_rows,
-                            "scans": scans(events), "equal": why is None,
-                            "overflow_rerun": reran})
-            if why or not (compiled or reran) or \
+            graphs = [e.graph for e in events if e.path == "compiled"]
+            rec = {"statement": f"ab{i}", "scale": scale,
+                   "ms": round(ms, 3), "resident_ms": round(res_ms, 3),
+                   "syncs": syncs, "rows": got.num_rows,
+                   "scans": scans(events), "equal": why is None,
+                   "overflow_rerun": reran, "graph": graphs,
+                   "launches": graph_launches,
+                   "loop_syncs": loop_syncs}
+            capture.context = f"ab{i}/eager-drive"
+            more, problems = against_eager_drive(streamed, STREAM_AB[i],
+                                                 got, events)
+            rec.update(more)
+            records.append(rec)
+            emit({"phase": "stream", **rec})
+            problems += [p for p in (graph_problem(graphs),) if p]
+            if why or not (compiled or reran) or problems or \
                     (compiled and syncs > STREAM_SYNC_BUDGET):
                 failures.append(f"ab{i}: {why or ''} compiled={compiled} "
-                                f"syncs={syncs}")
+                                f"syncs={syncs} {problems}")
         streamed.conf["stream_partitions"] = 2
         for i in (i for i in STREAM_AB_PARTITIONED if i in indices):
             capture.context = "resident"
             want, _ms, _s, _e = timed(resident, STREAM_AB[i])
             capture.context = f"ab{i}/p2"
             got, ms, syncs, events = timed(streamed, STREAM_AB[i])
+            graph_launches, loop_syncs = last["launches"], last["loop_syncs"]
             why = check(i, got, want, streamed)
             parts = [e.partitions for e in events]
             reran = [e.reason for e in events] == ["bound-bucket overflow"]
             rows_ok = all(sum(e.part_rows) == e.rows for e in events)
-            records.append({"statement": f"ab{i}/p2", "scale": scale,
-                            "ms": round(ms, 3), "syncs": syncs,
-                            "rows": got.num_rows, "scans": scans(events),
-                            "equal": why is None, "overflow_rerun": reran})
-            if why or not (reran or (parts == [2] and rows_ok and
-                                     syncs <= STREAM_SYNC_BUDGET)):
-                failures.append(f"ab{i}/p2: {why or ''} partitions={parts}")
+            graphs = [e.graph for e in events if e.path == "compiled"]
+            rec = {"statement": f"ab{i}/p2", "scale": scale,
+                   "ms": round(ms, 3), "syncs": syncs,
+                   "rows": got.num_rows, "scans": scans(events),
+                   "equal": why is None, "overflow_rerun": reran,
+                   "graph": graphs, "launches": graph_launches,
+                   "loop_syncs": loop_syncs}
+            capture.context = f"ab{i}/p2/eager-drive"
+            more, problems = against_eager_drive(streamed, STREAM_AB[i],
+                                                 got, events)
+            rec.update(more)
+            records.append(rec)
+            emit({"phase": "stream", **rec})
+            problems += [p for p in (graph_problem(graphs),) if p]
+            if why or problems or not (
+                    reran or (parts == [2] and rows_ok and
+                              syncs <= STREAM_SYNC_BUDGET)):
+                failures.append(f"ab{i}/p2: {why or ''} partitions={parts} "
+                                f"{problems}")
         streamed.conf.pop("stream_partitions")
 
+    t_phase = time.time()
+    marks = {}
     run_ab(resident, streamed, [i for i in range(len(STREAM_AB))
                                 if i not in STREAM_AB_FANOUT], STREAM_SCALE)
     del streamed
@@ -1138,7 +1246,9 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
         "stream_chunk_rows": FANOUT_CHUNK_ROWS})
     fanout_chunked = chunks(fanout_streamed)
     fanout_resident = session(pq_fanout, {"stream_bytes": 1e15})
+    marks["ab_sf10_s"] = round(time.time() - t_phase, 3)
     run_ab(fanout_resident, fanout_streamed, STREAM_AB_FANOUT, FANOUT_SCALE)
+    marks["ab_fanout_s"] = round(time.time() - t_phase, 3)
     del fanout_streamed, fanout_resident
     # the 25 CI statements through the Power Run entry, parquet input
     props = os.path.join(OUT, "stream.properties")
@@ -1161,6 +1271,7 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     finally:
         P.run_one_query = real_one
     drain_stream_events()
+    marks["power_run_s"] = round(time.time() - t_phase, 3)
     first = None
     for fn in sorted(os.listdir(summ)):
         with open(os.path.join(summ, fn)) as f:
@@ -1168,32 +1279,59 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
         q = js["query"]
         if q == "query37":
             first = ((js.get("trace") or {}).get("phases", {}),
-                     js["queryTimes"][-1])
+                     js["queryTimes"][-1],
+                     max((sc["chunks"] for sc in js.get("streamedScans", [])
+                          if sc.get("path") == "compiled"), default=0))
         sql = strip_stream_markers(queries[q])
         capture.context = "resident"
         want, res_ms, _s, _e = timed(resident, sql)
         # the rows to compare: the statement again on the streamed session
-        # (its launches count under "<q>/compare")
+        # (its launches count under "<q>/compare"), then through the
+        # eager drive
         capture.context = f"{q}/compare"
-        got = power_s.sql(sql).to_arrow()
+        got, compare_ms, _syncs, events = timed(power_s, sql)
+        graph_launches, loop_syncs = last["launches"], last["loop_syncs"]
         why = tables_agree(got, want)
-        records.append({"statement": q, "scale": STREAM_SCALE,
-                        "ms": js["queryTimes"][-1],
-                        "resident_ms": round(res_ms, 3),
-                        "syncs": js["hostSyncs"],
-                        "status": js["queryStatus"][-1],
-                        "scans": js.get("streamedScans", []),
-                        "equal": why is None})
-        if why or js["queryStatus"][-1] != "Completed":
-            failures.append(f"{q}: {why} {js['queryStatus'][-1]}")
+        first_graphs = [sc.get("graph", "") for sc in
+                        js.get("streamedScans", [])
+                        if sc.get("path") == "compiled"]
+        graphs = [e.graph for e in events if e.path == "compiled"]
+        rec = {"statement": q, "scale": STREAM_SCALE,
+               "ms": js["queryTimes"][-1], "resident_ms": round(res_ms, 3),
+               "syncs": js["hostSyncs"], "status": js["queryStatus"][-1],
+               "scans": js.get("streamedScans", []), "equal": why is None,
+               "graph": first_graphs, "compare_graph": graphs,
+               "compare_ms": round(compare_ms, 3),
+               "launches": graph_launches, "loop_syncs": loop_syncs}
+        capture.context = f"{q}/eager-drive"
+        more, problems = against_eager_drive(power_s, sql, got, events)
+        rec.update(more)
+        records.append(rec)
+        emit({"phase": "stream", **rec})
+        problems += [p for p in (graph_problem(first_graphs),
+                                 graph_problem(graphs)) if p]
+        if why or problems or js["queryStatus"][-1] != "Completed":
+            failures.append(f"{q}: {why} {js['queryStatus'][-1]} "
+                            f"{problems}")
     drain_stream_events()
+    marks["ci_s"] = round(time.time() - t_phase, 3)
     launches = dict(K.LAUNCHES)
+    # the resident session's card memory goes back before the split (its
+    # warm-store arms run in a child process, which needs the card too)
+    del resident
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
     # one streamed chunk's cost, split (query37: 64 inventory chunks); its
     # launches stay out of the counts above
     capture.context = None
-    split = chunk_split(torch, power_s,
-                        strip_stream_markers(queries["query37"]), "query37",
-                        first)
+    split_problems, split = chunk_split(
+        torch, power_s, strip_stream_markers(queries["query37"]), "query37",
+        first, pq, stream_conf)
+    failures += [f"chunk_split: {p}" for p in split_problems]
+    # the cached pipelines' static operands and graphs go with them
+    S._PIPELINE_CACHE.clear()
+    marks["chunk_split_s"] = round(time.time() - t_phase, 3)
     drain_stream_events()
     if not (launches["chunk_scan"] > 0 and launches["join_probe"] > 0):
         failures.append(f"K4/K5 did not launch: {launches}")
@@ -1220,6 +1358,20 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
             "sync_sites": sorted(set(syncs_in_loop))[:40],
             "overflow_reruns": [r["statement"] for r in records
                                 if r.get("overflow_rerun")],
+            "seconds_since_setup": marks,
+            "memory": memory_line(torch),
+            "graphs": {
+                "statements": sum(1 for r in records if r.get("graph")),
+                "captured_or_replayed": sum(
+                    1 for r in records if r.get("graph") and all(
+                        g in ("captured", "replayed") for g in r["graph"])),
+                "refused": {r["statement"]: r["graph"] for r in records
+                            if any(g.startswith("refused")
+                                   for g in r.get("graph", []))},
+                "equal_to_eager_drive": sum(
+                    1 for r in records if r.get("equal_to_eager_drive")),
+                "loop_syncs": {r["statement"]: r["loop_syncs"]
+                               for r in records if r.get("loop_syncs")}},
             "failures": failures[:40], "statements": records,
             "chunk_split": split}
 
@@ -1303,17 +1455,31 @@ class K4Capture:
     """Counts the stream phase's K4 launches by spec shape and by the
     statement that made them (``context``), and keeps each shape's first
     chunk: a device copy of the buffers it reads and its live count,
-    taken on the stream with no host read, for the ``k4_real`` timings."""
+    taken on the stream with no host read, for the ``k4_real`` timings.
+    A captured graph's launches count at each replay, by the shapes its
+    capture recorded (a capture itself launches nothing)."""
 
     def __init__(self, K):
         self.K, self.real = K, K.chunk_scan
         self.context = "setup"     # None: launches are not counted
         self.shapes = {}
+        self.capturing = None      # shapes the running capture records
+        self.graph_shapes = {}     # id(static operands) -> shape keys
+
+    def count(self, key):
+        rec = self.shapes[key]
+        rec["launches"] += 1
+        by = rec["by_statement"]
+        by[self.context] = by.get(self.context, 0) + 1
 
     def note(self, flat, n_dev, spec):
         """Count one launch (and keep the chunk of a new shape)."""
+        import torch
         shape = spec_shape(flat, spec)
         key = json.dumps(shape, sort_keys=True)
+        if torch.cuda.is_current_stream_capturing():
+            self.capturing.append(key)   # the warm-up kept its chunk
+            return
         rec = self.shapes.get(key)
         if rec is None:
             used = {c[0] for c in spec.cols} | set(spec.key_slots) | \
@@ -1322,11 +1488,11 @@ class K4Capture:
                 "shape": shape, "launches": 0, "by_statement": {},
                 "spec": spec, "n_dev": n_dev.clone(),
                 "bufs": {i: flat[i].clone() for i in used}}
-        rec["launches"] += 1
-        by = rec["by_statement"]
-        by[self.context] = by.get(self.context, 0) + 1
+        self.count(key)
 
     def __enter__(self):
+        from nds_tpu_torch.engine import stream as S
+
         def scan(flat, n_dev, spec):
             out = self.real(flat, n_dev, spec)
             if flat[spec.cols[0][0]].device.type == "cuda" and \
@@ -1334,10 +1500,32 @@ class K4Capture:
                 self.note(flat, n_dev, spec)
             return out
         self.K.chunk_scan = scan
+        self.S = S
+        self.real_capture, self.real_step = S.StreamPipeline._capture, \
+            S.StreamPipeline._step
+
+        def capture(pipe, st, *a, **k):
+            self.capturing = []
+            try:
+                return self.real_capture(pipe, st, *a, **k)
+            finally:
+                self.graph_shapes[id(st)] = self.capturing
+                self.capturing = None
+
+        def step(pipe, st, *a, **k):
+            out = self.real_step(pipe, st, *a, **k)
+            if st.graph is not None and self.context is not None:
+                for key in self.graph_shapes.get(id(st), ()):
+                    self.count(key)
+            return out
+        S.StreamPipeline._capture = capture
+        S.StreamPipeline._step = step
         return self
 
     def __exit__(self, *exc):
         self.K.chunk_scan = self.real
+        self.S.StreamPipeline._capture = self.real_capture
+        self.S.StreamPipeline._step = self.real_step
 
     def lines(self):
         return [{"shape": r["shape"], "launches": r["launches"],
@@ -1410,21 +1598,18 @@ def watchdog_cost(torch, session, sql):
 
 def launch_census(torch, sf1, queries, run_query_stream):
     """The CI statements at SF1 through the Power Run entry with
-    ``profile_folder``, once with a fresh device divisor filled for each
-    ``prim.true_div`` call and once with the kept ones: per arm, the
-    device events the profiler summed (kernels, memcpys, memsets) and
-    their device ms, the kernels and fill kernels of the traces, and the
-    ``true_div`` calls. (ok, line)."""
+    ``profile_folder``, with the device divisors of ``prim.true_div``
+    kept: the device events the profiler summed (kernels, memcpys,
+    memsets) and their device ms, the kernels and fill kernels of the
+    traces, and the ``true_div`` calls. (ok, line)."""
     from nds_tpu_torch.engine import prim
     kept = prim.true_div
     arms = {}
-    for arm in ("fresh_divisor", "kept_divisor"):
+    for arm in ("kept_divisor",):
         calls = [0]
 
-        def counted(x, d, fresh=arm == "fresh_divisor"):
+        def counted(x, d):
             calls[0] += 1
-            if fresh:
-                return x / torch.full((), d, dtype=x.dtype, device=x.device)
             return kept(x, d)
         summ = os.path.join(OUT, f"census_{arm}")
         traces = os.path.join(DATA, f"census_{arm}")
@@ -1498,22 +1683,33 @@ def tables_agree(a, b):
     import pyarrow as pa
     if a.num_rows != b.num_rows or a.column_names != b.column_names:
         return f"shape {a.shape}/{b.shape}"
+    import numpy as np
     for i in range(a.num_columns):
         ca, cb = a.column(i), b.column(i)
         if ca.type != cb.type:
             return f"col {i} type {ca.type}/{cb.type}"
-        la, lb = ca.to_pylist(), cb.to_pylist()
+        if ca.equals(cb):               # exact: values and nulls
+            continue
         if pa.types.is_floating(ca.type):
-            for r, (x, y) in enumerate(zip(la, lb)):
-                if (x is None) != (y is None):
-                    return f"col {i} row {r}: {x}/{y}"
-                if x is None or (math.isnan(x) and math.isnan(y)):
-                    continue
-                if not math.isclose(x, y, rel_tol=1e-5, abs_tol=1e-12):
-                    return f"col {i} row {r}: {x}/{y}"
-        elif la != lb:
-            r = next(r for r, (x, y) in enumerate(zip(la, lb)) if x != y)
-            return f"col {i} row {r}: {la[r]!r}/{lb[r]!r}"
+            # NaN equals NaN, and values agree within rel 1e-5 (abs 1e-12),
+            # as ``math.isclose`` reads it
+            na = np.asarray(ca.is_null().to_numpy(zero_copy_only=False))
+            nb = np.asarray(cb.is_null().to_numpy(zero_copy_only=False))
+            x = np.asarray(ca.fill_null(0.0).to_numpy(zero_copy_only=False),
+                           dtype=np.float64)
+            y = np.asarray(cb.fill_null(0.0).to_numpy(zero_copy_only=False),
+                           dtype=np.float64)
+            with np.errstate(invalid="ignore"):
+                close = np.abs(x - y) <= np.maximum(
+                    1e-5 * np.maximum(np.abs(x), np.abs(y)), 1e-12)
+            ok = (na == nb) & (na | (np.isnan(x) & np.isnan(y)) | close)
+            if ok.all():
+                continue
+            r = int(np.argmin(ok))
+            return f"col {i} row {r}: {ca[r].as_py()}/{cb[r].as_py()}"
+        la, lb = ca.to_pylist(), cb.to_pylist()
+        r = next(r for r, (x, y) in enumerate(zip(la, lb)) if x != y)
+        return f"col {i} row {r}: {la[r]!r}/{lb[r]!r}"
     return None
 
 
@@ -1795,71 +1991,223 @@ def replay_phase(torch, K, Session, sf1, queries):
             os.environ[key] = prev
 
 
-def _split_of(phases, wall_ms):
+# the spans of a streamed statement's chunk loop, and of the set-up its
+# first sight spends outside it (engine/stream.py)
+LOOP_SPANS = ("stream.drive", "stream.kernel", "stream.partition",
+              "stream.prefetch", "stream.materialize")
+SETUP_SPANS = {"encode": "stream.encode", "record": "stream.record",
+               "capture": "stream.capture", "upload": "stream.upload"}
+# the tables query37 reads (the warm-store child loads only these)
+SPLIT_TABLES = ("item", "inventory", "date_dim", "catalog_sales")
+
+
+def _split_of(phases, wall_ms, chunks):
     """Per-chunk host split of one streamed statement from its span
-    rollup (``{name: {"ms", "count"}}``): replaying the per-chunk program
-    (``stream.drive`` + ``stream.kernel``), blocked on the prefetch ring
-    (``stream.prefetch``), and the statement's ms outside the chunk loop
-    (its wall less every ``stream.*`` span below ``stream``)."""
+    rollup (``{name: {"ms", "count"}}``): wall, the launch or Python time
+    (``stream.drive`` — a graph's copy and replay, or the eager drive's
+    program — plus ``stream.kernel`` and ``stream.partition``) and the
+    time blocked on the prefetch ring (``stream.prefetch``); then the ms
+    outside the chunk loop (the wall less the loop's spans) and its split
+    by the set-up spans (codec planning and encoding, record, capture,
+    first chunk's upload; ``other`` is the rest: the planner, the parts
+    bound whole, the aggregation downstream, the fetch)."""
     ms = {k: v["ms"] for k, v in phases.items()}
-    n = max(phases.get("stream.drive", {}).get("count", 0), 1)
-    loop = sum(v for k, v in ms.items() if k.startswith("stream."))
-    return n, {"wall": round(wall_ms / n, 3),
-               "python_replay": round((ms.get("stream.drive", 0.0)
-                                       + ms.get("stream.kernel", 0.0)) / n,
-                                      3),
-               "prefetch_wait": round(ms.get("stream.prefetch", 0.0) / n,
-                                      3)}, round(wall_ms - loop, 3)
+    n = max(chunks, 1)
+    outside = wall_ms - sum(ms.get(k, 0.0) for k in LOOP_SPANS)
+    setup = {k: round(ms.get(sp, 0.0), 3) for k, sp in SETUP_SPANS.items()}
+    setup["other"] = round(outside - sum(setup.values()), 3)
+    per_chunk = {
+        "wall": round(wall_ms / n, 3),
+        "launch_or_python": round(sum(ms.get(k, 0.0) for k in (
+            "stream.drive", "stream.kernel", "stream.partition")) / n, 3),
+        "prefetch_wait": round(ms.get("stream.prefetch", 0.0) / n, 3)}
+    return per_chunk, round(outside, 3), setup
 
 
-def chunk_split(torch, session, sql, name, first=None):
-    """One streamed statement's cost a chunk: host time in the per-chunk
-    replay (the ``stream.drive`` and ``stream.kernel`` spans), host time
-    blocked on the prefetch ring (``stream.prefetch``), both from an
-    unprofiled run, and device kernel time from a second run under
-    ``torch.profiler``; with each run's wall and chunk count. ``first``
-    (the statement's span rollup and wall in the Power Run, its first
-    sight) adds the same host split for the first sight."""
-    from nds_tpu_torch.obs import trace as obs_trace
-    from nds_tpu_torch.power import _profiler, profile_summary
-    obs_trace.drain_spans()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    session.sql(sql).collect()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3
+def _rollup(spans):
     phases = {}
-    for sp in obs_trace.drain_spans():
+    for sp in spans:
         nm = getattr(sp, "name", "")
         if nm.startswith("stream."):
             ph = phases.setdefault(nm, {"ms": 0.0, "count": 0})
             ph["ms"] += sp.dur_ns / 1e6
             ph["count"] += 1
-    n, per_chunk, outside = _split_of(phases, wall)
+    return phases
+
+
+def _sight(torch, session, sql, graph=True):
+    """One run of a streamed statement: (arrow rows, wall ms, span
+    rollup, its streamed scans' chunks, their graph statuses)."""
+    from nds_tpu_torch.listener import drain_stream_events
+    from nds_tpu_torch.obs import trace as obs_trace
+    obs_trace.drain_spans()
+    drain_stream_events()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows = session.sql(sql, graph=graph).to_arrow()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    phases = _rollup(obs_trace.drain_spans())
+    events = [e for e in drain_stream_events() if e.path == "compiled"]
+    return (rows, wall, phases, max((e.chunks for e in events), default=0),
+            [e.graph[:200] for e in events])
+
+
+def split_arm(torch, session, sql, graph):
+    """One arm of the split: an unprofiled run (wall, spans) and a run
+    under ``torch.profiler`` (device kernel time): (rows, record)."""
+    from nds_tpu_torch.power import _profiler, profile_summary
+    rows, wall, phases, n, graphs = _sight(torch, session, sql, graph)
+    per_chunk, outside, _setup = _split_of(phases, wall, n)
     prof = _profiler(torch.device("cuda"))
     with prof:
         t = time.perf_counter()
-        session.sql(sql).collect()
+        session.sql(sql, graph=graph).collect()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t) * 1e3
     dev_ms = profile_summary(prof)["deviceKernelMs"]
-    line = {"phase": "chunk_split", "statement": name,
-            "scale": STREAM_SCALE, "chunks": n, "wall_ms": round(wall, 3),
-            "per_chunk_ms": {**per_chunk, "device": round(dev_ms / n, 3)},
-            "outside_chunk_loop_ms": outside,
-            "span_ms": {k: round(v["ms"], 3)
-                        for k, v in sorted(phases.items())},
-            "profiled_wall_ms": round(prof_wall, 3),
-            "device_kernel_ms": dev_ms}
+    per_chunk["device"] = round(dev_ms / max(n, 1), 3)
+    return rows, {"wall_ms": round(wall, 3), "chunks": n, "graph": graphs,
+                  "per_chunk_ms": per_chunk,
+                  "outside_chunk_loop_ms": outside,
+                  "span_ms": {k: round(v["ms"], 3)
+                              for k, v in sorted(phases.items())},
+                  "profiled_wall_ms": round(prof_wall, 3),
+                  "device_kernel_ms": dev_ms}
+
+
+def first_sight_record(wall, phases, n, graphs=None):
+    per_chunk, outside, setup = _split_of(phases, wall, n)
+    rec = {"wall_ms": round(wall, 3), "chunks": n, "per_chunk_ms": per_chunk,
+           "outside_chunk_loop_ms": outside, "outside_split_ms": setup,
+           "device": "not measured"}
+    if graphs is not None:
+        rec["graph"] = graphs
+    return rec
+
+
+def chunk_split(torch, session, sql, name, first, pq, conf):
+    """One streamed statement's cost a chunk, in four arms: the eager
+    drive and the graph, each with the chunk store off (this process,
+    the pipeline cached) and with a warm store (a child process, so that
+    the first sight is a new process's). Each arm gives per chunk the
+    wall, the launch or Python time, the prefetch wait and the device
+    time (a second run under ``torch.profiler``). The first sights (the
+    Power Run's, store off, and the child's, warm store) split their time
+    outside the chunk loop by span. Returns (problems, line)."""
+    import subprocess
+    problems = []
+    arms = {}
+    g_rows, arms["graph/store_off"] = split_arm(torch, session, sql, True)
+    e_rows, arms["eager/store_off"] = split_arm(torch, session, sql, False)
+    why = tables_agree(g_rows, e_rows)
+    if why:
+        problems.append(f"graph rows differ from the eager drive: {why}")
+    # warm the store in this process (the wire plan is saved once), then
+    # read it in a child
+    store = os.path.join(DATA, "chunk_store")
+    shutil.rmtree(store, ignore_errors=True)
+    os.environ["NDS_TPU_CHUNK_STORE"] = store
+    try:
+        t = time.perf_counter()
+        cold_rows = session.sql(sql).to_arrow()
+        cold_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        os.environ.pop("NDS_TPU_CHUNK_STORE", None)
+    entries = sorted(d for d in os.listdir(store) if not d.startswith("."))
+    if tables_agree(cold_rows, g_rows) or not entries:
+        problems.append(f"cold store run: entries {entries}")
+    # the child needs the card: this process's cached pipelines (their
+    # static operands and graphs) and cached blocks go back first
+    import gc
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = os.path.join(OUT, "chunk_split_child.json")
+    with open(spec, "w") as f:
+        json.dump({"pq": pq, "conf": conf, "sql": sql,
+                   "tables": list(SPLIT_TABLES)}, f)
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--chunk-split-child",
+         spec], capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, NDS_TPU_CHUNK_STORE=store))
+    child_s = round(time.time() - t, 3)
+    child = None
+    if proc.returncode == 0 and proc.stdout.strip():
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child is None:
+        problems.append(f"warm-store child failed ({proc.returncode}): "
+                        f"{proc.stderr[-1500:]}")
+    else:
+        arms.update(child["arms"])
+        if child["rows"] != json.loads(json.dumps(
+                [list(r.values()) for r in g_rows.to_pylist()],
+                default=str)):
+            problems.append("warm-store rows differ from the store-off rows")
+        if child["wire_plans_built"]:
+            problems.append(f"the warm store re-encoded "
+                            f"{child['wire_plans_built']} column sets")
+    for arm, rec in arms.items():
+        # a pipeline whose parts are bound anew by each execution (query37
+        # binds catalog_sales whole) records and captures at each
+        want = ("eager drive",) if arm.startswith("eager") else \
+            ("captured", "replayed")
+        if len(rec["graph"]) != 1 or rec["graph"][0] not in want:
+            problems.append(f"{arm}: graph {rec['graph']}, not {want}")
+    line = {"phase": "chunk_split", "statement": name, "ok": not problems,
+            "scale": STREAM_SCALE, "arms": arms,
+            "store": {"entries": len(entries), "cold_run_ms": round(cold_ms, 3),
+                      "child_s": child_s},
+            "problems": problems}
     if first is not None:
-        f_phases, f_wall = first
-        fn, f_chunk, f_out = _split_of(f_phases, f_wall)
-        line["first_sight"] = {"wall_ms": f_wall, "chunks": fn,
-                               "per_chunk_ms": f_chunk,
-                               "outside_chunk_loop_ms": f_out,
-                               "device": "not measured"}
+        f_phases, f_wall, f_n = first
+        line["first_sight"] = {
+            "store_off": first_sight_record(f_wall, f_phases, f_n)}
+        if child is not None:
+            line["first_sight"]["store_warm"] = child["first_sight"]
     line["nvidia_smi"] = smi_line()
-    return line
+    return problems, line
+
+
+def chunk_split_child(spec_path) -> int:
+    """The warm-store arms of ``chunk_split`` in a fresh process: a cuda
+    session over ``SPLIT_TABLES`` only, the first sight (its time outside
+    the loop split by span), then the graph and eager-drive arms. Prints
+    one JSON line."""
+    import torch
+    sys.path.insert(0, REPO)
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.engine.table import ChunkedTable
+    from nds_tpu_torch.schema import get_schemas
+    with open(spec_path) as f:
+        spec = json.load(f)
+    built = []
+    real = ChunkedTable._build_wire_plan
+
+    def building(self):
+        built.append(tuple(self.column_names))
+        return real(self)
+    ChunkedTable._build_wire_plan = building
+    s = Session(spec["conf"], device="cuda")
+    schemas = get_schemas(use_decimal=True)
+    t = time.time()
+    for tname in spec["tables"]:
+        s.read_columnar_view(tname, os.path.join(spec["pq"], tname),
+                             "parquet", {fl.name: str(fl.type)
+                                         for fl in schemas[tname]})
+    load_s = round(time.time() - t, 3)
+    rows, wall, phases, n, graphs = _sight(torch, s, spec["sql"])
+    first = first_sight_record(wall, phases, n, graphs)
+    first["load_s"] = load_s
+    arms = {}
+    _r, arms["graph/store_warm"] = split_arm(torch, s, spec["sql"], True)
+    _r, arms["eager/store_warm"] = split_arm(torch, s, spec["sql"], False)
+    print(json.dumps({"rows": [list(r.values()) for r in rows.to_pylist()],
+                      "first_sight": first, "arms": arms,
+                      "wire_plans_built": len(built)}, default=str))
+    return 0
 
 
 class _Skipped(Exception):
@@ -1891,7 +2239,10 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run, of "
                     f"{', '.join(PHASES)} (device, build and data always "
                     "run); a partial run ends without the final ok line")
+    ap.add_argument("--chunk-split-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.chunk_split_child:
+        return chunk_split_child(args.chunk_split_child)
     only = set(args.only.split(","))
     if not only <= set(PHASES):
         ap.error(f"unknown phase(s) {sorted(only - set(PHASES))}")
@@ -2171,8 +2522,6 @@ def main(argv=None) -> int:
             json.dump(res, f, indent=1)
         emit({k: v for k, v in res.items()
               if k not in ("statements", "k4_specs", "chunk_split")})
-        for rec in res["statements"]:
-            emit({"phase": "stream", **rec})
         emit({"phase": "k4_specs", "launches": res["launches"]["chunk_scan"],
               "counted": sum(r["launches"] for r in res["k4_specs"]),
               "specs": res["k4_specs"]})

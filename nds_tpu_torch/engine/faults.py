@@ -92,15 +92,15 @@ SEAMS = {s.name: s for s in (
          "ported yet: no call site)",
          DEGRADABLE,
          "degrade sharded->single-device eager rerun, bit-for-bit"),
-    Seam("chunk-store-read", "the chunk store's load_plan (not ported "
-         "yet: no call site)",
+    Seam("chunk-store-read", "io/chunk_store.py load_plan, recovered in "
+         "engine/table.py ChunkedTable._wire_plan",
          TRANSIENT,
          "corrupt entry (checksum/torn write): delete + re-encode from "
          "the source arrow once; version drift stays a loud fatal "
          "refusal (operator action)",
          retries=1, retry_on=("FaultInjected",)),
-    Seam("chunk-store-write", "the chunk store's save_plan (not ported "
-         "yet: no call site)",
+    Seam("chunk-store-write", "io/chunk_store.py save_plan, degraded in "
+         "engine/table.py ChunkedTable._wire_plan",
          DEGRADABLE,
          "best-effort persist: a failed/contended/killed write degrades "
          "to the in-memory wire plan; a killed writer leaves old-valid "

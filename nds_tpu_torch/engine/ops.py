@@ -73,27 +73,48 @@ def device() -> torch.device:
 
 
 class _OnDevice:
-    def __init__(self, dev, conf=None):
+    def __init__(self, dev, conf=None, pool=None, graph=True):
         self.dev = torch.device(dev)
         self.conf = conf
+        self.pool, self.graph = pool, graph
 
     def __enter__(self):
-        self._prev = (getattr(_sync_tls, "device", None),
-                      getattr(_sync_tls, "conf", None))
-        _sync_tls.device = self.dev
+        t = _sync_tls
+        self._prev = (getattr(t, "device", None), getattr(t, "conf", None),
+                      getattr(t, "graph_pool", None),
+                      getattr(t, "stream_graph", True))
+        t.device = self.dev
         if self.conf is not None:
-            _sync_tls.conf = self.conf
+            t.conf = self.conf
+        t.graph_pool, t.stream_graph = self.pool, self.graph
         return self.dev
 
     def __exit__(self, *exc):
-        _sync_tls.device, _sync_tls.conf = self._prev
+        t = _sync_tls
+        t.device, t.conf, t.graph_pool, t.stream_graph = self._prev
 
 
-def on_device(dev, conf=None):
+def on_device(dev, conf=None, pool=None, graph=True):
     """Context: run the enclosed operators on ``dev``, with the session's
     ``conf`` answering :func:`setting` (the caller's conf stays when
-    ``conf`` is None)."""
-    return _OnDevice(dev, conf)
+    ``conf`` is None). ``pool`` (a callable returning a CUDA graph pool
+    handle) is where captured graphs allocate; ``graph`` False runs a
+    streamed statement's per-chunk program from Python on every chunk
+    instead of replaying its captured graph (engine/stream.py)."""
+    return _OnDevice(dev, conf, pool, graph)
+
+
+def graph_pool():
+    """The calling statement's CUDA graph pool handle (the session's),
+    or None when no session gave one."""
+    pool = getattr(_sync_tls, "graph_pool", None)
+    return pool() if pool is not None else None
+
+
+def stream_graph() -> bool:
+    """Whether the calling statement replays its streamed per-chunk
+    programs as captured graphs (see :func:`on_device`)."""
+    return getattr(_sync_tls, "stream_graph", True)
 
 
 # The streamed path's settings: ``Session(conf=...)`` keys and their
@@ -239,6 +260,7 @@ class _StreamBoundsSession:
 
     def __exit__(self, *exc):
         _sync_tls.stream_bounds, _sync_tls.stream_flags = self._prev
+        _sync_tls.eval_table = None     # noted inside; held no longer
 
 
 def stream_bounds():
@@ -246,6 +268,57 @@ def stream_bounds():
     decisions; ``.flags`` collects the device-side overflow predicates the
     region registered."""
     return _StreamBoundsSession()
+
+
+# whole-column host reads whose results the replay log serves like a
+# dimension read (replay._LIFTABLE). Over rows that derive from the
+# streamed chunk, a replay would hand every chunk the first chunk's
+# values: inside a stream-bounds region they are legal only while an
+# expression evaluates over a table the per-chunk program holds
+# chunk-invariant.
+_CHUNK_HAZARD_READS = frozenset(("date_part", "month_arith", "cast_str",
+                                 "concat"))
+
+
+class _ChunkInvariant:
+    def __init__(self, tables):
+        self.tables = list(tables)
+
+    def __enter__(self):
+        self._prev = getattr(_sync_tls, "invariant_tables", ())
+        _sync_tls.invariant_tables = self.tables
+        return self
+
+    def __exit__(self, *exc):
+        _sync_tls.invariant_tables = self._prev
+
+
+def chunk_invariant(tables):
+    """Context: ``tables`` (the per-chunk program's non-streamed parts)
+    hold no chunk data; an expression evaluated over any other table
+    inside a stream-bounds region is chunk-derived."""
+    return _ChunkInvariant(tables)
+
+
+def note_eval_table(table) -> None:
+    """The table an expression is being evaluated over (the planner
+    notes it inside stream-bounds regions)."""
+    _sync_tls.eval_table = table
+
+
+def _refuse_chunk_read(tag: str) -> None:
+    """Raise :class:`StreamSyncError` for a hazard read of chunk-derived
+    rows while a per-chunk program records (a replay serves only what a
+    record allowed)."""
+    if tag not in _CHUNK_HAZARD_READS or not stream_bounds_on() \
+            or replay_mode() == "replay":
+        return
+    t = getattr(_sync_tls, "eval_table", None)
+    if not any(t is x for x in getattr(_sync_tls, "invariant_tables", ())):
+        raise StreamSyncError(
+            f"{tag}: a whole-column host read of chunk-derived rows inside "
+            "a stream-bounds region (its logged value would serve every "
+            "chunk)")
 
 
 def stream_overflow(pred) -> None:
@@ -486,6 +559,7 @@ def timed_read(tag: str, fetch):
     accounting — for blocking device->host reads that are not simple
     scalar syncs (chunk spans, whole-column string/date fetches). The
     fetch runs behind the ``sync`` fault seam."""
+    _refuse_chunk_read(tag)
 
     def timed():
         add_syncs()
@@ -573,6 +647,22 @@ class UploadStage:
                 "make")
         self._cursor[key] = i + 1
         return got[i]
+
+
+# one capture stream per device, shared by every CUDA graph of the process
+_CAPTURE_STREAMS: dict = {}
+
+
+def capture_stream(dev) -> torch.cuda.Stream:
+    """The side stream every CUDA graph of the process captures on. The
+    caching allocator hands a freed block out again only on the stream
+    that allocated it, so graphs that share a memory pool share its
+    blocks only when they capture on one stream."""
+    dev = torch.device(dev)
+    st = _CAPTURE_STREAMS.get(dev)
+    if st is None:
+        st = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return st
 
 
 class _StagedUploads:

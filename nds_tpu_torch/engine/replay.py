@@ -18,7 +18,9 @@ most of a statement's wall. The tiers (``Session._sql_replay``):
    the statement needs, see ``ops.UploadStage``), then once inside
    ``torch.cuda.graph``: the statement's kernels, the hand-written ones
    (K1-K3) included, become one graph whose output columns and row count
-   are its static outputs. The session's graphs share one memory pool.
+   are its static outputs. The session's graphs share one memory pool
+   and capture on one stream (``ops.capture_stream``), so that they share
+   its blocks.
 3. REPLAY: later executions of the same text on the same data version
    replay the graph (one launch, no host read) and clone its outputs, so
    that a result the caller still holds never changes on the next replay.
@@ -234,6 +236,7 @@ class CompiledQuery:
         out = inner = None
         try:
             with torch.cuda.graph(graph, pool=self.session.graph_pool(),
+                                  stream=E.capture_stream(dev),
                                   capture_error_mode="thread_local"):
                 prev = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")

@@ -95,7 +95,7 @@ class Session:
         # the tier that served the last statement: "eager", "record",
         # "replayed" or "blacklisted: <reason>"
         self.last_tier = "eager"
-        self._pool = None
+        self._pool = self._pool_keeper = None
 
     # -- catalog ------------------------------------------------------------
 
@@ -267,11 +267,29 @@ class Session:
 
     def graph_pool(self):
         """The one memory pool every captured graph of this session
-        shares: replays run one at a time on one stream and their outputs
-        are cloned at once, so no graph's memory outlives its replay."""
+        shares (whole statements and streamed per-chunk programs): replays
+        run one at a time on one stream, a statement's outputs are cloned
+        at once and a per-chunk program writes only into static buffers
+        outside the pool, so no graph's memory outlives its replay.
+
+        The pool lives as long as the session: a pool whose last graph is
+        deleted is freed, and the allocator refuses a later capture into
+        its handle (an evicted streamed pipeline may have held the only
+        graph), so a graph of one small fill stays in it."""
         if self._pool is None:
             import torch
-            self._pool = torch.cuda.graph_pool_handle()
+            pool = torch.cuda.graph_pool_handle()
+            keep = torch.cuda.CUDAGraph()
+            side = E.capture_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                keep.capture_begin(pool=pool,
+                                   capture_error_mode="thread_local")
+                try:
+                    torch.zeros(1, device=self.device)
+                finally:
+                    keep.capture_end()
+            self._pool, self._pool_keeper = pool, keep
         return self._pool
 
     def _sql_replay(self, text: str, stmt, planner) -> Result:
@@ -370,7 +388,11 @@ class Session:
 
     # -- SQL ----------------------------------------------------------------
 
-    def sql(self, text: str) -> Result:
+    def sql(self, text: str, graph: bool = True) -> Result:
+        """Run one statement. ``graph`` False drives each streamed scan's
+        compiled per-chunk program from Python on every chunk instead of
+        replaying its captured CUDA graph (the eager drive: what the graph
+        is compared with)."""
         # scope this thread's trace ring: a query-executing thread drains
         # only its own spans
         _obs.attach()
@@ -384,8 +406,8 @@ class Session:
         # charges every blocking wait to one budget when
         # NDS_TPU_STATEMENT_DEADLINE_S is armed (engine/faults.py)
         try:
-            with E.on_device(self.device, self.conf), \
-                    _faults.statement_scope():
+            with E.on_device(self.device, self.conf, self.graph_pool,
+                             graph), _faults.statement_scope():
                 out = self._sql_dispatch(text, stmt, planner)
         except BaseException:
             E.discard_deferred_checks()

@@ -29,9 +29,31 @@ per chunk WITHOUT any host read inside the loop:
    the eager loop, so streamability is a performance property, never a
    correctness one.
 
-Where the reference traces the per-chunk program once under ``jax.jit``,
-this package re-runs it eagerly per chunk on chunks of one padded shape;
-capturing it as a CUDA graph is later work.
+The compiled program (the counterpart of the reference's ``jax.jit`` of
+it, with the accumulators donated): on ``cuda`` the first drive of a
+pipeline captures one chunk's whole program (the K4 pass, the partition
+routing, the body of every partition) as ONE ``torch.cuda.CUDAGraph`` in
+the session's graph pool. Its operands are static buffers the pipeline
+owns (:class:`_Static`): the chunk slots and live count, which each chunk
+from the ring is copied into on the device before the replay (one D2D
+copy a chunk; a graph per ring slot would need a capture per slot and
+tie the ring's depth to the pipeline), the subquery residual slots,
+which each execution copies its re-planned residuals into (a residual's
+spec is checked equal on a cache hit), and the accumulators and the
+partition histogram, updated in place and zeroed by kernels at the start
+of each execution. The part buffers are read in place (a cache hit checks
+their identity). The capture follows ``replay.CompiledQuery``: the first
+chunk runs for real on a side stream under ``ops.staged_uploads`` (the
+warm-up; module caches bypassed), then the capture runs under
+``torch.cuda.set_sync_debug_mode("error")``, and the kernel launches it
+recorded leave ``kernels.LAUNCHES`` and come back with every replay. The
+survivors are cloned out of the accumulators after the final read. On the
+CPU nothing is captured: the same static-slot, in-place drive runs the
+program from Python. A capture that fails (``ops.CaptureError``) leaves
+the pipeline on the eager drive (the program run from Python on each
+chunk, into fresh accumulators), with the reason in its stream event
+(``graph: "refused: ..."``); ``Session.sql(..., graph=False)`` asks for
+the eager drive to compare.
 
 Fused kernels: the chunk-local WHERE conjuncts that the shared eligibility
 rule (analysis/kernel_spec.py) accepts lower into one ``ScanSpec``
@@ -73,6 +95,13 @@ seam, retried in place; the record is the ``pipeline-compile`` seam; a
 classified fault there or in the drive (an exhausted retry) takes one
 step down the ladder, to the eager chunk loop, recorded as a fault event.
 A statement timeout raises, and any other exception raises as before.
+
+Chunk-derived host reads: the log serves ``date_part``, ``month_arith``,
+``cast_str`` and ``concat`` reads like dimension reads, so a replay would
+hand every chunk the first chunk's values. While the program records, such
+a read of rows that derive from the chunk raises ``StreamSyncError``
+(``ops.chunk_invariant``: only the non-streamed parts are exempt) and the
+statement takes the eager chunk loop.
 """
 
 from __future__ import annotations
@@ -215,9 +244,19 @@ _PIPELINE_LOCK = threading.Lock()
 
 def _evict(key) -> None:
     with _PIPELINE_LOCK:
-        gone = _PIPELINE_CACHE.pop(key, None) is not None
-    if gone:
+        pipe = _PIPELINE_CACHE.pop(key, None)
+    if pipe is not None:
+        pipe.release_static()
         _metrics.default().inc(_metrics.PIPE_EVICT)
+
+
+# pipelines holding static operands (and, on cuda, a captured graph), oldest
+# first: their bytes stay within a quarter of the device-memory model, the
+# newest kept regardless. Weak: a pipeline dropped from the cache takes its
+# operands with it
+_STATIC = weakref.WeakValueDictionary()
+_STATIC_LOCK = threading.Lock()
+_STATIC_SHARE = 4
 
 
 def _restore_counts(snapshot, checks_snapshot):
@@ -300,6 +339,33 @@ class _Acc:
         self.datas, self.valids = datas, valids
         self.n, self.ovf, self.outer = n, ovf, outer
 
+    def buffers(self):
+        return [*self.datas, *(v for v in self.valids if v is not None),
+                self.n, self.ovf, *self.outer]
+
+
+class _Static:
+    """The static operands of one pipeline's compiled program: the chunk
+    slots (the flattened chunk) and its live count, the subquery residual
+    slots, one accumulator per partition and the partition histogram; on
+    cuda the captured graph, the upload stage its capture was served from
+    and the kernel launches one replay makes. ``lock`` is held while an
+    execution drives them (a concurrent execution of the same pipeline
+    takes the eager drive)."""
+
+    __slots__ = ("slots", "n_dev", "resid", "accs", "hist", "graph",
+                 "stage", "launches", "nbytes", "lock")
+
+    def __init__(self, slots, n_dev, resid, accs, hist):
+        self.slots, self.n_dev, self.resid = slots, n_dev, resid
+        self.accs, self.hist = accs, hist
+        self.graph = self.stage = None
+        self.launches: dict = {}
+        self.nbytes = sum(int(t.nbytes) for t in (
+            *slots, n_dev, *(x for r in resid for x in r), hist,
+            *(b for a in accs for b in a.buffers())))
+        self.lock = threading.Lock()
+
 
 class StreamPipeline:
     """One recorded per-chunk program plus the metadata to drive it.
@@ -346,6 +412,10 @@ class StreamPipeline:
         # the K4 scan pass: the chunk-invariant predicate/codec spec
         # extracted at record time; None = the graph evaluates them all
         self.scan_spec = scan_spec
+        # the compiled program's static operands (allocated at the first
+        # compiled drive) and, once a capture failed, why
+        self._static: _Static | None = None
+        self.refused: str | None = None
 
     # ------------------------------------------------------------ program
 
@@ -428,11 +498,13 @@ class StreamPipeline:
             acc.datas[j].index_put_((pos,), c.data.to(dtypes[j]))
             if valided[j]:
                 acc.valids[j].index_put_((pos,), c.valid_mask())
-        acc.n = acc.n + out_n
+        # every count and flag is an in-place update of the accumulator:
+        # a captured program writes only into its static buffers
+        acc.n.add_(out_n)
         ovf = acc.ovf | (acc.n > self.acc_cap)
         for f in flags:
             ovf = ovf | f
-        acc.ovf = ovf
+        acc.ovf.copy_(ovf)
         for b, m in zip(acc.outer, matched):
             b |= m
 
@@ -478,7 +550,11 @@ class StreamPipeline:
                 flat = _flatten_chunk(chunk)
                 n_dev = torch.full((), hc.live, dtype=I64, device=device)
                 return (flat, n_dev, hc.nbytes), list(flat) + [n_dev]
-            return _PF.upload_async(device, side, copy)
+            up = _PF.upload_async(device, side, copy)
+            # the pinned buffers go back to their pool once the copies
+            # that read them are done
+            hc.release(getattr(up, "event", None))
+            return up
         return prepare
 
     def init_acc(self, dev) -> _Acc:
@@ -502,19 +578,180 @@ class StreamPipeline:
             out.append((miss, miss.sum()))
         return out
 
-    def run(self, host_iter, first, parts_flat, resid_flat=()):
-        """Drive every chunk through the per-chunk program; returns
-        ``(survivor DeviceTable | None on overflow, n_chunks, evidence)``.
-        ``host_iter`` continues AFTER ``first`` (already on the device).
-        ``evidence`` carries the partition counts of a partitioned run,
-        the outer-extras masks/counts, upload bytes, prefetch stall and
-        kernel launches."""
+    def _program(self, st: _Static, parts_flat):
+        """One chunk's whole program over the static operands: the K4
+        pass, the partition routing and the body of every partition (what
+        the graph captures)."""
+        P = self.n_partitions
+        live = h = pids = None
+        if self.scan_spec is not None:
+            live, h = self._scan(st.slots, st.n_dev)
+        if P > 1:
+            pids = self._route(h, st.slots, st.n_dev, st.hist)
+        for p in range(P):
+            self._body(st.slots, st.n_dev, parts_flat, st.accs[p],
+                       st.resid, live, pids, p if P > 1 else None)
+
+    def _step(self, st: _Static, flat, n_dev, parts_flat):
+        """One chunk of the compiled drive: the chunk copied into the
+        slots on the device, then the graph replayed (on the CPU, the
+        program run). No host read."""
+        for dst, src in zip(st.slots, flat):
+            dst.copy_(src)
+        st.n_dev.copy_(n_dev)
+        if st.graph is None:
+            self._program(st, parts_flat)
+            return
+        st.graph.replay()
+        for k, v in st.launches.items():
+            _K.LAUNCHES[k] += v
+
+    def _capture(self, st: _Static, parts_flat):
+        """The first chunk (already in the slots) runs for real on a side
+        stream, filling the upload stage (the warm-up), then the same
+        program is captured as one CUDA graph. Raises
+        :class:`ops.CaptureError`."""
+        from nds_tpu_torch.engine.replay import _engine_site, _launch_delta
+        dev = st.n_dev.device
+        cur = torch.cuda.current_stream(dev)
+        stage = E.UploadStage()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side), E.staged_uploads(stage):
+            self._program(st, parts_flat)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        pool = E.graph_pool() or torch.cuda.graph_pool_handle()
+        k1 = dict(_K.LAUNCHES)
+        inner = None
+        # the capture API itself, on the shared capture stream ordered
+        # after the warm-up: ``torch.cuda.graph`` would also synchronize
+        # the device and collect garbage at every capture, and a pipeline
+        # whose parts are bound anew by each execution captures at each
+        cap_stream = E.capture_stream(dev)
+        cap_stream.wait_stream(cur)
+        try:
+            with torch.cuda.stream(cap_stream):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    with E.staged_uploads(stage, serve=True):
+                        self._program(st, parts_flat)
+                except Exception as exc:
+                    inner = exc        # the cause, not the capture's end
+                    raise
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+                    graph.capture_end()
+            cur.wait_stream(cap_stream)
+        except Exception as exc:
+            root = inner or exc
+            raise E.CaptureError(
+                f"capture failed at {_engine_site(root)}: "
+                f"{type(root).__name__}: {root}"[:300]) from root
+        finally:
+            # a capture launches nothing: its wrapper counts go back out
+            # and come in again with every replay
+            launches = _launch_delta(k1)
+            for k, v in launches.items():
+                _K.LAUNCHES[k] -= v
+        st.graph, st.stage, st.launches = graph, stage, launches
+
+    def _claim(self, first: DeviceTable, resid_flat) -> _Static | None:
+        """This pipeline's static operands, allocated at the first call
+        and locked for one execution; None while another execution holds
+        them. Other pipelines' operands go, oldest first, while the total
+        passes a quarter of the device-memory model."""
+        with _STATIC_LOCK:
+            st = self._static
+            if st is None:
+                flat = _flatten_chunk(first)
+                dev = flat[0].device
+                st = self._static = _Static(
+                    [torch.empty_like(x) for x in flat],
+                    torch.zeros((), dtype=I64, device=dev),
+                    [[torch.empty_like(x) for x in r] for r in resid_flat],
+                    [self.init_acc(dev) for _ in range(self.n_partitions)],
+                    torch.zeros(self.n_partitions, dtype=I64, device=dev))
+            _STATIC.pop(id(self), None)
+            _STATIC[id(self)] = self
+            budget = max(_hbm_bytes() // _STATIC_SHARE, 1)
+            for pid in list(_STATIC):
+                if sum(p._static.nbytes for p in _STATIC.values()) \
+                        <= budget or pid == id(self):
+                    break
+                other = _STATIC.get(pid)
+                if other is not None and \
+                        other._static.lock.acquire(blocking=False):
+                    _STATIC.pop(pid, None)
+                    other._static = None
+        return st if st.lock.acquire(blocking=False) else None
+
+    def release_static(self) -> None:
+        """Drop the static operands and the graph (pipeline eviction)."""
+        with _STATIC_LOCK:
+            _STATIC.pop(id(self), None)
+            self._static = None
+
+    def _ring(self, host_iter, dev):
+        return _PF.chunk_ring(host_iter, prepare=self._preparer(dev))
+
+    def _drive_static(self, st: _Static, host_iter, first, parts_flat,
+                      resid_flat):
+        """The compiled drive: the first chunk captures the graph where
+        none is (its warm-up executes that chunk), every other chunk
+        replays it. Returns ``(accs, hist, chunks, h2d, stall_ms,
+        captured)``."""
+        dev = st.n_dev.device
+        for a in st.accs:                # reset by kernels
+            for b in a.buffers():
+                b.zero_()
+        st.hist.zero_()
+        for dst, src in zip(st.resid, resid_flat):
+            for d, x in zip(dst, src):
+                d.copy_(x)
+        capture = dev.type == "cuda" and st.graph is None
+        # no worker runs beside a capture: the ring starts after it
+        ring = None if capture else self._ring(host_iter, dev)
+        n_chunks = h2d = 0
+        try:
+            cur = _F.with_retry("device-put",
+                                lambda: self._prepare_first(first))
+            while cur is not None:
+                flat, n_dev, nb = cur
+                h2d += nb
+                if capture and n_chunks == 0:
+                    for dst, src in zip(st.slots, flat):
+                        dst.copy_(src)
+                    st.n_dev.copy_(n_dev)
+                    with _obs.span("stream.capture", chunk=0):
+                        self._capture(st, parts_flat)
+                    ring = self._ring(host_iter, dev)
+                else:
+                    with _obs.span("stream.drive", chunk=n_chunks,
+                                   graph=st.graph is not None):
+                        self._step(st, flat, n_dev, parts_flat)
+                n_chunks += 1
+                with _obs.span("stream.prefetch", chunk=n_chunks) as sp:
+                    cur = ring.next_chunk()
+                    if cur is None:
+                        sp.drop()
+            stall_ms = ring.stall_ms()
+        finally:
+            if ring is not None:
+                ring.close()
+        return st.accs, st.hist, n_chunks, h2d, stall_ms, capture
+
+    def _drive_eager(self, host_iter, first, parts_flat, resid_flat):
+        """The eager drive: the program run from Python on each chunk as
+        the ring hands it over, into fresh accumulators."""
         dev = first[next(iter(first.columns))].data.device
         P = self.n_partitions
         accs = [self.init_acc(dev) for _ in range(P)]
         hist = torch.zeros(P, dtype=I64, device=dev)
-        launches0 = dict(_K.LAUNCHES)
-        ring = _PF.chunk_ring(host_iter, prepare=self._preparer(dev))
+        ring = self._ring(host_iter, dev)
         n_chunks = 0
         h2d = 0
         try:
@@ -549,60 +786,118 @@ class StreamPipeline:
             stall_ms = ring.stall_ms()
         finally:
             ring.close()
-        bitmaps = list(accs[0].outer)
-        for a in accs[1:]:
-            bitmaps = [b | o for b, o in zip(bitmaps, a.outer)]
-        miss = self._outer_miss(bitmaps)
+        return accs, hist, n_chunks, h2d, stall_ms
 
-        def fetch():
-            got = torch.stack(
-                [a.n for a in accs] + [a.ovf.to(I64) for a in accs]
-                + list(hist) + [n for (_m, n) in miss]).cpu().tolist()
-            return ([int(x) for x in got[:P]],
-                    [bool(x) for x in got[P:2 * P]],
-                    [int(x) for x in got[2 * P:3 * P]],
-                    [int(x) for x in got[3 * P:]])
-
-        # THE one materializing read of the pipeline
-        with _obs.span("stream.materialize", chunks=n_chunks,
-                       partitions=P):
-            totals, overflowed, hist_host, extras_n = E.timed_read(
-                "stream_final", fetch)
-        evidence = {
-            "h2d": h2d, "stall_ms": stall_ms,
-            "outer": [(slot, m, n) for (slot, (m, _nd), n)
-                      in zip(self.build_slots, miss, extras_n)],
-            "scan_launches": _K.LAUNCHES["chunk_scan"]
-            - launches0["chunk_scan"],
-            "probe_launches": _K.LAUNCHES["join_probe"]
-            - launches0["join_probe"],
-            "kernel_stages": self.scan_spec.stages()
-            if self.scan_spec is not None else 0}
-        if P > 1:
-            evidence.update(partitions=P, part_rows=tuple(totals),
-                            part_input=tuple(hist_host))
-        if any(overflowed):
-            return None, n_chunks, evidence
-        tables = [self._slice_acc(accs[p], totals[p]) for p in range(P)
-                  if totals[p] > 0]
-        if not tables:                   # every partition empty
-            out = self._slice_acc(accs[0], 0)
-        elif len(tables) == 1:
-            out = tables[0]
+    def run(self, host_iter, first, parts_flat, resid_flat=(),
+            graph=True):
+        """Drive every chunk through the per-chunk program; returns
+        ``(survivor DeviceTable | None on overflow, n_chunks, evidence)``.
+        ``host_iter`` continues AFTER ``first`` (already on the device).
+        ``graph`` takes the compiled drive (on cuda, the captured graph)
+        unless a capture was refused; False takes the eager drive.
+        ``evidence`` carries the partition counts of a partitioned run,
+        the outer-extras masks/counts, upload bytes, prefetch stall,
+        kernel launches and how the graph served (``graph``)."""
+        P = self.n_partitions
+        launches0 = dict(_K.LAUNCHES)
+        dev = first[next(iter(first.columns))].data.device
+        st = None
+        if not graph:
+            status = "eager drive"
+        elif self.refused is not None:
+            status = f"refused: {self.refused}"
         else:
-            # counts are host-known here, so the union costs no sync
-            out = E.concat_tables(tables)
-        return out, n_chunks, evidence
+            st = self._claim(first, resid_flat)
+            status = "busy: eager drive" if st is None else None
+        try:
+            if st is not None:
+                try:
+                    accs, hist, n_chunks, h2d, stall_ms, captured = \
+                        self._drive_static(st, host_iter, first,
+                                           parts_flat, resid_flat)
+                    status = "uncaptured" if dev.type != "cuda" else \
+                        "captured" if captured else "replayed"
+                except E.CaptureError as exc:
+                    # the warm-up ran the first chunk: its launches go
+                    # back out, and the eager drive starts over
+                    _K.LAUNCHES.update(launches0)
+                    self.refused = str(exc)
+                    status = f"refused: {exc}"
+                    st.lock.release()
+                    self.release_static()
+                    st = None
+                    log.warning("streamed pipeline graph refused: %s", exc)
+            if st is None:
+                accs, hist, n_chunks, h2d, stall_ms = self._drive_eager(
+                    host_iter, first, parts_flat, resid_flat)
+            bitmaps = list(accs[0].outer)
+            for a in accs[1:]:
+                bitmaps = [b | o for b, o in zip(bitmaps, a.outer)]
+            miss = self._outer_miss(bitmaps)
 
-    def _slice_acc(self, acc: _Acc, total: int) -> DeviceTable:
-        """Survivor prefix of one accumulator as a DeviceTable."""
+            def fetch():
+                got = torch.stack(
+                    [a.n for a in accs] + [a.ovf.to(I64) for a in accs]
+                    + list(hist) + [n for (_m, n) in miss]).cpu().tolist()
+                return ([int(x) for x in got[:P]],
+                        [bool(x) for x in got[P:2 * P]],
+                        [int(x) for x in got[2 * P:3 * P]],
+                        [int(x) for x in got[3 * P:]])
+
+            # THE one materializing read of the pipeline
+            with _obs.span("stream.materialize", chunks=n_chunks,
+                           partitions=P):
+                totals, overflowed, hist_host, extras_n = E.timed_read(
+                    "stream_final", fetch)
+            evidence = {
+                "h2d": h2d, "stall_ms": stall_ms, "graph": status,
+                "outer": [(slot, m, n) for (slot, (m, _nd), n)
+                          in zip(self.build_slots, miss, extras_n)],
+                "scan_launches": _K.LAUNCHES["chunk_scan"]
+                - launches0["chunk_scan"],
+                "probe_launches": _K.LAUNCHES["join_probe"]
+                - launches0["join_probe"],
+                "kernel_stages": self.scan_spec.stages()
+                if self.scan_spec is not None else 0}
+            if P > 1:
+                evidence.update(partitions=P, part_rows=tuple(totals),
+                                part_input=tuple(hist_host))
+            if any(overflowed):
+                return None, n_chunks, evidence
+            # the static accumulators serve the next execution: their
+            # survivors are cloned out
+            clone = st is not None
+            tables = [self._slice_acc(accs[p], totals[p], clone)
+                      for p in range(P) if totals[p] > 0]
+            if not tables:                   # every partition empty
+                out = self._slice_acc(accs[0], 0, clone)
+            elif len(tables) == 1:
+                out = tables[0]
+            else:
+                # counts are host-known here, so the union costs no sync
+                out = E.concat_tables(tables)
+            return out, n_chunks, evidence
+        finally:
+            if st is not None:
+                st.lock.release()
+
+    def _slice_acc(self, acc: _Acc, total: int,
+                   clone: bool = False) -> DeviceTable:
+        """Survivor prefix of one accumulator as a DeviceTable (with
+        ``clone``, copied out of it)."""
         names, kinds, dicts, valided, dtypes, encs = self.out_template
         cap = min(E.bucket_len(total), self.acc_cap)
         cols = {}
         for j, n in enumerate(names):
-            col = Column(kinds[j], acc.datas[j], acc.valids[j], dicts[j],
-                         encs[j])
-            cols[n] = slice_col_prefix(col, cap)
+            col = slice_col_prefix(Column(kinds[j], acc.datas[j],
+                                          acc.valids[j], dicts[j], encs[j]),
+                                   cap)
+            if clone:
+                col = Column(col.kind, col.data.clone(),
+                             None if col.valid is None
+                             else col.valid.clone(), col.dict_values,
+                             col.enc)
+            cols[n] = col
         return DeviceTable(cols, total, plen=cap)
 
 
@@ -728,8 +1023,17 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
     masked_sources = list(sources)
     masked_sources[keep] = None
 
-    host_iter = chunked.host_chunks(pinned=dev.type == "cuda")
-    first = upload_chunk(next(host_iter), dev)
+    # the first sight's set-up, split by span: the wire plan (codec
+    # planning and encoding, or the chunk store's load) and the first
+    # chunk's upload; the record and the capture follow
+    with _obs.span("stream.encode", table=alias):
+        chunked._wire_plan()
+    host_iter = chunked.host_chunks(pinned=dev.type == "cuda",
+                                    buffers=_PF.prefetch_depth() + 2)
+    with _obs.span("stream.upload", table=alias):
+        hc = next(host_iter)
+        first = upload_chunk(hc, dev)
+        hc.release()
     chunk_spec = _chunk_signature(first, alias)
     chunk_cap = chunked.chunk_cap
     n_chunks = chunked.num_chunks()
@@ -762,20 +1066,22 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
             return None, f"fault: {exc.seam} (degraded compiled->eager)"
         if pipe is None:
             return None, "not chunk-invariant"
-        n_evicted = 0
+        evicted = []
         with _PIPELINE_LOCK:
             while len(_PIPELINE_CACHE) >= _PIPELINE_MAX:
-                _PIPELINE_CACHE.pop(next(iter(_PIPELINE_CACHE)))
-                n_evicted += 1
+                evicted.append(_PIPELINE_CACHE.pop(next(iter(
+                    _PIPELINE_CACHE))))
             _PIPELINE_CACHE[key] = pipe
-        if n_evicted:
-            _metrics.default().inc(_metrics.PIPE_EVICT, n_evicted)
+        for old in evicted:
+            old.release_static()
+        if evicted:
+            _metrics.default().inc(_metrics.PIPE_EVICT, len(evicted))
 
     resid_flat = tuple(tuple(flat) for (_spec, flat) in resid_infos)
     snapshot, checks_snapshot = _snapshot()
     try:
         out, ran, evidence = pipe.run(host_iter, first, parts_flat,
-                                      resid_flat)
+                                      resid_flat, graph=E.stream_graph())
     except (E.ReplayMismatch, E.StreamSyncError) as exc:
         # the replay diverged from the recording: unstreamable after all.
         # Anything else (an engine bug, a kernel refusing its launch)
@@ -826,8 +1132,9 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
                         scan_launches=evidence["scan_launches"],
                         probe_launches=evidence["probe_launches"],
                         kernel_fused_stages=evidence["kernel_stages"],
-                        prefetch_stall_ms=evidence["stall_ms"])
-    _obs.annotate(path="compiled", chunks=ran,
+                        prefetch_stall_ms=evidence["stall_ms"],
+                        graph=evidence["graph"])
+    _obs.annotate(path="compiled", chunks=ran, graph=evidence["graph"][:300],
                   prefetchStallMs=evidence["stall_ms"],
                   partitions=evidence.get("partitions", 1),
                   bytesH2d=evidence["h2d"],
@@ -914,9 +1221,13 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
     # itself stream through a nested pipeline build on the same planner
     prev_touched = planner._residuals_touched
     planner._residuals_touched = touched = []
+    # the non-streamed parts are chunk-invariant: a hazard read over any
+    # other table refuses the record (ops.chunk_invariant)
+    invariant = [getattr(t, "table", t) for i, t in enumerate(sub)
+                 if i != keep]
     try:
         with _obs.span("stream.record", table=alias):
-            with E.recording() as rec_log:
+            with E.recording() as rec_log, E.chunk_invariant(invariant):
                 with E.stream_bounds():
                     with E.outer_match_collector() as omc:
                         out0 = planner._join_parts(sub, list(join_preds),

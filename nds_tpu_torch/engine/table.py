@@ -13,6 +13,8 @@ ChunkedTable: a host-resident table bigger than the session's
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -96,31 +98,105 @@ class HostChunk:
     """One padded chunk of a ChunkedTable on the HOST, ready to upload:
     ``cols`` holds ``(name, kind, data, valid, dict_values, enc)`` with
     numpy (or pinned torch) buffers of the table's uniform chunk capacity,
-    ``live`` the chunk's real rows."""
+    ``live`` the chunk's real rows. Pinned buffers are leased from the
+    generator's pool: :meth:`release` hands them back."""
 
-    __slots__ = ("live", "cap", "cols")
+    __slots__ = ("live", "cap", "cols", "_lease")
 
-    def __init__(self, live: int, cap: int, cols: list):
+    def __init__(self, live: int, cap: int, cols: list, lease=None):
         self.live, self.cap, self.cols = live, cap, cols
+        self._lease = lease
 
     @property
     def nbytes(self) -> int:
         return sum(int(b.nbytes) for (_n, _k, d, v, _dv, _e) in self.cols
                    for b in (d, v))
 
+    def release(self, event=None) -> None:
+        """Hand the chunk's pinned buffers back to their pool once the
+        copy that reads them is done: ``event`` is the CUDA event recorded
+        after that copy (None: the copy already completed). The pool
+        refills them only after the event. A no-op for numpy buffers and
+        on a second call."""
+        if self._lease is not None:
+            self._lease.release(event)
+            self._lease = None
 
-def _host_buffer(dtype, cap: int, pinned: bool):
-    """(buffer, numpy view to fill) of one zeroed host buffer: a numpy
-    array, or page-locked torch memory when ``pinned`` (kept as the torch
-    tensor, so an asynchronous copy from it holds the block until the copy
-    is done)."""
-    if not pinned:
-        a = np.zeros(cap, dtype=dtype)
-        return a, a
-    from nds_tpu_torch.engine.column import _TORCH_DTYPES
-    t = torch.zeros(cap, dtype=_TORCH_DTYPES[np.dtype(dtype).name],
-                    pin_memory=True)
-    return t, t.numpy()
+
+class _PinnedSet:
+    """One chunk's page-locked buffers in a :class:`_PinnedPool`: data and
+    validity per column (torch tensors, kept so that an asynchronous copy
+    holds them), their numpy views, the rows the last fill left non-zero,
+    and the event of the copy that last read them."""
+
+    __slots__ = ("data", "valid", "views", "dirty", "event", "leased")
+
+    def __init__(self, dtypes, cap: int):
+        from nds_tpu_torch.engine.column import _TORCH_DTYPES
+        self.data = [_pinned_zeros(cap, _TORCH_DTYPES[np.dtype(d).name])
+                     for d in dtypes]
+        self.valid = [_pinned_zeros(cap, torch.bool) for _ in dtypes]
+        self.views = [(d.numpy(), v.numpy())
+                      for d, v in zip(self.data, self.valid)]
+        self.dirty = 0
+        self.event = None
+        self.leased = True
+
+    def fill(self, j: int, codes, valid, s: int, live: int):
+        """Column ``j`` of the chunk at rows ``[s, s + live)`` of the
+        whole-table ``codes``/``valid``: only the live prefix is written,
+        and only the tail the previous fill left dirty is zeroed."""
+        d, v = self.views[j]
+        d[:live] = codes[s:s + live]
+        v[:live] = True if valid is None else valid[s:s + live]
+        if self.dirty > live:
+            d[live:self.dirty] = 0
+            v[live:self.dirty] = False
+        return self.data[j], self.valid[j]
+
+    def release(self, event) -> None:
+        self.event = event
+        self.leased = False
+
+    def wait(self) -> None:
+        """Block this (producer) thread until the copy that last read the
+        buffers completed: an event query, never a synchronizing call."""
+        ev, self.event = self.event, None
+        while ev is not None and not ev.query():
+            time.sleep(_EVENT_POLL_S)
+
+
+# how long a producer waiting on a buffer's copy sleeps between queries
+_EVENT_POLL_S = 5e-5
+
+
+def _pinned_zeros(cap: int, dtype) -> torch.Tensor:
+    return torch.zeros(cap, dtype=dtype, pin_memory=True)
+
+
+class _PinnedPool:
+    """At most ``size`` page-locked buffer sets of one column set, reused
+    across chunks: a set is refilled only after its consumer released it
+    and the copy that read it completed. While every set is leased (a
+    consumer that keeps its chunks) a chunk gets a fresh set of its own."""
+
+    def __init__(self, dtypes, cap: int, size: int):
+        self.dtypes, self.cap, self.size = list(dtypes), cap, max(size, 1)
+        self.sets: list = []
+        self._next = 0
+
+    def acquire(self) -> _PinnedSet:
+        if len(self.sets) < self.size:
+            self.sets.append(_PinnedSet(self.dtypes, self.cap))
+            return self.sets[-1]
+        for _ in range(len(self.sets)):
+            st = self.sets[self._next]
+            self._next = (self._next + 1) % len(self.sets)
+            if not st.leased:
+                st.wait()
+                st.leased = True
+                return st
+        return _PinnedSet(self.dtypes, self.cap)
 
 
 class ChunkedTable:
@@ -140,10 +216,15 @@ class ChunkedTable:
         self.arrow = arrow
         self.canonical_types = canonical_types or {}
         self.chunk_rows = int(chunk_rows or CHUNK_ROWS)
-        # whole-table string dictionaries and narrow codecs, built once and
-        # shared with select() views (a projection never changes contents)
+        # whole-table string dictionaries, narrow codecs and host lowerings
+        # of the plain columns, built once and shared with select() views
+        # (a projection never changes contents)
         self._str_store: dict = {}
         self._enc_store: dict = {}
+        self._plain_store: dict = {}
+        # wire plans (_wire_plan), one per (column set, store directory),
+        # shared with select() views too
+        self._wire_store: dict = {}
 
     @property
     def nrows(self) -> int:
@@ -162,6 +243,8 @@ class ChunkedTable:
                            self.chunk_rows)
         out._str_store = self._str_store
         out._enc_store = self._enc_store
+        out._plain_store = self._plain_store
+        out._wire_store = self._wire_store
         return out
 
     def _canonical(self, name: str) -> str:
@@ -244,45 +327,128 @@ class ChunkedTable:
                 out[name] = got
         return out
 
-    def host_chunks(self, pinned: bool = False):
+    def _wire_plan(self) -> dict:
+        """``name -> io.chunk_store.WireColumn``: the whole-table wire
+        arrays (string codes, narrow codes, the host lowering of the
+        plain columns) of which every chunk is a slice, once per column
+        set. With the chunk store on (``NDS_TPU_CHUNK_STORE``) a warm
+        entry memory-maps back, with no codec planning and no lowering,
+        and a miss (or a stale fingerprint) builds the plan and persists
+        it; with it off the plan stays in memory. Either way the chunks
+        are the ones lowering each arrow slice gives, bit for bit.
+
+        Faults: a corrupt entry (or an injected ``chunk-store-read``
+        fault) is deleted and re-encoded once from the arrow source,
+        recorded as a fault event; a failed save is the
+        ``chunk-store-write`` seam's degrade to the in-memory plan. A
+        version drift (``ChunkStoreError``) raises."""
+        from nds_tpu_torch.io import chunk_store
+        root = chunk_store.store_root()
+        key = (tuple(self.arrow.column_names), root)
+        hit = self._wire_store.get(key)
+        if hit is not None:
+            return hit
+        if root is None:
+            plan = self._wire_store[key] = self._build_wire_plan()
+            return plan
+        from nds_tpu_torch.engine import faults as _F
+        try:
+            plan = chunk_store.load_plan(root, self.arrow,
+                                         self.canonical_types)
+        except (chunk_store.ChunkStoreCorrupt, _F.FaultInjected) as exc:
+            # the store is a cache of the arrow source: a corrupt entry
+            # is deleted and rebuilt once, never uploaded
+            _F.record_fault_event("chunk-store-read", "recovered",
+                                  attempt=1, detail=str(exc)[:200])
+            chunk_store.invalidate_entry(root, self.arrow,
+                                         self.canonical_types)
+            plan = None
+        if plan is None:
+            plan = self._build_wire_plan()
+            try:
+                chunk_store.save_plan(root, self.arrow,
+                                      self.canonical_types, plan)
+            except Exception as exc:
+                # persisting is best-effort: a full disk or a read-only
+                # store serves the plan just built
+                _F.record_fault_event("chunk-store-write", "degrade",
+                                      detail=str(exc)[:200])
+                import logging
+                logging.getLogger(__name__).warning(
+                    "chunk store save failed (%s); serving the in-memory "
+                    "wire plan for this process", exc)
+        self._wire_store[key] = plan
+        return plan
+
+    def _build_wire_plan(self) -> dict:
+        """The wire form of every column from the whole-table codecs:
+        string dictionaries, narrow FOR/dict codes, and the host lowering
+        of the remaining plain columns (cached per column)."""
+        from nds_tpu_torch import types as _t
+        from nds_tpu_torch.io.chunk_store import (WireColumn,
+                                                  lower_plain_column)
+        strings = self._string_encodings()
+        narrow = self._int_encodings()
+        plan = {}
+        for name in self.arrow.column_names:
+            kind = _t.device_kind(self._canonical(name))
+            if name in strings:
+                codes, values, valid = strings[name]
+                plan[name] = WireColumn("str", codes, valid, values, None,
+                                        "str")
+            elif name in narrow:
+                codes, valid, enc = narrow[name]
+                plan[name] = WireColumn("enc", codes, valid, None, enc, kind)
+            else:
+                if name not in self._plain_store:
+                    self._plain_store[name] = lower_plain_column(
+                        self.arrow[name], self._canonical(name))
+                data, valid = self._plain_store[name]
+                plan[name] = WireColumn("plain", data, valid, None, None,
+                                        kind)
+        return plan
+
+    def host_chunks(self, pinned: bool = False, buffers: int = 2):
         """Yield :class:`HostChunk`s at ONE uniform physical capacity
         (``chunk_cap``), the final partial chunk zero-padded up to it, with
         every column carrying an explicit validity mask (False past the
         live prefix): chunk k differs from chunk j only in buffer CONTENTS
-        — same shapes, same dictionaries, same encodings. String columns
-        carry whole-table dictionary codes and encodable int columns their
-        narrow whole-table codes. ``pinned`` fills page-locked buffers for
-        an asynchronous upload. Pure host work: no device is touched."""
-        from nds_tpu_torch import types as _t
-        from nds_tpu_torch.engine.column import lower_arrow_array
+        — same shapes, same dictionaries, same encodings. Every chunk is a
+        slice of the table's wire plan (:meth:`_wire_plan`): string columns
+        carry whole-table dictionary codes, encodable int columns their
+        narrow whole-table codes, the rest their whole-table lowering.
+
+        ``pinned`` fills page-locked buffers for an asynchronous upload,
+        leased from a pool of ``buffers`` sets: the consumer hands each
+        chunk's set back with :meth:`HostChunk.release` and the event of
+        the copy that read it, and the set is refilled only after that
+        event. Unpinned chunks get fresh numpy buffers. The plan is built
+        (or loaded) at the first chunk; the rest is pure host work, no
+        device is touched."""
         cap = self.chunk_cap
         n = self.arrow.num_rows
-        strings = self._string_encodings()
-        narrow = self._int_encodings()
+        names = list(self.arrow.column_names)
+        plan = self._wire_plan()
+        wire = [plan[name] for name in names]
+        pool = _PinnedPool([wc.data.dtype for wc in wire], cap, buffers) \
+            if pinned else None
         for s in (range(0, n, self.chunk_rows) if n else (0,)):
             live = min(self.chunk_rows, n - s) if n else 0
-            rows = slice(s, s + live)
-            sl = self.arrow.slice(s, live)
+            lease = pool.acquire() if pool is not None else None
             cols = []
-            for name in self.arrow.column_names:
-                enc = dv = None
-                if name in strings:
-                    codes, dv, valid = strings[name]
-                    kind = "str"
-                elif name in narrow:
-                    codes, valid, enc = narrow[name]
-                    kind = _t.device_kind(self._canonical(name))
+            for j, (name, wc) in enumerate(zip(names, wire)):
+                if lease is not None:
+                    data, v = lease.fill(j, wc.data, wc.valid, s, live)
                 else:
-                    kind, codes, valid, dv = lower_arrow_array(
-                        sl[name], self._canonical(name))
-                    rows = slice(0, live)
-                data, data_np = _host_buffer(codes.dtype, cap, pinned)
-                v, v_np = _host_buffer(np.bool_, cap, pinned)
-                data_np[:live] = codes[rows]
-                v_np[:live] = True if valid is None else valid[rows]
-                cols.append((name, kind, data, v, dv, enc))
-                rows = slice(s, s + live)
-            yield HostChunk(live, cap, cols)
+                    data = np.zeros(cap, dtype=wc.data.dtype)
+                    v = np.zeros(cap, dtype=np.bool_)
+                    data[:live] = wc.data[s:s + live]
+                    v[:live] = True if wc.valid is None \
+                        else wc.valid[s:s + live]
+                cols.append((name, wc.kind, data, v, wc.values, wc.enc))
+            if lease is not None:
+                lease.dirty = live
+            yield HostChunk(live, cap, cols, lease)
 
     def materialize(self, device) -> DeviceTable:
         from nds_tpu_torch.engine.column import from_arrow

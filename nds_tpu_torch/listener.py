@@ -121,6 +121,9 @@ class StreamEvent:
     prefetch_stall_ms: float = -1.0  # driver ms BLOCKED on the prefetch
     #                            ring (ring off: the inline slice + encode
     #                            + upload time); -1 = unknown
+    graph: str = ""            # how the compiled program ran: "captured",
+    #                            "replayed", "uncaptured" (cpu), "eager
+    #                            drive", "refused: <reason>"; "" = eager
 
 
 _stream_tls = threading.local()
@@ -132,7 +135,8 @@ def record_stream_event(where: str, chunks: int, syncs: int, path: str,
                         bytes_h2d: int = -1, scan_launches: int = 0,
                         probe_launches: int = 0,
                         kernel_fused_stages: int = 0,
-                        prefetch_stall_ms: float = -1.0) -> None:
+                        prefetch_stall_ms: float = -1.0,
+                        graph: str = "") -> None:
     """Engine-side hook (engine/stream.py, sql/planner.py): record how a
     streamed scan executed. Thread-scoped like the sync counters."""
     lst = getattr(_stream_tls, "events", None)
@@ -141,7 +145,7 @@ def record_stream_event(where: str, chunks: int, syncs: int, path: str,
     lst.append(StreamEvent(where, chunks, syncs, path, reason, rows,
                            partitions, tuple(part_rows), bytes_h2d,
                            scan_launches, probe_launches,
-                           kernel_fused_stages, prefetch_stall_ms))
+                           kernel_fused_stages, prefetch_stall_ms, graph))
 
 
 def drain_stream_events() -> list:
@@ -170,6 +174,7 @@ def stream_event_json(e: StreamEvent) -> dict:
         **({"prefetchStallMs": round(e.prefetch_stall_ms, 3)}
            if e.prefetch_stall_ms >= 0 else {}),
         **({"reason": e.reason} if e.reason else {}),
+        **({"graph": e.graph} if e.graph else {}),
     }
 
 

@@ -1948,6 +1948,9 @@ class Planner:
     # ----------------------------------------------------------- expressions
 
     def eval_expr(self, e, ctx: EvalCtx) -> Column:
+        if E.stream_bounds_on():
+            # the chunk-derived hazard reads check the table (ops)
+            E.note_eval_table(ctx.table)
         n = ctx.table.plen     # new columns are built at physical length
         k = expr_key(e)
         if ctx.window_values and k in ctx.window_values:

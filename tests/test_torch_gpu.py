@@ -961,3 +961,187 @@ def test_failed_capture_blacklists_with_its_reason(replay_session,
     # the record pass and the warm-up replay launched; the capture did not
     assert l3 == l1 and l2 == {k: 2 * v for k, v in l1.items()}
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+# ---------------------------------------------------------------------------
+# the streamed per-chunk program captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# a star join (K4 + K5), a scan of the fact alone, and a fan-out join
+# (K5; at 2 partitions the P bodies of one graph)
+STREAM_QS = [
+    "select d_year, i_brand_id, sum(ss_price) s from store_sales, "
+    "date_dim, item where ss_date = d_date_sk and ss_item = i_item_sk "
+    "and d_moy = 11 and ss_price > 100 group by d_year, i_brand_id "
+    "order by d_year, s desc, i_brand_id",
+    "select ss_item, count(*) c, sum(ss_price) s from store_sales "
+    "where ss_price > 5000 group by ss_item order by ss_item",
+    "select ss_item, count(*) c, sum(sr_amt) r from store_sales, "
+    "store_returns where ss_item = sr_item and ss_price > 5000 "
+    "group by ss_item order by ss_item",
+]
+
+
+def _stream_session(conf=None):
+    import pyarrow as pa
+
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.engine.table import ChunkedTable
+    rng = np.random.default_rng(42)
+    n, nd = 200_000, 365
+    s = Session(conf=dict(conf or {}), device="cuda")
+    s.create_temp_view("date_dim", pa.table({
+        "d_date_sk": pa.array(np.arange(1, nd + 1), pa.int64()),
+        "d_year": pa.array(1998 + np.arange(nd) // 120, pa.int64()),
+        "d_moy": pa.array(1 + (np.arange(nd) // 30) % 12, pa.int64()),
+    }), base=True)
+    s.create_temp_view("item", pa.table({
+        "i_item_sk": pa.array(np.arange(1, 201), pa.int64()),
+        "i_brand_id": pa.array(rng.integers(1000, 1020, 200), pa.int64()),
+    }), base=True)
+    s.create_temp_view("store_returns", pa.table({
+        "sr_item": pa.array(np.repeat(np.arange(1, 201), 3), pa.int64()),
+        "sr_ticket": pa.array(np.arange(600), pa.int64()),
+        "sr_amt": pa.array(rng.integers(1, 100, 600), pa.int64()),
+    }), base=True)
+    s.create_temp_view("store_sales", ChunkedTable(pa.table({
+        "ss_date": pa.array(rng.integers(1, nd + 40, n), pa.int64()),
+        "ss_item": pa.array(rng.integers(1, 230, n), pa.int64()),
+        "ss_price": pa.array(rng.integers(1, 10_000, n), pa.int64()),
+    }), chunk_rows=1 << 15), base=True)
+    return s
+
+
+def _drive_launches(events):
+    """K4 and K5 launches of the compiled drives (a first execution's
+    record of the program is not a drive)."""
+    return [(e.scan_launches, e.probe_launches) for e in events]
+
+
+def _streamed(s, q, graph=True):
+    """(rows, K4 and K5 launches, drained stream events) of one
+    statement."""
+    from nds_tpu_torch.listener import drain_stream_events
+    drain_stream_events()
+    l0 = dict(K.LAUNCHES)
+    rows = s.sql(q, graph=graph).collect()
+    return (rows, {k: K.LAUNCHES[k] - l0[k]
+                   for k in ("chunk_scan", "join_probe")},
+            drain_stream_events())
+
+
+@pytest.fixture()
+def stream_sessions(cuda):
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    return {"one": _stream_session(),
+            "partitioned": _stream_session({"stream_partitions": 2})}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sess", ["one", "partitioned"])
+@pytest.mark.parametrize("q", range(len(STREAM_QS)))
+def test_stream_graph_equals_the_eager_drive(stream_sessions, sess, q):
+    """The first drive captures the per-chunk program, the next replays
+    it: both give the eager drive's rows with its K4 and K5 launches (the
+    first execution also records the program, which launches on its
+    own)."""
+    s, sql = stream_sessions[sess], STREAM_QS[q]
+    r1, l1, e1 = _streamed(s, sql)
+    r2, l2, e2 = _streamed(s, sql)
+    r3, l3, e3 = _streamed(s, sql, graph=False)
+    assert r1 == r2 == r3 and r1
+    assert [e.graph for e in e1] == ["captured"], \
+        [(e.path, e.reason, e.graph) for e in e1]
+    assert [e.graph for e in e2] == ["replayed"]
+    assert [e.graph for e in e3] == ["eager drive"]
+    assert l2 == l3 and l2["chunk_scan"] + l2["join_probe"] > 0
+    assert _drive_launches(e1) == _drive_launches(e2) == \
+        _drive_launches(e3)
+    if sess == "partitioned" and q == 2:
+        assert [e.partitions for e in e2] == [2]
+
+
+@pytest.mark.gpu
+def test_stream_graph_loop_makes_no_synchronizing_call(stream_sessions,
+                                                       monkeypatch):
+    """Every step of the chunk loop (the copy into the slots, the replay,
+    the ring's fetch) runs under sync debug mode ``error``: a
+    synchronizing call would raise."""
+    from nds_tpu_torch.engine import prefetch as PF
+    from nds_tpu_torch.engine import stream as S
+    steps = []
+
+    def strict(real):
+        def run(*a, **k):
+            steps.append(1)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    s = stream_sessions["one"]
+    want = _streamed(s, STREAM_QS[0])[0]            # captured
+    monkeypatch.setattr(S.StreamPipeline, "_step",
+                        strict(S.StreamPipeline._step))
+    for ring in (PF.ChunkRing, PF._InlineRing):
+        monkeypatch.setattr(ring, "next_chunk", strict(ring.next_chunk))
+    rows, _l, events = _streamed(s, STREAM_QS[0])
+    assert rows == want and [e.graph for e in events] == ["replayed"]
+    assert len(steps) >= 2 * events[0].chunks - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_stream_graph_rows_do_not_depend_on_ring_depth(cuda, depth):
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    want = _streamed(_stream_session(), STREAM_QS[2], graph=False)[0]
+    s = _stream_session({"prefetch_depth": depth})
+    for graph in ("captured", "replayed"):
+        rows, _l, events = _streamed(s, STREAM_QS[2])
+        assert rows == want and [e.graph for e in events] == [graph]
+
+
+@pytest.mark.gpu
+def test_refused_capture_records_its_reason(stream_sessions, monkeypatch):
+    """A pageable host-to-device copy inside the capture refuses it: the
+    statement runs the eager drive with the eager rows and launches, the
+    event says why, and later executions stay on the eager drive."""
+    s = stream_sessions["one"]
+    _streamed(s, STREAM_QS[0], graph=False)           # records
+    want, launches, _e = _streamed(s, STREAM_QS[0], graph=False)
+    real = K.chunk_scan
+
+    def copying(*a):
+        if torch.cuda.is_current_stream_capturing():
+            torch.as_tensor(np.arange(4)).to("cuda")      # pageable
+        return real(*a)
+
+    monkeypatch.setattr(K, "chunk_scan", copying)
+    for _ in range(2):
+        rows, got, events = _streamed(s, STREAM_QS[0])
+        assert rows == want and got == launches
+        (e,) = events
+        assert e.path == "compiled" and \
+            e.graph.startswith("refused: capture failed"), e.graph
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_stream_graph_recaptures_after_its_pipeline_is_dropped(cuda):
+    """A pipeline whose graph was the only one in the session's pool is
+    dropped (as an eviction or a pipeline rebuilt for new parts drops
+    it); the next execution captures into the same pool again."""
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    s = _stream_session()
+    want, _l, e1 = _streamed(s, STREAM_QS[1])
+    for _ in range(2):
+        S._PIPELINE_CACHE.clear()
+        rows, _l, events = _streamed(s, STREAM_QS[1])
+        assert rows == want and [e.graph for e in events] == ["captured"], \
+            [e.graph for e in events]
+    assert [e.graph for e in e1] == ["captured"]

@@ -6,8 +6,14 @@ reference on the CPU: the ``tests/test_streaming.py`` cases and the 14
 reference's order; every ``must_stream`` statement runs through the
 pipeline (``path == "compiled"``) within 6 host syncs; a forced partition
 count of 2 partitions the fan-out subset; the eager loop gives the same
-rows. Inputs are made from fixed numpy seeds."""
+rows, and so do the 14 statements with the chunk store on. The compiled
+drive (on the CPU the static-slot program, uncaptured) gives the eager
+drive's rows and resets its static operands between two executions of a
+cached pipeline; a chunk-derived host read that the log would replay
+sends its statement to the eager loop. Inputs are made from fixed numpy
+seeds."""
 
+import os
 import threading
 
 import numpy as np
@@ -123,6 +129,94 @@ def test_ab_statement_partitioned_and_eager(port_sessions, reference_rows,
     eager, _syncs, ev = _run(port_sessions["eager"], q)
     assert eager == rows, q
     assert {e.path for e in ev} == {"eager"}
+
+
+@pytest.fixture(scope="module")
+def store_session(tmp_path_factory):
+    """The star session whose streamed scans read their wire plans
+    through a chunk store (cold for the first statement of a column set,
+    then warm)."""
+    return _port_star(42, {}), str(tmp_path_factory.mktemp("chunk_store"))
+
+
+@pytest.mark.parametrize("i", _AB)
+def test_ab_statement_with_the_chunk_store_matches_reference(
+        store_session, reference_rows, monkeypatch, i):
+    s, root = store_session
+    monkeypatch.setenv("NDS_TPU_CHUNK_STORE", root)
+    q, must_stream = _STREAM_AB_QUERIES[i]
+    rows, _syncs, events = _run(s, q)
+    assert rows == reference_rows[i], q
+    if must_stream:
+        assert events and all(e.path == "compiled" for e in events)
+    assert os.listdir(root)
+
+
+@pytest.mark.parametrize("i", _AB)
+@pytest.mark.parametrize("sess", ["compiled", "partitioned"])
+def test_static_drive_equals_eager_drive_and_resets(port_sessions,
+                                                    monkeypatch, sess, i):
+    """The compiled drive (on the CPU the static-slot, in-place program
+    run uncaptured) gives the eager drive's rows; a second execution of
+    the same cached pipeline reuses its static operands, reset by
+    kernels, and gives the same rows again."""
+    from nds_tpu_torch.engine import stream as S
+    made = []
+    real = S._Static.__init__
+
+    def counting(self, *a, **k):
+        made.append(1)
+        real(self, *a, **k)
+
+    monkeypatch.setattr(S._Static, "__init__", counting)
+    s = port_sessions[sess]
+    q, _must = _STREAM_AB_QUERIES[i]
+    first, _s1, ev1 = _run(s, q)
+    made.clear()
+    again, _s2, ev2 = _run(s, q)
+    drain_stream_events()
+    eager = s.sql(q, graph=False).collect()
+    ev3 = drain_stream_events()
+    assert first == again == eager, q
+    compiled = [e for e in ev2 if e.path == "compiled"]
+    assert all(e.graph == "uncaptured" for e in compiled)
+    assert not made or not compiled, "a cached pipeline reallocated"
+    assert all(e.graph == "eager drive" for e in ev3
+               if e.path == "compiled")
+    assert [e.path for e in ev3] == [e.path for e in ev2]
+
+
+def test_chunk_derived_host_read_takes_the_eager_loop(rich_sessions):
+    """``year``/``month`` of a streamed date column and a cast of a
+    streamed column to a string are whole-column host reads of chunk
+    data: recorded on the first chunk and replayed, every chunk would get
+    the first chunk's values. The record refuses them, so the statement
+    takes the eager chunk loop and gives the resident rows. The compare
+    is with the resident rows because the reference's streamed result is
+    the wrong one there (its log replays the first chunk's values)."""
+    _ref, resident, streamed = rich_sessions
+    for q in ("select count(*) c, sum(l_price) s from lineitem "
+              "where year(l_date) = 2000",
+              "select month(l_date) m, count(*) c from lineitem "
+              "where month(l_date) >= 6 group by month(l_date) order by m",
+              "select count(*) c from lineitem "
+              "where cast(l_key as string) like '1%'"):
+        got, _syncs, events = _run(streamed, q)
+        assert got == resident.sql(q).collect() and got, q
+        assert [(e.path, e.reason) for e in events] == \
+            [("eager", "not chunk-invariant")], q
+
+
+def test_dimension_side_host_read_stays_compiled(port_sessions):
+    """The same kind of read over a non-streamed part is chunk-invariant:
+    the statement stays on the pipeline, with the eager loop's rows."""
+    q = ("select d_year, count(*) c from store_sales, date_dim "
+         "where ss_sold_date_sk = d_date_sk "
+         "and cast(d_year as string) = '1998' group by d_year")
+    rows, _syncs, events = _run(port_sessions["compiled"], q)
+    assert [e.path for e in events] == ["compiled"]
+    eager, _s, _e = _run(port_sessions["eager"], q)
+    assert rows == eager and rows
 
 
 def test_ab_statements_take_the_kernels(port_sessions, monkeypatch):
