@@ -266,6 +266,37 @@ def stream_skew_factor() -> int:
     return max(int(E.setting("stream_skew")), 1)
 
 
+def stream_shards() -> int:
+    """The ``stream_shards`` setting: the shard count of a streamed
+    pipeline (rounded up to a power of two, clamped to
+    :data:`_MAX_PARTITIONS` like the partition count, so the two routing
+    windows take at most 8 + 8 of the hash's 32 bits; <= 1 disables). The
+    runtime also needs that many local devices, or shards that share them
+    (``parallel.exchange.stream_mesh``), and builds unsharded otherwise."""
+    from nds_tpu_torch.engine import ops as E
+    got = E.setting("stream_shards")
+    return 1 if got is None else min(_pow2_at_least(int(got)),
+                                     _MAX_PARTITIONS)
+
+
+def shard_row_bound(rows: int, n_shards: int, n_partitions: int, k: int,
+                    fanout: int, skew: int | None = None) -> int:
+    """Per-shard survivor-row bound of a sharded streamed graph: the
+    structural bound of one shard's skew-factored row share, ``rows /
+    shards x skew`` through the fan-out exponent. With partitions the
+    partition share re-shares over the shards, each level keeping its own
+    skew allowance. The runtime enforces it with per-shard overflow flags
+    (overflow => eager rerun), as :func:`partition_row_bound`."""
+    if skew is None:
+        skew = stream_skew_factor()
+    share = max(int(rows), 1)
+    if n_partitions > 1:
+        share = min(share, -(-share // int(n_partitions)) * int(skew))
+    if n_shards > 1:
+        share = min(share, -(-share // int(n_shards)) * int(skew))
+    return structural_row_bound(share, k, fanout)
+
+
 def partition_row_bound(rows: int, n_partitions: int, k: int, fanout: int,
                         skew: int | None = None) -> int:
     """Per-partition survivor-row bound of a hash-partitioned streamed

@@ -5,8 +5,8 @@ bounded and recoverable.
 * **Registry** — :data:`SEAMS` names every failure seam with its
   classification (``transient`` / ``degradable`` / ``fatal``) and its
   recovery policy. A seam that is not registered cannot be injected.
-  Seams whose module the port does not have yet (the chunk store, the
-  exchange, the federation peer) stay registered with no call site.
+  Seams whose module the port does not have yet (the federation peer)
+  stay registered with no call site.
 * **Deterministic injection** — ``NDS_TPU_FAULT=seam:kind:nth`` (read at
   use, never at import) makes the ``nth`` occurrence of
   :func:`fault_point` at ``seam`` raise :class:`FaultInjected`
@@ -88,8 +88,8 @@ SEAMS = {s.name: s for s in (
          DEGRADABLE,
          "degrade compiled->eager: the statement reruns through the "
          "eager chunk loop, bit for bit, recorded as a fault event"),
-    Seam("exchange", "the sharded pipeline's collective dispatch (not "
-         "ported yet: no call site)",
+    Seam("exchange", "engine/stream.py StreamPipeline._drive_static / "
+         "_drive_eager (the sharded pipeline's per-chunk exchange)",
          DEGRADABLE,
          "degrade sharded->single-device eager rerun, bit-for-bit"),
     Seam("chunk-store-read", "io/chunk_store.py load_plan, recovered in "

@@ -25,6 +25,7 @@ signed order after flipping bit 63.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -94,6 +95,25 @@ class _OnDevice:
         t.device, t.conf, t.graph_pool, t.stream_graph = self._prev
 
 
+@contextlib.contextmanager
+def device_scope(dev):
+    """Context: new tensors of the enclosed operators go to ``dev`` (one
+    shard's device), and on cuda ``dev`` is the current device, so the
+    hand-written kernels (launched through ctypes, with no device guard
+    of their own) run on the card their tensors and stream belong to;
+    everything else of the calling statement stays."""
+    t = _sync_tls
+    prev = getattr(t, "device", None)
+    t.device = torch.device(dev)
+    guard = torch.cuda.device(t.device) if t.device.type == "cuda" \
+        else contextlib.nullcontext()
+    try:
+        with guard:
+            yield t.device
+    finally:
+        t.device = prev
+
+
 def on_device(dev, conf=None, pool=None, graph=True):
     """Context: run the enclosed operators on ``dev``, with the session's
     ``conf`` answering :func:`setting` (the caller's conf stays when
@@ -138,6 +158,9 @@ STREAM_DEFAULTS = {
     # device-memory capacity model in bytes (None: the card's own memory
     # on cuda, the reference's 16 GiB on the CPU)
     "hbm_bytes": None,
+    # shard count of a streamed pipeline (rounded up to a power of two;
+    # <= 1, or fewer local devices than shards: unsharded)
+    "stream_shards": 1,
 }
 
 

@@ -71,21 +71,43 @@ def prefetch_depth() -> int:
 class Upload:
     """A payload whose device tensors were copied on a side stream:
     ``value`` is what the consumer gets, ``tensors`` the device tensors
-    the copies wrote, ``event`` the event recorded after them."""
+    the copies wrote, ``event`` the event recorded after them (a list of
+    events, one a device, for a payload joined from several devices'
+    uploads)."""
 
     __slots__ = ("value", "tensors", "event")
 
     def __init__(self, value, tensors, event):
         self.value, self.tensors, self.event = value, tensors, event
 
+    @staticmethod
+    def joined(parts, value):
+        """One payload ``value`` from several uploads (one a device);
+        ``value`` itself when none of ``parts`` is an Upload (the CPU)."""
+        ups = [u for u in parts if isinstance(u, Upload)]
+        if not ups:
+            return value
+        return Upload(value, [t for u in ups for t in u.tensors],
+                      [e for u in ups for e in _events(u.event)])
+
     def consume(self):
-        """Order the caller's current stream after the upload (a device
-        wait, not a host one) and return ``value``."""
-        cur = torch.cuda.current_stream(self.event.device)
-        cur.wait_event(self.event)
+        """Order the caller's current stream (on each upload's device)
+        after the upload (a device wait, not a host one) and return
+        ``value``."""
+        for ev in _events(self.event):
+            torch.cuda.current_stream(ev.device).wait_event(ev)
         for t in self.tensors:
-            t.record_stream(cur)
+            t.record_stream(torch.cuda.current_stream(t.device))
         return self.value
+
+
+def _events(event) -> list:
+    return list(event) if isinstance(event, (list, tuple)) else [event]
+
+
+def value_of(payload):
+    """The value of an Upload, or the payload itself."""
+    return payload.value if isinstance(payload, Upload) else payload
 
 
 def upload_async(device, side_stream, copy):

@@ -83,6 +83,14 @@ class Session:
     def __init__(self, conf: dict | None = None, device=None):
         self.conf = dict(conf or {})
         self.device = resolve_device(device or self.conf.get("device"))
+        if int(self.conf.get("mesh_shape") or 1) > 1:
+            # the reference's meshed resident session (GSPMD over every
+            # eager operator) has no counterpart in the port yet
+            raise NotImplementedError(
+                f"mesh_shape {self.conf['mesh_shape']}: the meshed resident "
+                "session is not ported (ROADMAP.md Queue 1, \"the meshed "
+                "resident session\"); streamed scans shard through the "
+                "stream_shards setting")
         self.catalog: dict[str, DeviceTable] = {}
         self.base_tables: set[str] = set()   # names loaded as pristine scans
         self.app_id = f"nds-tpu-torch-{int(time.time() * 1000)}"

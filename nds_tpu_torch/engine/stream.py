@@ -1,6 +1,6 @@
 # Copyright (c) 2026, nds-tpu authors. Licensed under the Apache License, Version 2.0.
 """The streamed chunk pipeline: a sync-budgeted executor for scans of tables
-bigger than device memory (single device).
+bigger than device memory, on one device or on shards.
 
 The eager chunk loop (``Planner._stream_join_parts``) re-plans the join
 graph per chunk, and every chunk pays the per-chunk host syncs (join pair
@@ -85,10 +85,32 @@ partition, into the partition's own proof-sized accumulator. The single
 materializing read fetches every partition's count and flag and the
 histogram together.
 
+Sharded execution (``stream_shards`` > 1, on a mesh of that many local
+devices, or of shards sharing a device inside
+``parallel.exchange.sharing_devices()``; parallel/exchange.py): every padded chunk's rows split contiguously over
+the shards, the parts, replay operands and residuals go to every shard's
+device, and each shard runs the same per-chunk program on its own slice
+into its own accumulators (per shard and partition), sized by the budget
+re-shared over the shards (``mem_audit.shard_row_bound``) and guarded by
+their overflow flags. A partitioned graph (a fan-out join, whose keys an
+arbitrary row split does not co-partition) adds a per-chunk hash-exchange
+pass: each shard's K4 pass (or the plain hash fold) gives the routing
+hash, whose partition bits pick the partition and whose next bits the
+destination shard; the rows are bucketed by destination and cross in one
+all-to-all, so each shard owns a key range. The one materializing read fetches every
+(shard, partition) count, the flags, the histogram and the outer-build
+bitmaps after one cross-shard reduce, so the 6-sync budget holds at any
+shard count; one shard is exactly the unsharded pipeline. Shards that
+share one device run as one captured graph like the unsharded program;
+shards on distinct cards take the eager drive (``graph`` says why). A
+pipeline built for one mesh never serves another (the cache key holds
+it). The exchange's dispatch is the ``exchange`` fault seam: a fault
+there degrades the statement to the single-device eager chunk loop.
+
 Settings (``Session(conf=...)`` keys, ``ops.STREAM_DEFAULTS``):
 ``stream_exec``, ``stream_partitions``,
 ``stream_acc_rows``, ``stream_fanout``, ``stream_skew``,
-``prefetch_depth``, ``hbm_bytes``.
+``prefetch_depth``, ``hbm_bytes``, ``stream_shards``.
 
 Faults (engine/faults.py): the chunk uploads are the ``device-put``
 seam, retried in place; the record is the ``pipeline-compile`` seam; a
@@ -122,6 +144,7 @@ from nds_tpu_torch.engine.table import DeviceTable, upload_chunk
 from nds_tpu_torch.listener import record_stream_event
 from nds_tpu_torch.obs import metrics as _metrics
 from nds_tpu_torch.obs import trace as _obs
+from nds_tpu_torch.parallel import exchange as _X
 
 log = logging.getLogger(__name__)
 
@@ -235,6 +258,19 @@ def _part_acc_budget(n_chunks, chunk_out_plen, part_bound, row_bytes,
     return rows
 
 
+def _shard_plan(chunk_cap: int):
+    """``(n_shards, mesh)`` of the pipeline being built: > 1 only when the
+    ``stream_shards`` setting asks for a count that divides the chunk
+    capacity and this process can serve (enough local devices, or
+    shards sharing them inside ``exchange.sharing_devices()``)."""
+    from nds_tpu_torch.analysis.mem_audit import stream_shards
+    n = stream_shards()
+    if n <= 1 or chunk_cap % n:
+        return 1, None
+    mesh = _X.stream_mesh(n, E.device())
+    return (1, None) if mesh is None else (n, mesh)
+
+
 # pipelines are cached across statements (a Power Run executes each query
 # text 2-4 times); bounded FIFO, identity-validated on hit
 _PIPELINE_CACHE: dict = {}
@@ -251,12 +287,82 @@ def _evict(key) -> None:
 
 
 # pipelines holding static operands (and, on cuda, a captured graph), oldest
-# first: their bytes stay within a quarter of the device-memory model, the
-# newest kept regardless. Weak: a pipeline dropped from the cache takes its
+# first: their bytes (the operands and the graph pool's growth at each
+# capture) stay within a quarter of the device-memory model, the newest
+# kept regardless. Weak: a pipeline dropped from the cache takes its
 # operands with it
 _STATIC = weakref.WeakValueDictionary()
 _STATIC_LOCK = threading.Lock()
 _STATIC_SHARE = 4
+# graph pool bytes that released graphs left free in their pool: the next
+# capture may reuse any of them without the pool growing, so it is charged
+# with all of them (the pool itself never shrinks)
+_POOL_FREE = 0
+
+
+def static_budget() -> int:
+    """Bytes the cached pipelines' static operands and graph pools may
+    hold together: a quarter of the device-memory model."""
+    return max(_hbm_bytes() // _STATIC_SHARE, 1)
+
+
+def static_report() -> dict:
+    """The pipelines holding static operands now: their count, operand
+    and graph-pool bytes, the free pool bytes released graphs left, and
+    the budget (as the calling statement's device and settings give it:
+    call it under ``ops.on_device``)."""
+    with _STATIC_LOCK:
+        held = [p._static for p in _STATIC.values()
+                if p._static is not None]
+        return {"pipelines": len(held),
+                "static_bytes": sum(s.static_bytes for s in held),
+                "pool_bytes": sum(s.pool_bytes for s in held),
+                "free_pool_bytes": _POOL_FREE,
+                "budget": static_budget()}
+
+
+def _release(pipe) -> None:
+    """Drop ``pipe``'s static operands and graph (under ``_STATIC_LOCK``):
+    the graph's pool bytes stay in the pool, free for the next capture."""
+    global _POOL_FREE
+    st = pipe._static
+    if st is not None and st.graph is not None:
+        _POOL_FREE += st.pool_bytes
+    _STATIC.pop(id(pipe), None)
+    pipe._static = None
+
+
+# a capture starts only with this share of the card free: it allocates from
+# its graph pool alone, and a failed capture leaves the pool unusable
+_CAPTURE_FREE_SHARE = 8
+
+
+def _make_room(dev) -> None:
+    """Before a capture: when less than an eighth of the card is free,
+    hand the caching allocator's unused blocks back to the device. A
+    capture cannot take them (it allocates from its own pool, and
+    releasing memory while capturing is not allowed), so with the card
+    full of cached blocks it would run out of memory (an SF10 stream run
+    on an 80 GB card: 53 GiB allocated, 26 GiB cached)."""
+    free, total = torch.cuda.mem_get_info(dev)
+    if free * _CAPTURE_FREE_SHARE < total:
+        torch.cuda.empty_cache()
+
+
+def _enforce_budget(keep) -> None:
+    """Release other pipelines' static operands and graphs, oldest first
+    and only those no execution holds, while the total passes the budget
+    (under ``_STATIC_LOCK``)."""
+    budget = static_budget()
+    for pid in list(_STATIC):
+        if sum(p._static.nbytes for p in _STATIC.values()
+               if p._static is not None) <= budget:
+            break
+        other = _STATIC.get(pid)
+        if other is None or other is keep or other._static is None:
+            continue
+        if other._static.lock.acquire(blocking=False):
+            _release(other)
 
 
 def _restore_counts(snapshot, checks_snapshot):
@@ -347,24 +453,32 @@ class _Acc:
 class _Static:
     """The static operands of one pipeline's compiled program: the chunk
     slots (the flattened chunk) and its live count, the subquery residual
-    slots, one accumulator per partition and the partition histogram; on
-    cuda the captured graph, the upload stage its capture was served from
-    and the kernel launches one replay makes. ``lock`` is held while an
-    execution drives them (a concurrent execution of the same pipeline
-    takes the eager drive)."""
+    slots, one accumulator per shard and partition (shard-major), and per
+    shard the partition histogram and the exchange's overflow flag; on
+    cuda the captured graph, the upload stage its capture was served from,
+    the kernel launches one replay makes and the bytes its capture grew
+    the graph pool by. ``lock`` is held while an execution drives them (a
+    concurrent execution of the same pipeline takes the eager drive)."""
 
-    __slots__ = ("slots", "n_dev", "resid", "accs", "hist", "graph",
-                 "stage", "launches", "nbytes", "lock")
+    __slots__ = ("slots", "n_dev", "resid", "accs", "hist", "exovf",
+                 "graph", "stage", "launches", "static_bytes",
+                 "pool_bytes", "lock")
 
-    def __init__(self, slots, n_dev, resid, accs, hist):
+    def __init__(self, slots, n_dev, resid, accs, hist, exovf):
         self.slots, self.n_dev, self.resid = slots, n_dev, resid
-        self.accs, self.hist = accs, hist
+        self.accs, self.hist, self.exovf = accs, hist, exovf
         self.graph = self.stage = None
         self.launches: dict = {}
-        self.nbytes = sum(int(t.nbytes) for t in (
-            *slots, n_dev, *(x for r in resid for x in r), hist,
+        self.static_bytes = sum(int(t.nbytes) for t in (
+            *(x for x in slots if x is not None), n_dev,
+            *(x for r in resid for x in r), *hist, *exovf,
             *(b for a in accs for b in a.buffers())))
+        self.pool_bytes = 0
         self.lock = threading.Lock()
+
+    @property
+    def nbytes(self) -> int:
+        return self.static_bytes + self.pool_bytes
 
 
 class StreamPipeline:
@@ -374,14 +488,20 @@ class StreamPipeline:
     ``key_slots`` index the chunk's flattened buffers that the partition
     hash folds, the per-chunk program runs once per partition on the chunk
     masked to it, and ``run`` keeps one proof-sized accumulator per
-    partition — all fetched in the single materializing read."""
+    partition — all fetched in the single materializing read.
+
+    ``n_shards`` > 1 runs the program on each shard of ``mesh`` (a
+    contiguous slice of every chunk, or with ``exchange`` the rows routed
+    to the shard, at most ``cap_ex`` from each source shard), into one
+    accumulator per shard and partition."""
 
     def __init__(self, chunk_spec, chunk_cap, part_specs, keep, log_entries,
                  operands, out_template, out_plen, acc_cap, part_refs,
                  join_preds, where_kept, sources, n_partitions=1,
                  key_slots=(),
                  outer_meta=(), residuals=(), resid_specs=(),
-                 build_slots=(), name_catalog=None, scan_spec=None):
+                 build_slots=(), name_catalog=None, scan_spec=None,
+                 n_shards=1, mesh=None, exchange=False, cap_ex=0):
         self.chunk_spec = chunk_spec      # ((aliased name, kind, dict), ...)
         self.chunk_cap = chunk_cap
         self.part_specs = part_specs      # specs of non-streamed parts
@@ -412,6 +532,19 @@ class StreamPipeline:
         # the K4 scan pass: the chunk-invariant predicate/codec spec
         # extracted at record time; None = the graph evaluates them all
         self.scan_spec = scan_spec
+        # sharded execution: the shard count and mesh, the per-shard slice
+        # of a chunk, and under the exchange the bucket capacity of each
+        # (source shard, destination) pair; the program's physical chunk
+        # length on a shard, and (sharded) the output capacity its first
+        # run gave. The exchange's collectives a chunk are counted at the
+        # program's first run from Python.
+        self.n_shards, self.mesh = n_shards, mesh
+        self.exchange, self.cap_ex = exchange, cap_ex
+        self.shard_plen = chunk_cap // n_shards
+        self.body_plen = chunk_cap if n_shards == 1 else \
+            (n_shards * cap_ex if exchange else self.shard_plen)
+        self.body_out_plen = out_plen if n_shards == 1 else None
+        self.coll_chunk = None
         # the compiled program's static operands (allocated at the first
         # compiled drive) and, once a capture failed, why
         self._static: _Static | None = None
@@ -420,9 +553,11 @@ class StreamPipeline:
     # ------------------------------------------------------------ program
 
     def _body(self, chunk_flat, n_dev, parts_flat, acc: _Acc, resid_flat,
-              live=None, pids=None, part_id=None):
+              live=None, pids=None, part_id=None, operands=None):
         """The per-chunk program: the recorded join graph replayed on one
-        chunk, its survivors scattered into ``acc``. No host read."""
+        chunk (a shard's rows of it), its survivors scattered into
+        ``acc``. ``operands``: the replay operands on this shard's device
+        (default the recorded ones). No host read."""
         from nds_tpu_torch.sql.planner import Planner, _OuterBuild, \
             _OuterProbe
         names, kinds, dicts, valided, dtypes, encs = self.out_template
@@ -431,8 +566,8 @@ class StreamPipeline:
             cols[aname] = Column(kind, chunk_flat[i], chunk_flat[i + 1],
                                  dv, cenc)
             i += 2
-        chunk = DeviceTable(cols, E.DeviceCount(n_dev, self.chunk_cap),
-                            plen=self.chunk_cap)
+        chunk = DeviceTable(cols, E.DeviceCount(n_dev, self.body_plen),
+                            plen=self.body_plen)
         mask = live
         if pids is not None:
             pm = pids == part_id
@@ -466,7 +601,8 @@ class StreamPipeline:
                                              self.resid_specs, resid_flat):
             pl._subquery_residuals[rkey] = (None,
                                             _rebuild_part(rspec, rflat))
-        with E.replaying(self.log, self.operands):
+        with E.replaying(self.log, self.operands if operands is None
+                         else operands):
             with E.stream_bounds() as sb:
                 with E.outer_match_collector() as omc:
                     out = pl._join_parts(sub, list(self.join_preds),
@@ -482,7 +618,11 @@ class StreamPipeline:
             raise E.ReplayMismatch(
                 "streamed replay registered a different outer-build mask "
                 "count than the recording")
-        if out.plen != self.out_plen:
+        if self.body_out_plen is None:
+            # a shard's program runs on a shorter chunk than the
+            # recording: its first run fixes the output capacity
+            self.body_out_plen = out.plen
+        elif out.plen != self.body_out_plen:
             raise E.ReplayMismatch(
                 "streamed replay produced a different output capacity "
                 "than the recording")
@@ -520,11 +660,202 @@ class StreamPipeline:
         if h is None:
             h = _K.fold_hash([flat[s] for s in self.key_slots])
         pids = (h & (P - 1)).to(I64)
-        live = torch.arange(self.chunk_cap, device=pids.device) < n_dev
+        live = torch.arange(pids.shape[0], device=pids.device) < n_dev
         ids = torch.where(live, pids, torch.full((), P, dtype=I64,
                                                   device=pids.device))
         hist += prim.segment_sum(torch.ones_like(ids), ids, P)
         return pids
+
+    # ------------------------------------------------------------- shards
+
+    def _shard_views(self, flat, n_dev):
+        """Each shard's contiguous slice of a chunk that lies whole on one
+        device: ``(buffers, live count)``, the buffers views, the count
+        derived on the device from the chunk's."""
+        sp = self.shard_plen
+        return [(tuple(None if b is None else b[s * sp:(s + 1) * sp]
+                       for b in flat), (n_dev - s * sp).clamp(0, sp))
+                for s in range(self.n_shards)]
+
+    def _replicas(self, parts_flat, resid_flat):
+        """The parts, residuals and replay operands on every shard's
+        device: ``(parts, resid, operands)``, one entry a shard."""
+        def on(dev, xs):
+            return tuple(x.to(dev, non_blocking=True) if torch.is_tensor(x)
+                         else x for x in xs)
+        out = ([], [], [])
+        for dev in self.mesh.devices:
+            out[0].append(tuple(on(dev, p) for p in parts_flat))
+            out[1].append(tuple(on(dev, r) for r in resid_flat))
+            out[2].append(on(dev, self.operands))
+        return out
+
+    def _send_buffers(self, flat, n_s, hist, exovf):
+        """One shard's half of the exchange. Its K4 pass (or the plain
+        hash fold) gives the survivor mask and the routing hash; the
+        partition bits of every live row count into the shard's
+        histogram, the next ``log2(shards)`` bits pick the destination
+        shard, and the survivors are bucketed by destination, at most
+        ``cap_ex`` a bucket (a fuller bucket sets the shard's overflow
+        flag; the rows it drops make the statement rerun eagerly). A
+        failed row routes past the last shard and never crosses. Returns
+        the send buffers (one per chunk buffer, then the partition ids)
+        and their validity."""
+        S, P, cap = self.n_shards, self.n_partitions, self.cap_ex
+        dev = n_s.device
+        alive = torch.arange(self.shard_plen, device=dev) < n_s
+        if self.scan_spec is not None:
+            mask, h = self._scan(flat, n_s)
+        else:
+            mask = alive
+            h = _K.fold_hash([flat[k] for k in self.key_slots])
+        h = h.to(I64) & 0xFFFFFFFF
+        pids = h & (P - 1)
+        past = torch.full((), P, dtype=I64, device=dev)
+        hist += prim.segment_sum(torch.ones_like(pids),
+                                 torch.where(alive, pids, past), P)
+        dest = torch.where(mask, (h >> (P.bit_length() - 1)) & (S - 1),
+                           torch.full((), S, dtype=I64, device=dev))
+        order, sd, pos = _X.bucket_positions(dest)
+        fits = (pos < cap) & (sd < S)
+        counts = prim.segment_sum((sd < S).to(I64), sd, S)
+        exovf |= (counts > cap).any()
+        slot = _X.grid_slots(sd, pos, S, cap)
+        bufs = {}
+        # the partition ids cross as int32, as the reference sends them
+        for i, b in enumerate((*flat, pids.to(torch.int32))):
+            if b is None:
+                continue
+            v = b[order]
+            bufs[i] = _X.scatter_grid(
+                slot, torch.where(fits, v, torch.zeros((), dtype=v.dtype,
+                                                       device=dev)), S, cap)
+        return bufs, _X.scatter_grid(slot, fits, S, cap)
+
+    def _sharded_chunk(self, shards, parts_rep, resid_rep, ops_rep, accs,
+                       hist, exovf):
+        """One chunk's program over the shards (``shards``: each shard's
+        buffers and live count, on its device): the K4 pass and the
+        routing per shard, or the exchange, then the body of every
+        partition on every shard into that shard's accumulators. The
+        collectives of its first run from Python are the count a chunk."""
+        if self.coll_chunk is None:
+            with _X.collective_trace() as ct:
+                self._sharded_chunk_run(shards, parts_rep, resid_rep,
+                                        ops_rep, accs, hist, exovf)
+            self.coll_chunk = dict(ct.counts)
+            return
+        self._sharded_chunk_run(shards, parts_rep, resid_rep, ops_rep, accs,
+                                hist, exovf)
+
+    def _sharded_chunk_run(self, shards, parts_rep, resid_rep, ops_rep,
+                           accs, hist, exovf):
+        S, P = self.n_shards, self.n_partitions
+        devs = self.mesh.devices
+        items = []
+        if self.exchange:
+            bufs, valid = [], []
+            for s, (flat, n_s) in enumerate(shards):
+                with E.device_scope(devs[s]):
+                    b, v = self._send_buffers(flat, n_s, hist[s], exovf[s])
+                bufs.append(b)
+                valid.append(v)
+            got, vgot = _X.all_to_all_exchange(bufs, valid, self.mesh)
+            nflat = len(shards[0][0])
+            for d in range(S):
+                flat = tuple(got[d][i].reshape(-1) if i in got[d] else None
+                             for i in range(nflat))
+                # every received slot is in range: validity is the mask
+                n_d = torch.full((), self.body_plen, dtype=I64,
+                                 device=devs[d])
+                items.append((flat, n_d, vgot[d].reshape(-1),
+                              got[d][nflat].reshape(-1)))
+        else:
+            for s, (flat, n_s) in enumerate(shards):
+                live = h = pids = None
+                with E.device_scope(devs[s]):
+                    if self.scan_spec is not None:
+                        live, h = self._scan(flat, n_s)
+                    if P > 1:
+                        pids = self._route(h, flat, n_s, hist[s])
+                items.append((flat, n_s, live, pids))
+        for s, (flat, n_s, live, pids) in enumerate(items):
+            with E.device_scope(devs[s]):
+                for p in range(P):
+                    self._body(flat, n_s, parts_rep[s], accs[s * P + p],
+                               resid_rep[s], live, pids,
+                               p if P > 1 else None, operands=ops_rep[s])
+
+    def _finish_sharded(self, accs, hist, exovf, n_chunks):
+        """THE one cross-shard reduce and the one materializing read of a
+        sharded drive: an all-gather of every (shard, partition) count, a
+        psum of the overflow flags, of the histogram and of each
+        outer-build bitmap (a build row matched by any shard of any
+        partition is matched). Returns ``(counts[s][p], overflowed,
+        hist, outer extras, collectives, ici bytes)``."""
+        S, P = self.n_shards, self.n_partitions
+        mesh = self.mesh
+        with _X.collective_trace() as ct:
+            ns = [torch.stack([accs[s * P + p].n for p in range(P)])
+                  for s in range(S)]
+            flags = [(torch.stack([accs[s * P + p].ovf for p in range(P)])
+                      | exovf[s]).to(torch.int32) for s in range(S)]
+            counts = _X.all_gather_counted(ns, mesh)[0]
+            ovf = _X.psum_counted(flags, mesh)[0]
+            hist_tot = _X.psum_counted(hist, mesh)[0]
+            miss = []
+            for j, slot in enumerate(self.build_slots):
+                bms = []
+                for s in range(S):
+                    bm = accs[s * P].outer[j]
+                    for p in range(1, P):
+                        bm = bm | accs[s * P + p].outer[j]
+                    bms.append(bm.to(torch.int32))
+                matched = _X.psum_counted(bms, mesh)[0] > 0
+                _spec, n_live, plen = self.part_specs[slot]
+                m = ~matched & (torch.arange(plen, device=matched.device)
+                                < n_live)
+                miss.append((m, m.sum().reshape(1)))
+
+        def fetch():
+            return torch.cat([counts, ovf.to(I64), hist_tot]
+                             + [n for (_m, n) in miss]).cpu().tolist()
+
+        with _obs.span("stream.materialize", chunks=n_chunks,
+                       partitions=P, shards=S):
+            got = E.timed_read("stream_final", fetch)
+        per = [[int(got[s * P + p]) for p in range(P)] for s in range(S)]
+        k = S * P
+        coll = self.coll_chunk
+        return (per, any(got[k:k + P]), [int(x) for x in got[k + P:k + 2 * P]],
+                [(slot, m, int(n)) for slot, (m, _d), n
+                 in zip(self.build_slots, miss, got[k + 2 * P:])],
+                _X.collective_ops(coll) * n_chunks
+                + _X.collective_ops(ct.counts),
+                (coll["bytes"] if coll else 0) * n_chunks
+                + ct.counts["bytes"])
+
+    def _slice_acc_sharded(self, accs, counts) -> DeviceTable:
+        """The survivors of one partition's shard accumulators, shard by
+        shard, as one DeviceTable on the first shard's device (copied out;
+        pad rows zero, as in an unsharded accumulator)."""
+        names, kinds, dicts, valided, dtypes, encs = self.out_template
+        total = sum(counts)
+        cap = E.bucket_len(total)
+        dev = self.mesh.devices[0]
+
+        def cat(bufs, dtype):
+            return torch.cat([b[:c].to(dev, non_blocking=True)
+                              for b, c in zip(bufs, counts)]
+                             + [torch.zeros(cap - total, dtype=dtype,
+                                            device=dev)])
+        cols = {}
+        for j, n in enumerate(names):
+            cols[n] = Column(
+                kinds[j], cat([a.datas[j] for a in accs], dtypes[j]),
+                cat([a.valids[j] for a in accs], torch.bool)
+                if valided[j] else None, dicts[j], encs[j])
+        return DeviceTable(cols, total, plen=cap)
 
     # ---------------------------------------------------------------- run
 
@@ -557,6 +888,56 @@ class StreamPipeline:
             return up
         return prepare
 
+    def _distinct(self) -> bool:
+        """Sharded over more than one device."""
+        return self.n_shards > 1 and not self.mesh.one_device()
+
+    def _prepare_first_shards(self, chunk: DeviceTable):
+        """The first chunk (whole on the session's device) split for a
+        mesh of distinct devices: each shard's slice copied to its own
+        device. Returns ``(shards, bytes)``."""
+        _F.fault_point("device-put")
+        flat = _flatten_chunk(chunk)
+        n_dev = torch.full((), int(chunk.nrows), dtype=I64,
+                           device=flat[0].device)
+        shards = [(tuple(None if b is None else
+                         b.to(dev, non_blocking=True) for b in views),
+                   n_s.to(dev, non_blocking=True))
+                  for (views, n_s), dev in zip(
+                      self._shard_views(flat, n_dev), self.mesh.devices)]
+        return shards, sum(int(x.nbytes) for x in flat)
+
+    def _preparer_shards(self):
+        """The prefetch worker's step on a mesh of distinct devices: each
+        shard's row slice of the host chunk goes to its own shard's device
+        (from pinned buffers, non-blocking, on that device's side stream),
+        with the shard's live count stamped there. No host read, no span;
+        the worker has no device of its own (the devices are captured
+        here, on the driver)."""
+        devs, sp = self.mesh.devices, self.shard_plen
+        sides = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
+                 for d in devs]
+
+        def prepare(hc):
+            _F.fault_point("device-put")
+            ups = []
+            for s, dev in enumerate(devs):
+                def copy(lo=s * sp, dev=dev):
+                    flat = tuple(None if b is None else torch.as_tensor(
+                        b)[lo:lo + sp].to(dev, non_blocking=True)
+                        for (_n, _k, data, valid, _dv, _e) in hc.cols
+                        for b in (data, valid))
+                    n_s = torch.full((), min(max(hc.live - lo, 0), sp),
+                                     dtype=I64, device=dev)
+                    return (flat, n_s), [x for x in (*flat, n_s)
+                                         if x is not None]
+                ups.append(_PF.upload_async(dev, sides[s], copy))
+            up = _PF.Upload.joined(ups, ([_PF.value_of(u) for u in ups],
+                                         hc.nbytes))
+            hc.release(getattr(up, "event", None))
+            return up
+        return prepare
+
     def init_acc(self, dev) -> _Acc:
         names, kinds, dicts, valided, dtypes, encs = self.out_template
         cap = self.acc_cap + 1               # + the spare drop row
@@ -581,13 +962,20 @@ class StreamPipeline:
     def _program(self, st: _Static, parts_flat):
         """One chunk's whole program over the static operands: the K4
         pass, the partition routing and the body of every partition (what
-        the graph captures)."""
-        P = self.n_partitions
+        the graph captures); sharded, each shard's slice of the slots
+        through :meth:`_sharded_chunk`."""
+        S, P = self.n_shards, self.n_partitions
+        if S > 1:
+            self._sharded_chunk(self._shard_views(st.slots, st.n_dev),
+                                [parts_flat] * S, [st.resid] * S,
+                                [self.operands] * S, st.accs, st.hist,
+                                st.exovf)
+            return
         live = h = pids = None
         if self.scan_spec is not None:
             live, h = self._scan(st.slots, st.n_dev)
         if P > 1:
-            pids = self._route(h, st.slots, st.n_dev, st.hist)
+            pids = self._route(h, st.slots, st.n_dev, st.hist[0])
         for p in range(P):
             self._body(st.slots, st.n_dev, parts_flat, st.accs[p],
                        st.resid, live, pids, p if P > 1 else None)
@@ -609,7 +997,8 @@ class StreamPipeline:
     def _capture(self, st: _Static, parts_flat):
         """The first chunk (already in the slots) runs for real on a side
         stream, filling the upload stage (the warm-up), then the same
-        program is captured as one CUDA graph. Raises
+        program is captured as one CUDA graph; what the capture grew the
+        device's reserved memory by is the graph's pool bytes. Raises
         :class:`ops.CaptureError`."""
         from nds_tpu_torch.engine.replay import _engine_site, _launch_delta
         dev = st.n_dev.device
@@ -630,6 +1019,10 @@ class StreamPipeline:
         # whose parts are bound anew by each execution captures at each
         cap_stream = E.capture_stream(dev)
         cap_stream.wait_stream(cur)
+        _make_room(dev)
+        # what the capture grows the reserved memory by is its pool's
+        # growth: nothing else allocates on this device meanwhile
+        reserved = torch.cuda.memory_reserved(dev)
         try:
             with torch.cuda.stream(cap_stream):
                 graph.capture_begin(pool=pool,
@@ -658,12 +1051,26 @@ class StreamPipeline:
             for k, v in launches.items():
                 _K.LAUNCHES[k] -= v
         st.graph, st.stage, st.launches = graph, stage, launches
+        self._charge_pool(st, max(torch.cuda.memory_reserved(dev)
+                                  - reserved, 0))
+
+    def _charge_pool(self, st: _Static, grown: int) -> None:
+        """Charge a capture to the budget: the bytes the pool grew by and
+        every free pool byte released graphs left (the capture may have
+        reused any of them); then release other pipelines while the total
+        passes the budget."""
+        global _POOL_FREE
+        with _STATIC_LOCK:
+            st.pool_bytes = grown + _POOL_FREE
+            _POOL_FREE = 0
+            _enforce_budget(self)
 
     def _claim(self, first: DeviceTable, resid_flat) -> _Static | None:
         """This pipeline's static operands, allocated at the first call
         and locked for one execution; None while another execution holds
-        them. Other pipelines' operands go, oldest first, while the total
-        passes a quarter of the device-memory model."""
+        them. Other pipelines' operands and graphs go, oldest first, while
+        the total passes a quarter of the device-memory model."""
+        S, P = self.n_shards, self.n_partitions
         with _STATIC_LOCK:
             st = self._static
             if st is None:
@@ -673,42 +1080,38 @@ class StreamPipeline:
                     [torch.empty_like(x) for x in flat],
                     torch.zeros((), dtype=I64, device=dev),
                     [[torch.empty_like(x) for x in r] for r in resid_flat],
-                    [self.init_acc(dev) for _ in range(self.n_partitions)],
-                    torch.zeros(self.n_partitions, dtype=I64, device=dev))
+                    [self.init_acc(dev) for _ in range(S * P)],
+                    [torch.zeros(P, dtype=I64, device=dev)
+                     for _ in range(S)],
+                    [torch.zeros((), dtype=torch.bool, device=dev)
+                     for _ in range(S)])
             _STATIC.pop(id(self), None)
             _STATIC[id(self)] = self
-            budget = max(_hbm_bytes() // _STATIC_SHARE, 1)
-            for pid in list(_STATIC):
-                if sum(p._static.nbytes for p in _STATIC.values()) \
-                        <= budget or pid == id(self):
-                    break
-                other = _STATIC.get(pid)
-                if other is not None and \
-                        other._static.lock.acquire(blocking=False):
-                    _STATIC.pop(pid, None)
-                    other._static = None
+            _enforce_budget(self)
         return st if st.lock.acquire(blocking=False) else None
 
     def release_static(self) -> None:
         """Drop the static operands and the graph (pipeline eviction)."""
         with _STATIC_LOCK:
-            _STATIC.pop(id(self), None)
-            self._static = None
+            _release(self)
 
     def _ring(self, host_iter, dev):
-        return _PF.chunk_ring(host_iter, prepare=self._preparer(dev))
+        prepare = self._preparer_shards() if self._distinct() \
+            else self._preparer(dev)
+        return _PF.chunk_ring(host_iter, prepare=prepare)
 
     def _drive_static(self, st: _Static, host_iter, first, parts_flat,
                       resid_flat):
         """The compiled drive: the first chunk captures the graph where
         none is (its warm-up executes that chunk), every other chunk
-        replays it. Returns ``(accs, hist, chunks, h2d, stall_ms,
+        replays it. Returns ``(accs, hist, exovf, chunks, h2d, stall_ms,
         captured)``."""
         dev = st.n_dev.device
         for a in st.accs:                # reset by kernels
             for b in a.buffers():
                 b.zero_()
-        st.hist.zero_()
+        for t in (*st.hist, *st.exovf):
+            t.zero_()
         for dst, src in zip(st.resid, resid_flat):
             for d, x in zip(dst, src):
                 d.copy_(x)
@@ -722,6 +1125,10 @@ class StreamPipeline:
             while cur is not None:
                 flat, n_dev, nb = cur
                 h2d += nb
+                if self.exchange:
+                    # the exchange's dispatch seam: a fault degrades the
+                    # statement to the single-device eager chunk loop
+                    _F.fault_point("exchange")
                 if capture and n_chunks == 0:
                     for dst, src in zip(st.slots, flat):
                         dst.copy_(src)
@@ -742,40 +1149,52 @@ class StreamPipeline:
         finally:
             if ring is not None:
                 ring.close()
-        return st.accs, st.hist, n_chunks, h2d, stall_ms, capture
+        return (st.accs, st.hist, st.exovf, n_chunks, h2d, stall_ms,
+                capture)
 
     def _drive_eager(self, host_iter, first, parts_flat, resid_flat):
         """The eager drive: the program run from Python on each chunk as
-        the ring hands it over, into fresh accumulators."""
+        the ring hands it over, into fresh accumulators (sharded: one per
+        shard and partition, each on its shard's device)."""
         dev = first[next(iter(first.columns))].data.device
-        P = self.n_partitions
-        accs = [self.init_acc(dev) for _ in range(P)]
-        hist = torch.zeros(P, dtype=I64, device=dev)
+        S, P = self.n_shards, self.n_partitions
+        devs = self.mesh.devices if S > 1 else (dev,)
+        accs = [self.init_acc(d) for d in devs for _ in range(P)]
+        hist = [torch.zeros(P, dtype=I64, device=d) for d in devs]
+        exovf = [torch.zeros((), dtype=torch.bool, device=d) for d in devs]
+        distinct = self._distinct()
+        if S > 1:
+            reps = self._replicas(parts_flat, resid_flat) if distinct \
+                else ([parts_flat] * S, [resid_flat] * S,
+                      [self.operands] * S)
         ring = self._ring(host_iter, dev)
         n_chunks = 0
         h2d = 0
         try:
             # the first chunk is already on the device (the record used
             # it); it takes the seam's retry on the driver
-            cur = _F.with_retry("device-put",
-                                lambda: self._prepare_first(first))
+            cur = _F.with_retry(
+                "device-put", lambda: self._prepare_first_shards(first)
+                if distinct else self._prepare_first(first))
             while cur is not None:
-                flat, n_dev, nb = cur
-                h2d += nb
-                live = h = pids = None
-                if self.scan_spec is not None:
-                    with _obs.span("stream.kernel", chunk=n_chunks):
-                        live, h = self._scan(flat, n_dev)
-                if P > 1:
-                    with _obs.span("stream.partition", chunk=n_chunks,
-                                   partitions=P):
-                        pids = self._route(h, flat, n_dev, hist)
-                for p in range(P):
+                if S > 1:
+                    if distinct:
+                        shards, nb = cur
+                    else:
+                        flat, n_dev, nb = cur
+                        shards = self._shard_views(flat, n_dev)
+                    h2d += nb
+                    if self.exchange:
+                        _F.fault_point("exchange")
                     with _obs.span("stream.drive", chunk=n_chunks,
-                                   part=p):
-                        self._body(flat, n_dev, parts_flat, accs[p],
-                                   resid_flat, live, pids,
-                                   p if P > 1 else None)
+                                   shards=S):
+                        self._sharded_chunk(shards, *reps, accs, hist,
+                                            exovf)
+                else:
+                    flat, n_dev, nb = cur
+                    h2d += nb
+                    self._eager_chunk(flat, n_dev, parts_flat, resid_flat,
+                                      accs, hist[0], n_chunks)
                 n_chunks += 1
                 # stall span: driver time BLOCKED on the ring for the next
                 # chunk; the end-of-stream probe drops its span
@@ -786,7 +1205,24 @@ class StreamPipeline:
             stall_ms = ring.stall_ms()
         finally:
             ring.close()
-        return accs, hist, n_chunks, h2d, stall_ms
+        return accs, hist, exovf, n_chunks, h2d, stall_ms
+
+    def _eager_chunk(self, flat, n_dev, parts_flat, resid_flat, accs, hist,
+                     n_chunks):
+        """One chunk of the unsharded eager drive, span by span."""
+        P = self.n_partitions
+        live = h = pids = None
+        if self.scan_spec is not None:
+            with _obs.span("stream.kernel", chunk=n_chunks):
+                live, h = self._scan(flat, n_dev)
+        if P > 1:
+            with _obs.span("stream.partition", chunk=n_chunks,
+                           partitions=P):
+                pids = self._route(h, flat, n_dev, hist)
+        for p in range(P):
+            with _obs.span("stream.drive", chunk=n_chunks, part=p):
+                self._body(flat, n_dev, parts_flat, accs[p], resid_flat,
+                           live, pids, p if P > 1 else None)
 
     def run(self, host_iter, first, parts_flat, resid_flat=(),
             graph=True):
@@ -794,16 +1230,21 @@ class StreamPipeline:
         ``(survivor DeviceTable | None on overflow, n_chunks, evidence)``.
         ``host_iter`` continues AFTER ``first`` (already on the device).
         ``graph`` takes the compiled drive (on cuda, the captured graph)
-        unless a capture was refused; False takes the eager drive.
-        ``evidence`` carries the partition counts of a partitioned run,
-        the outer-extras masks/counts, upload bytes, prefetch stall,
-        kernel launches and how the graph served (``graph``)."""
-        P = self.n_partitions
+        unless a capture was refused; False takes the eager drive, and so
+        do shards on distinct devices. ``evidence`` carries the partition
+        counts of a partitioned run, the shard counts, collectives and
+        their bytes of a sharded one, the outer-extras masks/counts,
+        upload bytes, prefetch stall, kernel launches and how the graph
+        served (``graph``)."""
+        S, P = self.n_shards, self.n_partitions
         launches0 = dict(_K.LAUNCHES)
         dev = first[next(iter(first.columns))].data.device
         st = None
         if not graph:
             status = "eager drive"
+        elif self._distinct():
+            status = (f"eager drive: {S} shards on "
+                      f"{len(set(self.mesh.devices))} devices")
         elif self.refused is not None:
             status = f"refused: {self.refused}"
         else:
@@ -812,7 +1253,7 @@ class StreamPipeline:
         try:
             if st is not None:
                 try:
-                    accs, hist, n_chunks, h2d, stall_ms, captured = \
+                    accs, hist, exovf, n_chunks, h2d, stall_ms, captured = \
                         self._drive_static(st, host_iter, first,
                                            parts_flat, resid_flat)
                     status = "uncaptured" if dev.type != "cuda" else \
@@ -828,8 +1269,42 @@ class StreamPipeline:
                     st = None
                     log.warning("streamed pipeline graph refused: %s", exc)
             if st is None:
-                accs, hist, n_chunks, h2d, stall_ms = self._drive_eager(
-                    host_iter, first, parts_flat, resid_flat)
+                accs, hist, exovf, n_chunks, h2d, stall_ms = \
+                    self._drive_eager(host_iter, first, parts_flat,
+                                      resid_flat)
+            evidence = {
+                "h2d": h2d, "stall_ms": stall_ms, "graph": status,
+                "scan_launches": _K.LAUNCHES["chunk_scan"]
+                - launches0["chunk_scan"],
+                "probe_launches": _K.LAUNCHES["join_probe"]
+                - launches0["join_probe"],
+                "kernel_stages": self.scan_spec.stages()
+                if self.scan_spec is not None else 0}
+            if S > 1:
+                per, overflowed, hist_host, outer, coll, ici = \
+                    self._finish_sharded(accs, hist, exovf, n_chunks)
+                evidence.update(
+                    outer=outer, shards=S, collectives=coll, bytes_ici=ici,
+                    shard_rows=tuple(sum(c) for c in per))
+                if P > 1:
+                    evidence.update(
+                        partitions=P, part_input=tuple(hist_host),
+                        part_rows=tuple(sum(c[p] for c in per)
+                                        for p in range(P)))
+                if overflowed:
+                    return None, n_chunks, evidence
+                tables = [self._slice_acc_sharded(
+                    [accs[s * P + p] for s in range(S)],
+                    [per[s][p] for s in range(S)])
+                    for p in range(P) if sum(c[p] for c in per) > 0]
+                if not tables:               # every partition empty
+                    out = self._slice_acc_sharded(
+                        [accs[s * P] for s in range(S)], [0] * S)
+                else:
+                    # counts are host-known here: the union costs no sync
+                    out = tables[0] if len(tables) == 1 \
+                        else E.concat_tables(tables)
+                return out, n_chunks, evidence
             bitmaps = list(accs[0].outer)
             for a in accs[1:]:
                 bitmaps = [b | o for b, o in zip(bitmaps, a.outer)]
@@ -838,7 +1313,8 @@ class StreamPipeline:
             def fetch():
                 got = torch.stack(
                     [a.n for a in accs] + [a.ovf.to(I64) for a in accs]
-                    + list(hist) + [n for (_m, n) in miss]).cpu().tolist()
+                    + list(hist[0]) + [n for (_m, n) in miss]
+                ).cpu().tolist()
                 return ([int(x) for x in got[:P]],
                         [bool(x) for x in got[P:2 * P]],
                         [int(x) for x in got[2 * P:3 * P]],
@@ -849,16 +1325,8 @@ class StreamPipeline:
                            partitions=P):
                 totals, overflowed, hist_host, extras_n = E.timed_read(
                     "stream_final", fetch)
-            evidence = {
-                "h2d": h2d, "stall_ms": stall_ms, "graph": status,
-                "outer": [(slot, m, n) for (slot, (m, _nd), n)
-                          in zip(self.build_slots, miss, extras_n)],
-                "scan_launches": _K.LAUNCHES["chunk_scan"]
-                - launches0["chunk_scan"],
-                "probe_launches": _K.LAUNCHES["join_probe"]
-                - launches0["join_probe"],
-                "kernel_stages": self.scan_spec.stages()
-                if self.scan_spec is not None else 0}
+            evidence["outer"] = [(slot, m, n) for (slot, (m, _nd), n)
+                                 in zip(self.build_slots, miss, extras_n)]
             if P > 1:
                 evidence.update(partitions=P, part_rows=tuple(totals),
                                 part_input=tuple(hist_host))
@@ -911,6 +1379,7 @@ def _dicts_equal(a, b) -> bool:
 def _cache_key(alias, keep, join_preds, where_conjuncts, sources,
                part_infos, chunk_spec, chunk_cap, stream_rows, outer_meta):
     from nds_tpu_torch.analysis.mem_audit import (forced_partitions,
+                                                  stream_shards,
                                                   stream_skew_factor)
     from nds_tpu_torch.engine.column import enc_key
     from nds_tpu_torch.sql.parser import expr_key
@@ -931,7 +1400,17 @@ def _cache_key(alias, keep, join_preds, where_conjuncts, sources,
         _acc_ceiling(), _hbm_bytes(), E.stream_fanout(),
         forced_partitions(), stream_skew_factor(), int(stream_rows),
         _PF.prefetch_depth(),
+        # sharded execution: a pipeline built for one mesh never serves
+        # another
+        stream_shards(), _mesh_key(chunk_cap),
     )
+
+
+def _mesh_key(chunk_cap: int):
+    """The mesh a pipeline built now would run over, as a cache-key
+    member (None: unsharded)."""
+    _n, mesh = _shard_plan(chunk_cap)
+    return None if mesh is None else mesh.key()
 
 
 def _spec_match(a, b) -> bool:
@@ -1133,10 +1612,17 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
                         probe_launches=evidence["probe_launches"],
                         kernel_fused_stages=evidence["kernel_stages"],
                         prefetch_stall_ms=evidence["stall_ms"],
-                        graph=evidence["graph"])
+                        graph=evidence["graph"],
+                        shards=evidence.get("shards", 1),
+                        shard_rows=evidence.get("shard_rows", ()),
+                        collectives=evidence.get("collectives", -1),
+                        bytes_ici=evidence.get("bytes_ici", -1))
     _obs.annotate(path="compiled", chunks=ran, graph=evidence["graph"][:300],
                   prefetchStallMs=evidence["stall_ms"],
                   partitions=evidence.get("partitions", 1),
+                  shards=evidence.get("shards", 1),
+                  collectives=evidence.get("collectives", -1),
+                  bytesIci=evidence.get("bytes_ici", -1),
                   bytesH2d=evidence["h2d"],
                   scanLaunches=evidence["scan_launches"],
                   probeLaunches=evidence["probe_launches"],
@@ -1302,6 +1788,23 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
     else:
         budget = _acc_row_budget(n_chunks, out0.plen, proved,
                                  max(row_bytes, 1), ring_bytes=ring_bytes)
+    # sharded execution: each shard accumulates its own slice, so the
+    # budget re-shares over the shards (skew-factored like the partition
+    # share: mem_audit.shard_row_bound); the recorded output bucket stays
+    # the floor, so one dispatch can always land a whole chunk's output
+    n_shards, mesh = _shard_plan(chunk_cap)
+    exchange, cap_ex = False, 0
+    if n_shards > 1:
+        from nds_tpu_torch.analysis.mem_audit import stream_skew_factor
+        skew = stream_skew_factor()
+        budget = min(budget, -(-budget // n_shards) * skew)
+        if n_parts > 1 and key_slots:
+            # the partitioned graph's keys are not co-partitioned with
+            # the row split: exchange each chunk's rows so every shard
+            # owns a key range
+            exchange = True
+            cap_ex = E.bucket_len(
+                max((chunk_cap // n_shards) // n_shards, 1) * skew)
     acc_cap = E.bucket_len(max(budget, out0.plen))
     if scan_spec is not None and n_parts > 1 and key_slots:
         # the K4 pass also computes the partition routing hash over the
@@ -1310,7 +1813,7 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
                                 tables=scan_spec.tables,
                                 key_slots=tuple(key_slots),
                                 n_conjuncts=scan_spec.n_conjuncts)
-    _obs.annotate(accRows=acc_cap, partitions=n_parts,
+    _obs.annotate(accRows=acc_cap, partitions=n_parts, shards=n_shards,
                   provedRows=proved if proved is not None else "unproven",
                   residuals=len(residuals), outerBuilds=len(build_slots))
     lifted, operands = _lift_log(list(rec_log), E.device())
@@ -1324,5 +1827,6 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
         outer_meta=outer_meta, residuals=residuals,
         resid_specs=tuple(spec for (spec, _flat) in resid_infos),
         build_slots=build_slots, name_catalog=name_cat,
-        scan_spec=scan_spec)
+        scan_spec=scan_spec, n_shards=n_shards, mesh=mesh,
+        exchange=exchange, cap_ex=cap_ex)
     return pipe, resid_infos

@@ -162,8 +162,9 @@ class _PinnedSet:
         """Block this (producer) thread until the copy that last read the
         buffers completed: an event query, never a synchronizing call."""
         ev, self.event = self.event, None
-        while ev is not None and not ev.query():
-            time.sleep(_EVENT_POLL_S)
+        for e in (ev if isinstance(ev, (list, tuple)) else [ev]):
+            while e is not None and not e.query():
+                time.sleep(_EVENT_POLL_S)
 
 
 # how long a producer waiting on a buffer's copy sleeps between queries

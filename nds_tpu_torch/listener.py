@@ -124,6 +124,11 @@ class StreamEvent:
     graph: str = ""            # how the compiled program ran: "captured",
     #                            "replayed", "uncaptured" (cpu), "eager
     #                            drive", "refused: <reason>"; "" = eager
+    shards: int = 1            # shard count of the scan's mesh (1 = none)
+    shard_rows: tuple = ()     # per-shard survivor counts
+    collectives: int = -1      # all-to-all/psum/all-gather calls of the
+    #                            sharded drive (-1 = unsharded or eager)
+    bytes_ici: int = -1        # bytes one shard sent through them
 
 
 _stream_tls = threading.local()
@@ -136,7 +141,9 @@ def record_stream_event(where: str, chunks: int, syncs: int, path: str,
                         probe_launches: int = 0,
                         kernel_fused_stages: int = 0,
                         prefetch_stall_ms: float = -1.0,
-                        graph: str = "") -> None:
+                        graph: str = "", shards: int = 1, shard_rows=(),
+                        collectives: int = -1,
+                        bytes_ici: int = -1) -> None:
     """Engine-side hook (engine/stream.py, sql/planner.py): record how a
     streamed scan executed. Thread-scoped like the sync counters."""
     lst = getattr(_stream_tls, "events", None)
@@ -145,7 +152,9 @@ def record_stream_event(where: str, chunks: int, syncs: int, path: str,
     lst.append(StreamEvent(where, chunks, syncs, path, reason, rows,
                            partitions, tuple(part_rows), bytes_h2d,
                            scan_launches, probe_launches,
-                           kernel_fused_stages, prefetch_stall_ms, graph))
+                           kernel_fused_stages, prefetch_stall_ms, graph,
+                           shards, tuple(shard_rows), collectives,
+                           bytes_ici))
 
 
 def drain_stream_events() -> list:
@@ -168,6 +177,9 @@ def stream_event_json(e: StreamEvent) -> dict:
         "scanLaunches": e.scan_launches, "probeLaunches": e.probe_launches,
         **({"rows": e.rows} if e.rows >= 0 else {}),
         **({"partRows": list(e.part_rows)} if e.partitions > 1 else {}),
+        **({"shards": e.shards, "shardRows": list(e.shard_rows),
+            "collectives": e.collectives, "bytesIci": e.bytes_ici}
+           if e.shards > 1 else {}),
         **({"bytesH2d": e.bytes_h2d} if e.bytes_h2d >= 0 else {}),
         **({"kernelStages": e.kernel_fused_stages}
            if e.kernel_fused_stages else {}),

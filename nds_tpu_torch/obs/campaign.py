@@ -54,6 +54,10 @@ FINGERPRINT_KNOBS = (
     "NDS_TPU_STREAM_BYTES",          # streaming threshold of the session
     "NDS_TPU_STATEMENT_DEADLINE_S",  # statement watchdog (helper thread)
     "NDS_TPU_FAULT",                 # injected fault
+    "NDS_TPU_CHUNK_STORE",           # chunk store root (cold/warm arms)
+    "NDS_TPU_REPLAY",                # whole-statement replay policy
+    "NDS_TPU_REPLAY_SYNC_THR",       # replay's host-sync threshold
+    "NDS_TPU_CONCURRENT_QUERIES",    # device admission slots
 )
 
 _UNSET = "<unset>"

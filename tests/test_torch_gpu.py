@@ -1268,3 +1268,235 @@ def test_admission_across_two_cuda_streams(cuda, tmp_path):
     spans.sort()
     for (_s0, e0), (s1, _e1) in zip(spans, spans[1:]):
         assert s1 >= e0 - 1, spans
+
+
+# ---------------------------------------------------------------------------
+# sharded streaming and the exchange on the card
+# ---------------------------------------------------------------------------
+
+
+def _sharded_conf(shards):
+    return {"stream_partitions": 2, "stream_shards": shards}
+
+
+@pytest.fixture()
+def shared_card(cuda):
+    """The shards of the streamed pipelines built in the test share the
+    card."""
+    from nds_tpu_torch.parallel import exchange as X
+    with X.sharing_devices():
+        yield
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("q", range(len(STREAM_QS)))
+def test_sharded_stream_graph_equals_unsharded(shared_card, shards, q):
+    """Shards sharing the card: the first drive captures the sharded
+    per-chunk program as one graph, the next replays it; both give the
+    unsharded rows, per-shard counts that sum to the survivors, and (the
+    fan-out join) the exchange's all-to-alls every chunk."""
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    want = _streamed(_stream_session({"stream_partitions": 2}),
+                     STREAM_QS[q], graph=False)[0]
+    s = _stream_session(_sharded_conf(shards))
+    r1, l1, e1 = _streamed(s, STREAM_QS[q])
+    r2, l2, e2 = _streamed(s, STREAM_QS[q])
+    r3, _l3, e3 = _streamed(s, STREAM_QS[q], graph=False)
+    assert r1 == r2 == r3 == want and want
+    assert [e.graph for e in e1] == ["captured"], [e.graph for e in e1]
+    assert [e.graph for e in e2] == ["replayed"]
+    assert [e.graph for e in e3] == ["eager drive"]
+    for e in e1 + e2 + e3:
+        assert e.shards == shards and sum(e.shard_rows) == e.rows
+    assert [e.shard_rows for e in e2] == [e.shard_rows for e in e3]
+    assert _drive_launches(e2) == _drive_launches(e3)
+    assert l2["chunk_scan"] > 0
+    if q == 2:
+        assert e2[0].collectives >= 3 * e2[0].chunks
+        assert l2["join_probe"] > 0
+
+
+@pytest.mark.gpu
+def test_sharded_stream_loop_makes_no_synchronizing_call(shared_card,
+                                                         monkeypatch):
+    from nds_tpu_torch.engine import prefetch as PF
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    s = _stream_session(_sharded_conf(2))
+    want = _streamed(s, STREAM_QS[2])[0]             # captured
+
+    def strict(real):
+        def run(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    monkeypatch.setattr(S.StreamPipeline, "_step",
+                        strict(S.StreamPipeline._step))
+    for ring in (PF.ChunkRing, PF._InlineRing):
+        monkeypatch.setattr(ring, "next_chunk", strict(ring.next_chunk))
+    rows, _l, events = _streamed(s, STREAM_QS[2])
+    assert rows == want and [e.graph for e in events] == ["replayed"]
+
+
+@pytest.mark.gpu
+def test_capture_charges_its_pool_bytes(shared_card):
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    s = _stream_session(_sharded_conf(2))
+    _streamed(s, STREAM_QS[0])
+    rep = S.static_report()
+    assert rep["pipelines"] >= 1 and rep["pool_bytes"] > 0
+    assert rep["static_bytes"] + rep["pool_bytes"] <= rep["budget"]
+
+
+@pytest.mark.gpu
+def test_sharded_stream_across_distinct_cards(cuda):
+    """Without sharing, two shards take two cards (the eager drive, which
+    says why), with the unsharded rows."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    want = _streamed(_stream_session({"stream_partitions": 2}),
+                     STREAM_QS[2])[0]
+    s = _stream_session(_sharded_conf(2))
+    for _ in range(2):
+        rows, _l, events = _streamed(s, STREAM_QS[2])
+        assert rows == want
+        assert [(e.shards, e.graph) for e in events] == \
+            [(2, "eager drive: 2 shards on 2 devices")], \
+            [(e.path, e.reason) for e in events]
+
+
+def _dead_row_join_inputs(frac, n=4096):
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 200, n)
+    dead = rng.random(n) < frac
+    row_ids = np.arange(n, dtype=np.uint64)
+    lh = np.where(dead, (row_ids << 3) | 2,
+                  (keys.astype(np.uint64) << 3) | 4).view(np.int64)
+    rh = np.where(dead, (row_ids << 3) | 1,
+                  (keys.astype(np.uint64) << 3) | 4).view(np.int64)
+    return keys, dead, lh, rh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("case", ["dead50", "dead95", "skew"])
+def test_exchange_join_cuda_matches_cpu(cuda, shards, case):
+    from nds_tpu_torch.parallel import exchange as X
+    if case == "skew":
+        rng = np.random.default_rng(9)
+        keys = np.where(rng.random(1024) < 0.8, 7,
+                        rng.integers(0, 50, 1024))
+        lh = rh = ((keys.astype(np.uint64) << 3) | 4).view(np.int64)
+        dead = np.zeros(1024, bool)
+    else:
+        keys, dead, lh, rh = _dead_row_join_inputs(
+            {"dead50": 0.5, "dead95": 0.95}[case])
+    rows = np.arange(lh.shape[0], dtype=np.int64)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = X.make_mesh(shards, device=dev, share=True)
+        got[dev] = [t.cpu().numpy() for t in X.exchange_join_pairs(
+            _t(lh).to(dev), _t(rows).to(dev), _t(rh).to(dev),
+            _t(rows).to(dev), m)]
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert np.array_equal(a, b)
+    live = got["cuda"][2]
+    assert int(live.sum()) == sum(int(c) * int(c)
+                                  for c in np.bincount(keys[~dead]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 8])
+def test_distributed_q3_cuda_matches_cpu(cuda, shards):
+    import math
+
+    from nds_tpu_torch.parallel import distributed as D
+    rng = np.random.default_rng(11)
+    n, ni, nd = 8_001, 200, 400
+    item = {"i_item_sk": np.arange(1, ni + 1, dtype=np.int64),
+            "i_manufact_id": rng.integers(1, 10, ni).astype(np.int64),
+            "i_brand_id": rng.integers(1000, 1020, ni).astype(np.int64)}
+    date_dim = {"d_date_sk": np.arange(1, nd + 1, dtype=np.int64),
+                "d_moy": rng.integers(1, 13, nd).astype(np.int64),
+                "d_year": 1998 + (np.arange(nd, dtype=np.int64) // 100)}
+    ss = {"ss_item_sk": rng.integers(1, ni + 50, n).astype(np.int64),
+          "ss_sold_date_sk": rng.integers(1, nd + 30, n).astype(np.int64),
+          "ss_ext_sales_price": rng.integers(1, 10_000, n).astype(np.int64)}
+    out = {dev: D.run_distributed_q3(
+        D.make_mesh(shards, device=dev, share=True), ss, date_dim, item,
+        manufact_id=3, moy=11) for dev in ("cpu", "cuda")}
+    for k in ("d_year", "i_brand_id", "item_index", "count"):
+        assert np.array_equal(out["cpu"][k], out["cuda"][k]), k
+    assert all(math.isclose(a, b, rel_tol=1e-5) for a, b in zip(
+        out["cpu"]["sum_agg"], out["cuda"]["sum_agg"]))
+    assert len(out["cuda"]["count"]) > 0
+
+
+
+@pytest.mark.gpu
+def test_capture_on_a_nearly_full_card_empties_the_cache(cuda, monkeypatch):
+    """A capture that finds less than an eighth of the card free hands the
+    allocator's cached blocks back first, then captures."""
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    want = _streamed(_stream_session(), STREAM_QS[1], graph=False)[0]
+    s = _stream_session()
+    real_info, calls = torch.cuda.mem_get_info, []
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (1, real_info(dev)[1]))
+    real_empty = torch.cuda.empty_cache
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: (calls.append(1), real_empty()))
+    rows, _l, events = _streamed(s, STREAM_QS[1])
+    assert rows == want and calls
+    assert [e.graph for e in events] == ["captured"]
+
+
+@pytest.mark.gpu
+def test_exchange_and_q3_across_distinct_cards(cuda):
+    """The repartition join and q3 on a mesh of distinct cards (each shard
+    its own device, the all-to-all a copy between cards) equal the same
+    calls on the CPU."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two CUDA devices")
+    from nds_tpu_torch.parallel import distributed as D
+    from nds_tpu_torch.parallel import exchange as X
+    shards = 1 << (min(n_cards, 8).bit_length() - 1)
+    keys, _dead, lh, rh = _dead_row_join_inputs(0.5)
+    rows = np.arange(lh.shape[0], dtype=np.int64)
+    got = {}
+    for dev, mesh in (("cpu", X.make_mesh(shards, device="cpu", share=True)),
+                      ("cuda", X.make_mesh(shards, device="cuda"))):
+        assert dev == "cpu" or not mesh.one_device()
+        got[dev] = [t.cpu().numpy() for t in X.exchange_join_pairs(
+            _t(lh).to(dev), _t(rows).to(dev), _t(rh).to(dev),
+            _t(rows).to(dev), mesh)]
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert np.array_equal(a, b)
+    rng = np.random.default_rng(11)
+    ss = {"ss_item_sk": rng.integers(1, 250, 4001).astype(np.int64),
+          "ss_sold_date_sk": rng.integers(1, 430, 4001).astype(np.int64),
+          "ss_ext_sales_price": rng.integers(1, 9999, 4001).astype(np.int64)}
+    item = {"i_item_sk": np.arange(1, 201, dtype=np.int64),
+            "i_manufact_id": rng.integers(1, 10, 200).astype(np.int64),
+            "i_brand_id": rng.integers(1000, 1020, 200).astype(np.int64)}
+    date_dim = {"d_date_sk": np.arange(1, 401, dtype=np.int64),
+                "d_moy": rng.integers(1, 13, 400).astype(np.int64),
+                "d_year": 1998 + (np.arange(400, dtype=np.int64) // 100)}
+    a = D.run_distributed_q3(D.make_mesh(shards, device="cpu", share=True),
+                             ss, date_dim, item, manufact_id=3, moy=11)
+    b = D.run_distributed_q3(D.make_mesh(shards, device="cuda"), ss,
+                             date_dim, item, manufact_id=3, moy=11)
+    for k in ("d_year", "item_index", "count"):
+        assert np.array_equal(a[k], b[k]), k
+    assert np.allclose(a["sum_agg"], b["sum_agg"], rtol=1e-5, atol=0)

@@ -410,6 +410,34 @@ def test_fingerprint_and_stamp():
     assert C.default_bench_cmd()[1:] == ["-m", "nds_tpu_torch.bench"]
 
 
+# each knob added since the campaign model came, and the value an arm
+# differing only in it sets
+_ADDED_KNOBS = [("NDS_TPU_CHUNK_STORE", "{dir}/store"),
+                ("NDS_TPU_REPLAY", "off"),
+                ("NDS_TPU_REPLAY_SYNC_THR", "0"),
+                ("NDS_TPU_CONCURRENT_QUERIES", "2")]
+
+
+@pytest.mark.parametrize("knob,value", _ADDED_KNOBS)
+def test_arm_differing_in_one_knob_refuses_resume(tmp_path, knob, value):
+    """An arm that differs from the arm whose ledger it would resume in
+    one knob alone raises CampaignResumeError naming that knob."""
+    d = str(tmp_path)
+    (base, other), = [C.expand_arms({"arms": [
+        {"name": "a1"}, {"name": "a2", "env": {knob: value}}]}, d)]
+    assert base.env == {} and other.env == {knob: value.replace("{dir}", d)}
+    path = C.arm_paths(d, base.name)["ledger"]
+    led = L.Ledger(path, stamp=C.campaign_stamp(C.arm_env(base, {})),
+                   driver="bench")
+    led.query("query1", ms=10.0)
+    led.close(None)
+    assert C.arm_status(base, d, {})[0] == "partial"
+    with pytest.raises(C.CampaignResumeError) as info:
+        C.arm_status(C.Arm(base.name, other.env), d, {})
+    assert f"{knob}=<unset>" in str(info.value)
+    assert f"{knob}={other.env[knob]}" in str(info.value)
+
+
 def test_resume_fingerprint_refusal_names_both():
     C.check_resume_fingerprint(None, "x")           # legacy: resumes
     C.check_resume_fingerprint("x", "x")
