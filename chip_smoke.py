@@ -6,8 +6,8 @@
 
 Phases (each prints one JSON line; any failure makes the exit code non-zero
 and suppresses the final ``ok`` line; ``--only`` runs the named ones of
-kernels, power, census, replay, stream, shard, agreement, bench and
-full_bench after device, build and data, and ends without the ``ok``
+kernels, power, mesh, census, replay, stream, shard, agreement, bench
+and full_bench after device, build and data, and ends without the ``ok``
 line). ``--stream-scale 10 --stream-ci 13`` runs the stream phase as the
 reference's SF10 setting (tables above 1.5e9 bytes) with the first 13 CI
 statements, the run that once took the card out of memory:
@@ -61,6 +61,28 @@ statements, the run that once took the card out of memory:
                ``watchdog`` line times query78 (the most host syncs) with
                ``NDS_TPU_STATEMENT_DEADLINE_S`` unset and set, in
                alternating pairs, on the same session;
+   mesh        the meshed resident session over the power phase's SF1
+               tables, its shards sharing the card: the 25 CI statements
+               at ``mesh_shape`` 2 and 4 at the default 128 MiB broadcast
+               threshold (the facts past it row-sharded),
+               then five of them with ``NDS_TPU_BROADCAST_BYTES=64``
+               (every table row-sharded: query37, query50 and query84
+               join two row-sharded sides through the exchange). One
+               ``mesh_arm`` line an arm: statements equal to the unmeshed
+               rows, exchange joins, gathers, the join sides whose
+               shards handed over just their matched rows
+               (``fetches``), collectives and bytes,
+               summed ms against the unmeshed run (each statement run
+               twice eagerly, the second timed), K1-K3 and K5 launches,
+               peak memory, and a ``mesh_profile`` line for the forced
+               arm's slowest statement under ``torch.profiler``; a
+               ``mesh_retry`` line drives a skewed
+               repartition join whose capacity retries must each reach
+               the failure listeners; the ``mesh`` line gives the replay
+               tiers of two statements on a meshed session (one CUDA
+               graph) and fails on a differing statement, a forced arm
+               without an exchange join, an unreported retry or a
+               statement whose tiers are not eager, record, replayed;
    census      the same 25 statements again under ``torch.profiler``
                (the Power Run's ``--profile``): every CUDA kernel they
                launch and its device time, with ``prim.true_div``'s
@@ -1742,6 +1764,205 @@ def shard_phase(torch, K, raw_dir, raw_fanout, queries):
 
 
 # ---------------------------------------------------------------------------
+# mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = (2, 4)
+# the forced arm: every table row-sharded (NDS_TPU_BROADCAST_BYTES=64), so
+# the inner joins of two facts take the repartition join; query37
+# (inventory x catalog_sales), query50 (store_sales x store_returns) and
+# query84 (customer x customer_demographics) hash-join two row-sharded
+# sides
+MESH_FORCED = ("query3", "query37", "query50", "query84", "query96")
+MESH_FORCED_BYTES = "64"
+MESH_REPLAY = ("query3", "query42")
+MESH_SKEW_ROWS = 2048           # the skewed join: about 2.7 million pairs
+MESH_KERNELS = ("segment_sum_i64", "segment_sum_f64", "segment_minmax_f64",
+                "join_probe")
+
+
+def mesh_profile(torch, base, m, n, sqls, ms, plain_ms):
+    """The forced arm's statement slowest against its unmeshed run, once
+    more on the meshed session ``m`` and on the unmeshed ``base``, each
+    under ``torch.profiler``: wall, host syncs, device kernel ms,
+    launches and the top kernels (a ``mesh_profile`` line)."""
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.power import _profiler, profile_summary
+    q = max(ms, key=lambda k: ms[k] / max(plain_ms[k], 1e-9))
+    rec = {"phase": "mesh_profile", "mesh_shape": n, "statement": q}
+    for arm, s in (("meshed", m), ("unmeshed", base)):
+        prof = _profiler(torch.device("cuda"))
+        s0 = E.sync_count()
+        with prof:
+            t = time.perf_counter()
+            s.sql(sqls[q]).to_arrow()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        rec[arm] = {"profiled_wall_ms": round(wall, 3),
+                    "host_syncs": E.sync_count() - s0,
+                    **profile_summary(prof, top=8)}
+    rec["smi"] = smi_line()
+    return rec
+
+
+def mesh_phase(torch, K, Session, base, queries):
+    """The meshed resident session on this card, its shards sharing it:
+    the CI statements at ``mesh_shape`` 2 and 4 at the default 128 MiB
+    broadcast threshold (the fact tables past it row-sharded, store_sales
+    among them; the dimensions replicated), then ``MESH_FORCED`` with
+    every table row-sharded. Every statement's rows are held against the
+    unmeshed session ``base`` (exact kinds bit for bit, doubles within
+    rel 1e-5, row order exact), each run twice eagerly, the second
+    timed. Each arm
+    reports the statements equal, the exchange joins engaged, the
+    collectives and their bytes, the summed ms against the unmeshed run,
+    K1-K3 and K5 launches and the peak device memory. Then a skewed
+    repartition join on the session's mesh, whose capacity retries must
+    each reach the failure listeners, and ``MESH_REPLAY`` replayed as one
+    CUDA graph on a meshed session. Returns (ok, lines)."""
+    import numpy as np
+
+    from nds_tpu_torch.engine import sharded as SH
+    from nds_tpu_torch.listener import FailureListener
+    from nds_tpu_torch.parallel import exchange as X
+    from nds_tpu_torch.power import strip_stream_markers
+    t_phase = time.time()
+    card = smi_line()
+    lines, problems = [], []
+    sqls = {q: strip_stream_markers(queries[q]) for q in CI_QUERIES}
+
+    def timed(s, sql):
+        out = s.sql(sql).to_arrow()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = s.sql(sql).to_arrow()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    os.environ["NDS_TPU_REPLAY"] = "off"        # eager against eager
+    try:
+        want, plain_ms = {}, {}
+        for q, sql in sqls.items():
+            want[q], plain_ms[q] = timed(base, sql)
+        arms = [(n, None, CI_QUERIES) for n in MESH_SHAPES] + \
+            [(n, MESH_FORCED_BYTES, MESH_FORCED) for n in MESH_SHAPES]
+        for n, forced, todo in arms:
+            if forced:
+                os.environ["NDS_TPU_BROADCAST_BYTES"] = forced
+            try:
+                with X.sharing_devices():
+                    m = Session({"mesh_shape": n}, device="cuda")
+                for name, t in base.catalog.items():
+                    m.create_temp_view(name, t,
+                                       base=name in base.base_tables)
+            finally:
+                os.environ.pop("NDS_TPU_BROADCAST_BYTES", None)
+            sharded = sorted(k for k, t in m.catalog.items()
+                             if t.spec == "row")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            k0 = {k: K.LAUNCHES[k] for k in MESH_KERNELS}
+            ex0, g0, f0 = (SH.COUNTS[k] for k in ("exchange_joins",
+                                                  "gathers", "fetches"))
+            ms, diffs = {}, {}
+            with X.collective_trace() as trace:
+                for q in todo:
+                    try:
+                        got, ms[q] = timed(m, sqls[q])
+                    except Exception as e:
+                        diffs[q] = f"{type(e).__name__}: {str(e)[:300]}"
+                        continue
+                    why = tables_agree(got, want[q])
+                    if why:
+                        diffs[q] = why
+            rec = {"phase": "mesh_arm", "mesh_shape": n,
+                   "broadcast_bytes": int(forced) if forced else 128 << 20,
+                   "row_sharded": sharded, "statements": len(todo),
+                   "equal": len(todo) - len(diffs), "diffs": diffs,
+                   "exchange_joins": SH.COUNTS["exchange_joins"] - ex0,
+                   "gathers": SH.COUNTS["gathers"] - g0,
+                   "fetches": SH.COUNTS["fetches"] - f0,
+                   "collectives": dict(trace.counts),
+                   "ms": round(sum(ms.values()), 3),
+                   "unmeshed_ms": round(sum(plain_ms[q] for q in todo), 3),
+                   "per_statement_ms": {q: [round(plain_ms[q], 3),
+                                            round(v, 3)]
+                                        for q, v in ms.items()},
+                   "launches": {k: K.LAUNCHES[k] - k0[k]
+                                for k in MESH_KERNELS},
+                   "peak_gb": round(torch.cuda.max_memory_allocated()
+                                    / 1e9, 3),
+                   "smi": card}
+            lines.append(rec)
+            if diffs:
+                problems.append(f"mesh {n} forced={forced}: {diffs}")
+            if forced and ms:
+                # where the slowest forced statement's time goes: its
+                # device kernel time and launches against its wall
+                lines.append(mesh_profile(torch, base, m, n, sqls, ms,
+                                          plain_ms))
+            if forced and not rec["exchange_joins"]:
+                problems.append(f"mesh {n}: the forced arm engaged no "
+                                "exchange join")
+            if not forced and "store_sales" not in sharded:
+                problems.append(f"mesh {n}: row-sharded {sharded}")
+            del m
+    finally:
+        os.environ.pop("NDS_TPU_REPLAY", None)
+
+    # a skewed repartition join: most rows share one key, so a bucket
+    # overflows its first capacity and the join retries
+    with X.sharing_devices():
+        mesh = X.make_mesh(4, device="cuda", share=True)
+    rng = np.random.default_rng(SEED)
+    keys = np.where(rng.random(MESH_SKEW_ROWS) < 0.8, 7,
+                    rng.integers(0, 500, MESH_SKEW_ROWS))
+    h = torch.as_tensor((keys.astype(np.int64) << 3) | 4, device="cuda")
+    rows = torch.arange(MESH_SKEW_ROWS, dtype=torch.int64, device="cuda")
+    listener = FailureListener().register()
+    r0 = X.CAPACITY_RETRIES[0]
+    try:
+        _li, _ri, live = X.exchange_join_pairs(h, rows, h, rows, mesh)
+        pairs = int(live.sum())
+    finally:
+        listener.unregister()
+    retries = X.CAPACITY_RETRIES[0] - r0
+    reported = sum(f.where == "exchange join capacity retry"
+                   for f in listener.failures)
+    want_pairs = int(sum(int(c) ** 2 for c in np.bincount(keys)))
+    retry = {"phase": "mesh_retry", "retries": retries,
+             "reported": reported, "pairs": pairs,
+             "expected_pairs": want_pairs}
+    lines.append(retry)
+    if not retries or reported != retries or pairs != want_pairs:
+        problems.append(f"capacity retry: {retry}")
+
+    # replay: shards sharing the card replay as one CUDA graph
+    with X.sharing_devices():
+        m = Session({"mesh_shape": 2, "replay": "force"}, device="cuda")
+    for name, t in base.catalog.items():
+        m.create_temp_view(name, t, base=name in base.base_tables)
+    tiers = {}
+    for q in MESH_REPLAY:
+        seen = []
+        for _ in range(3):
+            got = m.sql(sqls[q]).to_arrow()
+            seen.append(m.last_tier)
+            why = tables_agree(got, want[q])
+            if why:
+                problems.append(f"mesh replay {q} ({m.last_tier}): {why}")
+        tiers[q] = seen
+        if seen != ["eager", "record", "replayed"]:
+            problems.append(f"mesh replay {q}: tiers {seen} "
+                            f"({m.replay_reason(sqls[q])})")
+    del m
+    lines.append({"phase": "mesh", "ok": not problems,
+                  "replay_tiers": tiers, "problems": problems[:20],
+                  "smi": card, "s": round(time.time() - t_phase, 3)})
+    return not problems, lines
+
+
+# ---------------------------------------------------------------------------
 # agreement
 # ---------------------------------------------------------------------------
 
@@ -2867,8 +3088,8 @@ def load_session(Session, data_dir, device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "power", "census", "replay", "stream", "shard",
-          "agreement", "bench", "full_bench")
+PHASES = ("kernels", "power", "mesh", "census", "replay", "stream",
+          "shard", "agreement", "bench", "full_bench")
 
 
 def main(argv=None) -> int:
@@ -3042,6 +3263,7 @@ def main(argv=None) -> int:
     # 5. Power Run at SF1 on cuda through the port's Power Run entry
     launches = {}
     sf1 = os.path.join(DATA, "sf1")
+    session = None
     try:
         if not runs("power"):
             raise _Skipped
@@ -3101,7 +3323,6 @@ def main(argv=None) -> int:
         emit(line)
         if not line["ok"]:
             failed.append("watchdog")
-        del session
     except _Skipped:
         pass
     except Exception:
@@ -3109,6 +3330,33 @@ def main(argv=None) -> int:
         emit({"phase": "power", "ok": False,
               "error": traceback.format_exc()[-2000:]})
         failed.append("power")
+    # the meshed resident session on this card's shards, over the power
+    # phase's SF1 session
+    mesh_launches = {}
+    try:
+        if not runs("mesh"):
+            raise _Skipped
+        if session is None:
+            session = load_session(Session, sf1, "cuda")
+        ok, lines = mesh_phase(torch, K, Session, session,
+                               gen_sql_from_stream(stream_file(1)))
+        for line in lines:
+            emit(line)
+        mesh_launches = {k: sum(x["launches"][k] for x in lines
+                                if x["phase"] == "mesh_arm")
+                         for k in MESH_KERNELS}
+        with open(os.path.join(OUT, "mesh.json"), "w") as f:
+            json.dump(lines, f, indent=1)
+        if not ok:
+            failed.append("mesh")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "mesh", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("mesh")
+    session = None
     try:
         if not runs("census"):
             raise _Skipped
@@ -3349,6 +3597,8 @@ def main(argv=None) -> int:
                 (x.get("max_abs_err") or 0) for x in recs)
         if name in shard_launches:
             extra["shard_launches"] = shard_launches[name]
+        if name in mesh_launches:
+            extra["mesh_launches"] = mesh_launches[name]
         line.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCE[name],
                      "replaces": replaces, "launches": launches.get(name, 0),

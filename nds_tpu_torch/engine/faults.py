@@ -5,8 +5,6 @@ bounded and recoverable.
 * **Registry** — :data:`SEAMS` names every failure seam with its
   classification (``transient`` / ``degradable`` / ``fatal``) and its
   recovery policy. A seam that is not registered cannot be injected.
-  Seams whose module the port does not have yet (the federation peer)
-  stay registered with no call site.
 * **Deterministic injection** — ``NDS_TPU_FAULT=seam:kind:nth`` (read at
   use, never at import) makes the ``nth`` occurrence of
   :func:`fault_point` at ``seam`` raise :class:`FaultInjected`
@@ -124,8 +122,8 @@ SEAMS = {s.name: s for s in (
          "restart with deterministic-jittered backoff; 2 consecutive "
          "setup failures trip the circuit breaker into a labeled "
          "partial artifact (fail fast, never a burned round)"),
-    Seam("peer", "the federation's coordinator/peer attach (not ported "
-         "yet: no call site)",
+    Seam("peer", "parallel/multihost.py maybe_initialize (the "
+         "federation's coordinator/peer attach)",
          FATAL,
          "classified FaultError raised promptly (no silent retry loop: "
          "a half-formed federation must never run a collective); under "

@@ -2018,12 +2018,107 @@ def _chunked_inner_join(left, right, left_keys, right_keys, probe,
     return concat_tables(parts) if len(parts) > 1 else parts[0]
 
 
+def _exchange_inner_join(left, right, left_on, right_on, mesh,
+                         residual_fn) -> DeviceTable:
+    """Repartition join of two row-sharded sides (both past the broadcast
+    threshold; the planner's repartition arm). Each shard hashes its
+    keys with the join's own hash, the (hash, row id) pairs of both sides
+    move through the all-to-all exchange on the shards as they stand
+    (``exchange_join_pairs``) and each shard probes its co-partitioned
+    key range. The matched pairs are verified against the key columns
+    (gathered whole), put in the unmeshed join's order (left row, then
+    right row) and counted a shard a side with one host sync; then each
+    side's rows come to the first shard's device by the cheaper of two
+    moves (``sharded.rows_at``): with fewer pairs than the side has rows,
+    each shard hands over just its matched rows, else the whole side
+    gathers. The residual predicate applies there. Row ids index each
+    side's physical rows in shard order (``sharded.shard_offsets``)."""
+    from nds_tpu_torch.engine import sharded as SH
+    from nds_tpu_torch.parallel.exchange import (Sharded,
+                                                 exchange_join_pairs,
+                                                 gather_rows)
+    SH.COUNTS["exchange_joins"] += 1
+    S = mesh.size
+    l_offs, r_offs = SH.shard_offsets(left), SH.shard_offsets(right)
+    lh, rh, lrow, rrow = [], [], [], []
+    for i, dev in enumerate(mesh.devices):
+        g = mesh.first + i
+        lp, rp = left.parts[i], right.parts[i]
+        with device_scope(dev):
+            lk = [lp[c] for c in left_on]
+            rk = [rp[c] for c in right_on]
+            lviews, rviews = _hash_views(lk, rk)
+            lh.append(_key_hash_impl(lviews, tuple(c.valid for c in lk), 0,
+                                     False, count_arr(lp.nrows)))
+            rh.append(_key_hash_impl(rviews, tuple(c.valid for c in rk), 1,
+                                     False, count_arr(rp.nrows)))
+            lrow.append(l_offs[g] + torch.arange(lp.plen, dtype=I64,
+                                                 device=dev))
+            rrow.append(r_offs[g] + torch.arange(rp.plen, dtype=I64,
+                                                 device=dev))
+    l_idx, r_idx, live = exchange_join_pairs(
+        Sharded(lh, mesh), Sharded(lrow, mesh), Sharded(rh, mesh),
+        Sharded(rrow, mesh), mesh)
+    if mesh.world > 1:
+        # every process goes on with every pair
+        l_idx, r_idx, live = (gather_rows([x], mesh)
+                              for x in (l_idx, r_idx, live))
+    lk = SH.physical(left.select(list(left_on)))
+    rk = SH.physical(right.select(list(right_on)))
+    with device_scope(mesh.devices[0]) as dev:
+        ok = live & _verify_pairs(l_idx, r_idx, [lk[c] for c in left_on],
+                                  [rk[c] for c in right_on])
+        del lk, rk
+
+        def per_shard(idx, offs):
+            # the pairs whose row lies on each global shard: the pairs at
+            # or past each shard's first row, differenced (reductions
+            # against scalars, no host contact)
+            past = torch.stack([(ok & (idx >= b)).sum() for b in offs[:S]]
+                               + [torch.zeros((), dtype=I64, device=dev)])
+            return past[:S] - past[1:]
+
+        counts = torch.cat([per_shard(l_idx, l_offs),
+                            per_shard(r_idx, r_offs)])
+        counts = timed_read("exch_pairs",                # host sync
+                            lambda: [int(x) for x in counts.tolist()])
+        n_pairs = sum(counts[:S])
+        order = prim.lexsort2(torch.where(ok, r_idx, r_offs[-1]),
+                              torch.where(ok, l_idx, l_offs[-1]))[:n_pairs]
+        cap = bucket_len(n_pairs)
+        matched = DeviceTable(
+            {**SH.rows_at(left, prim.take_clip(l_idx, order), l_offs,
+                          counts[:S], cap, ascending=True).columns,
+             **SH.rows_at(right, prim.take_clip(r_idx, order), r_offs,
+                          counts[S:], cap).columns}, n_pairs)
+        if residual_fn is not None:
+            mask = residual_fn(matched) & live_mask(matched.plen, n_pairs)
+            matched = compact_table(matched, mask)
+    return matched
+
+
 def join_tables(left: DeviceTable, right: DeviceTable, left_on, right_on,
                 how: str = "inner", l_excl=None, r_excl=None,
                 residual_fn=None) -> DeviceTable:
     """Materialized equi-join of two tables; column name collisions must be
     resolved by the caller. ``residual_fn`` (inner joins) maps a
-    materialized pair table to a keep mask."""
+    materialized pair table to a keep mask.
+
+    A row-sharded left side of an inner join (engine/sharded.py) joins
+    shard by shard against a replicated or whole right side, and through
+    the repartition join against a row-sharded one; any other join reads
+    its sides whole."""
+    from nds_tpu_torch.engine import sharded as SH
+    if how == "inner" and l_excl is None and SH.is_row(left):
+        if not SH.is_row(right):
+            return SH.probe_join(left, right, left_on, right_on, r_excl,
+                                 residual_fn)
+        if r_excl is None and right.mesh is left.mesh:
+            # both sides row-sharded => repartition join over the exchange
+            # (tables under the broadcast threshold are replicated at
+            # registration, so fact x dim joins never take this path)
+            return _exchange_inner_join(left, right, left_on, right_on,
+                                        left.mesh, residual_fn)
     left_keys = [left[c] for c in left_on]
     right_keys = [right[c] for c in right_on]
     probe = None

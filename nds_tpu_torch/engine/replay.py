@@ -158,8 +158,8 @@ class CompiledQuery:
     def _flat_args(self):
         """The session catalog's column buffers, in ``arg_spec`` order."""
         args = []
-        for tname, cname, has_valid in self.arg_spec:
-            col = self.session.catalog[tname][cname]
+        for tname, i, cname, has_valid in self.arg_spec:
+            col = _stored(self.session.catalog[tname])[i][cname]
             args.append(col.data)
             if has_valid:
                 args.append(col.valid)
@@ -186,19 +186,18 @@ class CompiledQuery:
         # lazy view counts resolve up front: a DeviceCount read inside the
         # replay would leak a stale device scalar into the graph
         for t in catalog.values():
-            if isinstance(t, DeviceTable) and \
-                    isinstance(t.nrows, E.DeviceCount):
-                t.nrows = t.nrows.to_int()
-        # argument universe: every DEVICE table in the catalog. A
-        # statement that binds a host-resident ChunkedTable never gets
-        # here (record_eligible)
+            for part in _stored(t):
+                if isinstance(part.nrows, E.DeviceCount):
+                    part.nrows = part.nrows.to_int()
+        # argument universe: every DEVICE table in the catalog (each shard
+        # of a meshed session's table). A statement that binds a
+        # host-resident ChunkedTable never gets here (record_eligible)
         self.arg_spec = []
         for tname in sorted(catalog):
-            t = catalog[tname]
-            if not isinstance(t, DeviceTable):
-                continue
-            for cname, col in t.columns.items():
-                self.arg_spec.append((tname, cname, col.valid is not None))
+            for i, part in enumerate(_stored(catalog[tname])):
+                for cname, col in part.columns.items():
+                    self.arg_spec.append((tname, i, cname,
+                                          col.valid is not None))
         self.args = self._flat_args()
         E.resolve_counts()   # the replay must start with a clean batch
         # the capture's time is charged to the compile meter, as the
@@ -299,6 +298,15 @@ class CompiledQuery:
         if block:
             torch.cuda.current_stream(self.device).synchronize()
         return DeviceTable(cols, nrows, plen=src.plen)
+
+
+def _stored(t) -> list:
+    """The device tables a catalog entry stores: a meshed table's shards,
+    a plain table itself, nothing of a host-resident ChunkedTable."""
+    from nds_tpu_torch.engine.sharded import ShardedTable
+    if isinstance(t, ShardedTable):
+        return t.parts
+    return [t] if isinstance(t, DeviceTable) else []
 
 
 def out_template_of(table: DeviceTable):

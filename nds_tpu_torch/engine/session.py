@@ -20,6 +20,28 @@ first sight made more than ``NDS_TPU_REPLAY_SYNC_THR`` (conf
 Data Maintenance DML (``INSERT INTO``, ``DELETE FROM``) commits a new
 snapshot to the attached :class:`~nds_tpu_torch.warehouse.Warehouse` and
 registers the table anew, which moves the data version.
+
+A meshed session (``mesh_shape`` S > 1, from the conf or
+``NDS_MESH_SHAPE``; a power of two of at most the bucket floor
+``ops._MIN_BUCKET``) lays every table it registers over a mesh of S
+shards (engine/sharded.py). The placement rule: a table of at most
+``broadcast_bytes`` (conf, else ``NDS_TPU_BROADCAST_BYTES``, default 128
+MiB) is replicated on every shard's device, a larger one is row-sharded,
+its physical rows split evenly and contiguously. WHERE, compaction, plain
+projection and the probe of a row-sharded side against a replicated one
+run shard by shard and stay row-sharded; an inner join of two row-sharded
+sides takes the repartition join (``ops._exchange_inner_join``); every
+other operator gathers to the first shard's device and runs unchanged. A
+meshed session never streams a table and prewarms no dense dimension;
+INSERT and DELETE register the new snapshot through
+:meth:`Session.create_temp_view`, which places it again. The mesh needs
+as many devices as shards (in each process of a federation,
+parallel/multihost.py), or runs inside
+``parallel.exchange.sharing_devices()``, where every shard shares the
+session's device: it never shrinks quietly. Its
+statements replay as one CUDA graph when every shard shares the card;
+over distinct cards or processes they run eagerly, blacklisted with that
+reason.
 """
 
 from __future__ import annotations
@@ -33,6 +55,7 @@ import torch
 from nds_tpu_torch import resolve_device
 from nds_tpu_torch.engine import faults as _faults
 from nds_tpu_torch.engine import ops as E
+from nds_tpu_torch.engine import sharded as SH
 from nds_tpu_torch.engine.column import from_arrow
 from nds_tpu_torch.engine.table import ChunkedTable, DeviceTable
 from nds_tpu_torch.obs import trace as _obs
@@ -46,6 +69,10 @@ from nds_tpu_torch.sql.planner import ExecError, Planner
 # statement the replay phase of chip_smoke.py measured replayed faster than
 # its warm eager wall, down to one sync (PERF.md section 6, PR 8)
 REPLAY_SYNC_THR = 0
+
+# the default broadcast threshold of a meshed session: tables of at most
+# this many bytes are replicated, larger ones row-sharded
+BROADCAST_BYTES = 128 << 20
 
 
 class Result:
@@ -83,14 +110,10 @@ class Session:
     def __init__(self, conf: dict | None = None, device=None):
         self.conf = dict(conf or {})
         self.device = resolve_device(device or self.conf.get("device"))
-        if int(self.conf.get("mesh_shape") or 1) > 1:
-            # the reference's meshed resident session (GSPMD over every
-            # eager operator) has no counterpart in the port yet
-            raise NotImplementedError(
-                f"mesh_shape {self.conf['mesh_shape']}: the meshed resident "
-                "session is not ported (ROADMAP.md Queue 1, \"the meshed "
-                "resident session\"); streamed scans shard through the "
-                "stream_shards setting")
+        # multihost federation precedes every use of the device
+        from nds_tpu_torch.parallel.multihost import maybe_initialize
+        maybe_initialize(self.device)
+        self.mesh = self._make_mesh()
         self.catalog: dict[str, DeviceTable] = {}
         self.base_tables: set[str] = set()   # names loaded as pristine scans
         self.app_id = f"nds-tpu-torch-{int(time.time() * 1000)}"
@@ -113,6 +136,54 @@ class Session:
         # attached by Data Maintenance and by warehouse Power Runs
         self.warehouse = None
 
+    # -- mesh ---------------------------------------------------------------
+
+    def _make_mesh(self):
+        """The session's mesh of ``mesh_shape`` shards, or None for one.
+        In a federation (parallel/multihost.py) the shards divide evenly
+        over the processes, each process holding its own on its local
+        devices."""
+        from nds_tpu_torch.parallel import exchange as X
+        from nds_tpu_torch.parallel.multihost import process_info
+        shape = int(self.conf.get("mesh_shape")
+                    or os.environ.get("NDS_MESH_SHAPE", "1"))
+        if shape <= 1:
+            return None
+        if shape & (shape - 1):
+            raise ValueError(f"mesh_shape must be a power of two, got "
+                             f"{shape}")
+        if shape > E._MIN_BUCKET:
+            # every bucketed length must split evenly over the mesh
+            raise ValueError(
+                f"mesh_shape {shape} exceeds the physical bucket floor "
+                f"{E._MIN_BUCKET}")
+        rank, world = process_info()
+        if shape % world:
+            raise ValueError(f"mesh_shape {shape} does not divide over "
+                             f"{world} processes")
+        local = shape // world
+        kind = self.device.type
+        devs = X.local_devices(kind)
+        if kind == "cuda":
+            first = self.device.index if self.device.index is not None \
+                else torch.cuda.current_device()
+            devs = devs[first:] + devs[:first]
+        if X.sharing():
+            # the seam: every local shard on the session's own device
+            return X.Mesh([devs[0]] * local, "part", rank=rank, world=world)
+        if local > len(devs):
+            raise ValueError(
+                f"mesh_shape {shape} needs {local} {kind} devices in each "
+                f"of {world} process(es), this one has {len(devs)}; silent "
+                "truncation would under-shard (shards share a device only "
+                "inside parallel.exchange.sharing_devices())")
+        return X.Mesh(devs[:local], "part", rank=rank, world=world)
+
+    def _broadcast_bytes(self) -> int:
+        return int(float(self.conf.get(
+            "broadcast_bytes", os.environ.get("NDS_TPU_BROADCAST_BYTES",
+                                              str(BROADCAST_BYTES)))))
+
     # -- catalog ------------------------------------------------------------
 
     def create_temp_view(self, name: str, table, base: bool = False,
@@ -122,11 +193,16 @@ class Session:
         uniqueness; re-registration through a non-base path revokes it.
         ``arrow`` optionally passes the host-side source table so load-time
         statistics need no device->host read. A DeviceTable must already
-        lie on the session's device; a ChunkedTable stays on the host."""
+        lie on the session's device; a ChunkedTable stays on the host. A
+        meshed session places the table over its mesh (the placement rule
+        of engine/sharded.py)."""
         if isinstance(table, pa.Table):
             arrow = table if arrow is None else arrow
             table = from_arrow(table, device=self.device)
-        self._check_on_device(name, table)
+        if not isinstance(table, SH.ShardedTable):
+            self._check_on_device(name, table)
+        if self.mesh is not None and not isinstance(table, ChunkedTable):
+            table = SH.place(table, self.mesh, self._broadcast_bytes())
         key = name.lower()
         self.catalog[key] = table
         if base and arrow is not None:
@@ -164,11 +240,12 @@ class Session:
         """Load-time key statistics from HOST data: prewarm the dense
         dimension position map for a table whose FIRST column is a unique
         dense integer key (every TPC-DS dimension PK is), so the first star
-        join against it needs no whole-column device fetch."""
+        join against it needs no whole-column device fetch. A meshed
+        session prewarms nothing."""
         import numpy as np
-        import torch
         t = self.catalog.get(key)
-        if not isinstance(t, DeviceTable) or not t.columns:
+        if self.mesh is not None or not isinstance(t, DeviceTable) or \
+                not t.columns:
             return
         first = next(iter(t.columns))
         col = t.columns[first]
@@ -215,12 +292,13 @@ class Session:
     def _register_base(self, name: str, arrow, canonical_types) -> None:
         """The streaming decision: a table past the ``stream_bytes``
         threshold stays host-resident as a ChunkedTable that the planner
-        binds chunk by chunk; anything smaller uploads whole."""
+        binds chunk by chunk; anything smaller uploads whole. A meshed
+        session never streams: it row-shards instead."""
         # float() first: operators write thresholds like "1.5e9"
         limit = int(float(self.conf.get(
             "stream_bytes",
             os.environ.get("NDS_TPU_STREAM_BYTES", str(8 << 30)))))
-        if arrow.nbytes > limit:
+        if self.mesh is None and arrow.nbytes > limit:
             self.create_temp_view(
                 name, ChunkedTable(arrow, canonical_types,
                                    self.conf.get("stream_chunk_rows")),
@@ -356,6 +434,10 @@ class Session:
                 # engine/stream.py. Blacklisting stops replay_pending()
                 # from advertising a record pass that never happens
                 self._replay_blacklist[key] = "binds a streamed table"
+            elif self.mesh is not None and not self.mesh.one_device():
+                self._replay_blacklist[key] = (
+                    "meshed over distinct devices or processes: no CUDA "
+                    "graph spans them")
             else:
                 return self._record(key, stmt, planner)
         self._replay_seen.add(key)

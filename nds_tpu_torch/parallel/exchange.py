@@ -16,7 +16,13 @@ collectives between them written out:
   copied back to every shard;
 * ``all_gather``: the shards' values concatenated the same way.
 
-No ``torch.distributed``: the shards of a mesh belong to one process.
+A mesh may span processes (multihost federation,
+``parallel/multihost.py``): its shards are ordered by rank, then by local
+shard, each process holds only its own shards, and every collective here
+takes a process-group arm (``torch.distributed``: ``all_to_all``,
+``all_reduce``, ``all_gather``; gloo on the CPU, NCCL on cuda) after the
+local shards met on the process's first shard device. Both arms count
+their collectives alike.
 
 Static shapes carry over from the exchange's design: each shard packs its
 rows into a ``(P, capacity)`` buffer slotted by destination, with a
@@ -85,49 +91,65 @@ def collective_ops(counts) -> int:
 
 
 class Mesh:
-    """A 1-D mesh: the shard devices in shard order (a device may repeat:
-    shards that share a card) and the axis name."""
+    """A 1-D mesh: this process's shard devices in shard order (a device
+    may repeat: shards that share a card) and the axis name. A mesh that
+    spans processes (``world`` > 1, over the default ``torch.distributed``
+    group) has ``len(devices)`` shards in every process, ordered by
+    ``rank`` and then by local shard."""
 
-    __slots__ = ("devices", "axis")
+    __slots__ = ("devices", "axis", "rank", "world")
 
-    def __init__(self, devices, axis: str = "part"):
+    def __init__(self, devices, axis: str = "part", rank: int = 0,
+                 world: int = 1):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis = axis
+        self.rank, self.world = int(rank), int(world)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        """The shard count over every process."""
+        return len(self.devices) * self.world
+
+    @property
+    def first(self) -> int:
+        """The global index of this process's first shard."""
+        return self.rank * len(self.devices)
 
     def one_device(self) -> bool:
-        """Every shard on one device."""
-        return len(set(self.devices)) == 1
+        """Every shard on one device (of one process)."""
+        return self.world == 1 and len(set(self.devices)) == 1
 
     def key(self) -> tuple:
         """What identifies the mesh in a cache key."""
-        return (tuple(str(d) for d in self.devices), self.axis)
+        return (tuple(str(d) for d in self.devices), self.axis, self.rank,
+                self.world)
 
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]}, {self.axis!r})"
+        procs = f", rank {self.rank} of {self.world}" if self.world > 1 \
+            else ""
+        return f"Mesh({[str(d) for d in self.devices]}, {self.axis!r}{procs})"
 
 
 class Sharded:
     """A tensor laid over a mesh: ``parts[s]`` lives on ``mesh.devices[s]``.
     ``spec`` is ``"row"`` (a contiguous row split, shard order) or
-    ``"rep"`` (a whole copy on every shard)."""
+    ``"rep"`` (a whole copy on every shard). On a mesh that spans
+    processes, ``parts`` are this process's shards only."""
 
     __slots__ = ("parts", "mesh", "spec")
 
     def __init__(self, parts, mesh: Mesh, spec: str = "row"):
-        if len(parts) != mesh.size:
-            raise ValueError(f"{len(parts)} parts for a {mesh.size}-shard "
-                             "mesh")
+        if len(parts) != len(mesh.devices):
+            raise ValueError(f"{len(parts)} parts for a mesh of "
+                             f"{len(mesh.devices)} local shards")
         self.parts, self.mesh, self.spec = list(parts), mesh, spec
 
     @property
     def shape(self) -> tuple:
-        """The whole tensor's shape."""
+        """The shape of this process's share (the whole tensor's on a
+        mesh of one process)."""
         if self.spec == "rep":
             return tuple(self.parts[0].shape)
         return (sum(int(p.shape[0]) for p in self.parts),
@@ -135,11 +157,11 @@ class Sharded:
 
     def gather(self) -> torch.Tensor:
         """The whole tensor on the first shard's device (the row parts
-        concatenated in shard order; a replicated tensor's first copy)."""
+        concatenated in shard order, across processes too; a replicated
+        tensor's first copy)."""
         if self.spec == "rep":
             return self.parts[0]
-        dev = self.mesh.devices[0]
-        return torch.cat([p.to(dev, non_blocking=True) for p in self.parts])
+        return gather_rows(self.parts, self.mesh)
 
 
 def local_devices(kind: str = "cuda") -> list:
@@ -194,15 +216,21 @@ _share_devices = False
 def sharing_devices(on: bool = True):
     """Context: the sharded streamed pipelines built inside it may put
     several shards on one device (shard ``s`` on local device ``s mod
-    count``), the counterpart of the reference tests' virtual
-    multi-device mesh on one host. Process-wide, for tests and smoke
-    drives."""
+    count``), and the meshed sessions built inside it put every shard on
+    the session's own device: the counterpart of the reference tests'
+    virtual multi-device mesh on one host, the same layout on a host of
+    any number of cards. Process-wide, for tests and smoke drives."""
     global _share_devices
     prev, _share_devices = _share_devices, bool(on)
     try:
         yield
     finally:
         _share_devices = prev
+
+
+def sharing() -> bool:
+    """Whether the calling code runs inside :func:`sharing_devices`."""
+    return _share_devices
 
 
 def stream_mesh(n_shards: int, device, share: bool | None = None,
@@ -240,8 +268,8 @@ def mesh_of(*arrays) -> Mesh | None:
 
 def split_rows(x, mesh: Mesh) -> Sharded:
     """A whole tensor (or a Sharded one, returned as is) split into
-    ``mesh.size`` contiguous row parts, each on its shard's device. The
-    row count must divide evenly."""
+    ``mesh.size`` contiguous row parts, this process's each on its shard's
+    device. The row count must divide evenly."""
     if isinstance(x, Sharded):
         return x
     x = torch.as_tensor(x)
@@ -249,8 +277,8 @@ def split_rows(x, mesh: Mesh) -> Sharded:
     if n % S:
         raise ValueError(f"{n} rows do not split evenly over {S} shards")
     step = n // S
-    return Sharded([x[s * step:(s + 1) * step].to(d, non_blocking=True)
-                    for s, d in enumerate(mesh.devices)], mesh)
+    return Sharded([x[g * step:(g + 1) * step].to(d, non_blocking=True)
+                    for g, d in enumerate(mesh.devices, mesh.first)], mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -265,30 +293,100 @@ def _nbytes(t) -> int:
 def psum_counted(parts, mesh: Mesh) -> list:
     """``psum``: the shards' tensors summed, one copy per shard (counted)."""
     _note_collective("psum", 1, _nbytes(parts[0]))
-    return _replicated(_reduce(parts, mesh, torch.add), mesh)
+    return _replicated(_reduce(parts, mesh, torch.add, "sum"), mesh)
 
 
 def pmax(parts, mesh: Mesh) -> list:
     """Elementwise max over the shards, one copy per shard (not counted,
     as the reference's ``pmax`` is not)."""
-    return _replicated(_reduce(parts, mesh, torch.maximum), mesh)
+    return _replicated(_reduce(parts, mesh, torch.maximum, "max"), mesh)
 
 
 def all_gather_counted(parts, mesh: Mesh) -> list:
     """``all_gather`` (tiled): the shards' tensors concatenated in shard
     order, one copy per shard (counted)."""
     _note_collective("all_gather", 1, _nbytes(parts[0]))
+    return _replicated(gather_rows(parts, mesh), mesh)
+
+
+def gather_rows(parts, mesh: Mesh) -> torch.Tensor:
+    """This process's row parts concatenated in shard order on its first
+    shard device and, on a mesh that spans processes, every process's
+    concatenated in rank order (an all-gather of parts whose lengths may
+    differ). Not counted: the callers count."""
     dev = mesh.devices[0]
     whole = torch.cat([p.to(dev, non_blocking=True) for p in parts])
-    return _replicated(whole, mesh)
+    if mesh.world == 1:
+        return whole
+    return _pg_all_gather(whole, mesh)
 
 
-def _reduce(parts, mesh: Mesh, op):
+def _reduce(parts, mesh: Mesh, op, pg_op: str):
     dev = mesh.devices[0]
     out = parts[0].to(dev, non_blocking=True)
     for p in parts[1:]:
         out = op(out, p.to(dev, non_blocking=True))
+    if mesh.world > 1:
+        out = _pg_all_reduce(out, pg_op)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the process-group arm (a mesh that spans processes)
+# ---------------------------------------------------------------------------
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A tensor as the collectives carry it: bool travels as uint8."""
+    return t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+
+
+def _pg_all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+    import torch.distributed as dist
+    w = _wire(t).clone()
+    dist.all_reduce(w, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX)
+    return w.to(t.dtype)
+
+
+def _pg_all_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every process's ``t`` concatenated in rank order. The lengths meet
+    first (one small all-gather, read through the host-read choke point);
+    each process then sends its rows padded to the longest."""
+    import torch.distributed as dist
+    from nds_tpu_torch.engine.ops import timed_read
+    n = torch.tensor([int(t.shape[0])], dtype=I64, device=t.device)
+    ns = [torch.zeros_like(n) for _ in range(mesh.world)]
+    dist.all_gather(ns, n)
+    sizes = timed_read("mesh_rows",
+                       lambda: [int(x) for x in torch.cat(ns).tolist()])
+    cap = max(max(sizes), 1)
+    w = _wire(t)
+    if int(w.shape[0]) < cap:
+        w = torch.cat([w, w.new_zeros((cap - int(w.shape[0]),
+                                       *w.shape[1:]))])
+    outs = [torch.empty_like(w) for _ in range(mesh.world)]
+    dist.all_gather(outs, w)
+    return torch.cat([o[:k] for o, k in zip(outs, sizes)]).to(t.dtype)
+
+
+def _pg_all_to_all(plane, mesh: Mesh) -> list:
+    """The all-to-all over processes of one plane: ``plane[i]`` is local
+    shard ``i``'s ``(S, capacity)`` send buffer. Process ``q`` receives
+    the rows of its own shards from every process; returns per local
+    destination shard its ``(S, capacity)`` receive buffer, row ``g``
+    what global shard ``g`` sent, on the shard's device."""
+    import torch.distributed as dist
+    L, W = len(mesh.devices), mesh.world
+    dev = mesh.devices[0]
+    x = torch.stack([p.to(dev, non_blocking=True) for p in plane])
+    w = _wire(x)                                   # (L src, S dst, cap)
+    sends = [w[:, q * L:(q + 1) * L].contiguous() for q in range(W)]
+    recvs = [torch.empty_like(t) for t in sends]
+    dist.all_to_all(recvs, sends)
+    got = torch.cat(recvs).to(x.dtype)             # (S src, L dst, cap)
+    return [got[:, j].to(d, non_blocking=True)
+            for j, d in enumerate(mesh.devices)]
 
 
 def _replicated(t, mesh: Mesh) -> list:
@@ -302,7 +400,8 @@ def all_to_all_exchange(bufs, valid, mesh: Mesh):
     ``valid[s]`` is its validity plane. Returns ``(out, vout)``, per
     destination shard: ``out[d][name]`` and ``vout[d]`` of shape
     ``(P, capacity)``, row ``s`` the bucket shard ``s`` sent; every row of
-    them shares shard ``d``'s key range."""
+    them shares shard ``d``'s key range. On a mesh that spans processes,
+    ``bufs`` and the outputs are this process's shards'."""
     S = mesh.size
     names = list(bufs[0])
     _note_collective("a2a", len(names) + 1,
@@ -310,7 +409,9 @@ def all_to_all_exchange(bufs, valid, mesh: Mesh):
                      + _nbytes(valid[0]))
     planes = [[b[n] for b in bufs] for n in names] + [list(valid)]
     got = []
-    if mesh.one_device():
+    if mesh.world > 1:
+        got = [_pg_all_to_all(plane, mesh) for plane in planes]
+    elif mesh.one_device():
         # one device: the exchange is an index gather
         for plane in planes:
             t = torch.stack(plane).transpose(0, 1)
@@ -321,7 +422,8 @@ def all_to_all_exchange(bufs, valid, mesh: Mesh):
                                                     non_blocking=True)
                                      for s in range(S)])
                         for d in range(S)])
-    out = [{n: got[i][d] for i, n in enumerate(names)} for d in range(S)]
+    out = [{n: got[i][d] for i, n in enumerate(names)}
+           for d in range(len(mesh.devices))]
     return out, got[-1]
 
 
@@ -404,12 +506,12 @@ def sharded_filter_agg_step(mesh: Mesh, num_groups: int, capacity: int):
         -> (sums: Sharded, G a shard; counts int64[G]; total)
 
     ``counts`` and ``total`` on the first shard's device."""
-    S = mesh.size
+    S, L = mesh.size, len(mesh.devices)
 
     def step(group_key, qty, sold, lo, hi):
         gk, q, sd = (split_rows(x, mesh) for x in (group_key, qty, sold))
         bufs, valid = [], []
-        for s in range(S):
+        for s in range(L):
             keep = (sd.parts[s] >= lo) & (sd.parts[s] <= hi)
             dest = hash_partition_dest(gk.parts[s], S)
             w = torch.where(keep, q.parts[s],
@@ -421,7 +523,7 @@ def sharded_filter_agg_step(mesh: Mesh, num_groups: int, capacity: int):
             valid.append(v)
         ex, vex = all_to_all_exchange(bufs, valid, mesh)
         sums, counts, totals = [], [], []
-        for d in range(S):
+        for d in range(L):
             keys = ex[d]["key"].reshape(-1)
             wts = ex[d]["w"].reshape(-1)
             vflat = vex[d].reshape(-1)
@@ -460,7 +562,7 @@ def _exchange_join_step(mesh: Mesh, cap_in: int, pair_cap: int):
     and the device overflow counters ``[left bucket deficit, right bucket
     deficit, pair deficit]`` (the max over the shards)."""
     from nds_tpu_torch.engine.ops import unsigned_order
-    S = mesh.size
+    S, L = mesh.size, len(mesh.devices)
 
     def side(h, row):
         dev = h.device
@@ -523,12 +625,12 @@ def _exchange_join_step(mesh: Mesh, cap_in: int, pair_cap: int):
                               for x in (lh, lrow, rh, rrow))
         sent = {}
         for name, (h, row) in (("l", (lh, lrow)), ("r", (rh, rrow))):
-            got = [side(h.parts[s], row.parts[s]) for s in range(S)]
+            got = [side(h.parts[s], row.parts[s]) for s in range(L)]
             ex, vex = all_to_all_exchange([g[0] for g in got],
                                           [g[1] for g in got], mesh)
             sent[name] = (ex, vex, [g[2] for g in got])
         outs, overs = [], []
-        for d in range(S):
+        for d in range(L):
             (lex, lvex, lover), (rex, rvex, rover) = sent["l"], sent["r"]
             l_out, r_out, live, p_over = probe(
                 lex[d]["h"].reshape(-1), lex[d]["row"].reshape(-1),
@@ -543,19 +645,31 @@ def _exchange_join_step(mesh: Mesh, cap_in: int, pair_cap: int):
     return step
 
 
+# capacity retries of the repartition join in this process (each one is
+# reported to the failure listeners as well)
+CAPACITY_RETRIES = [0]
+
+
 def exchange_join_pairs(lh, lrow, rh, rrow, mesh: Mesh):
     """Repartition (all-to-all) join of two row-sharded hash columns.
 
     Returns ``(l_idx, r_idx, pair_live)`` on the first shard's device: the
     row-id pairs whose hashes matched, shard by shard at a fixed capacity,
-    with a validity mask. When a bucket or the pair buffer overflowed (the
-    counters come back through the one host-read choke point) the join
-    runs again with the capacities grown by the reported deficit, and the
-    retry is reported to the run's failure listeners."""
+    with a validity mask (on a mesh that spans processes, the pairs of
+    this process's shards). When a bucket or the pair buffer overflowed
+    (the counters come back through the one host-read choke point) the
+    join runs again with the capacities grown by the reported deficit,
+    and the retry is reported to the run's failure listeners."""
     from nds_tpu_torch.engine.ops import timed_read
     from nds_tpu_torch.listener import report_task_failure
     S = mesh.size
     n_l, n_r = int(lh.shape[0]), int(rh.shape[0])
+    if mesh.world > 1:
+        # every process sizes the same buffers: the rows of all of them
+        rows = _pg_all_reduce(torch.tensor(
+            [n_l, n_r], dtype=I64, device=mesh.devices[0]), "sum")
+        n_l, n_r = timed_read("exch_rows",
+                              lambda: tuple(int(x) for x in rows.tolist()))
     # expected rows a (shard, destination) bucket with 2x slack
     cap_in = _pow2(max(n_l, n_r) * 2 // (S * S) + 16)
     pair_cap = _pow2(max(n_l, n_r) * 2 // S + 16)
@@ -572,6 +686,7 @@ def exchange_join_pairs(lh, lrow, rh, rrow, mesh: Mesh):
             cap_in = _pow2(cap_in + max(lo, ro))
         if po:
             pair_cap = _pow2(pair_cap + po)
+        CAPACITY_RETRIES[0] += 1
         report_task_failure(
             "exchange join capacity retry",
             f"bucket deficit l={lo} r={ro}, pair deficit {po}; "

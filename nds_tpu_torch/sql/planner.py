@@ -22,6 +22,7 @@ import torch
 from nds_tpu_torch.engine import exprs as X
 from nds_tpu_torch.engine import ops as E
 from nds_tpu_torch.engine import prim
+from nds_tpu_torch.engine import sharded as SH
 from nds_tpu_torch.engine.column import Column
 from nds_tpu_torch.engine.table import DeviceTable
 from nds_tpu_torch.engine.window import WindowContext
@@ -145,10 +146,10 @@ def outer_extras_table(build: DeviceTable, idx, n_extras,
 
 
 def _table_bytes(t) -> int:
-    """Resident byte size of a catalog table (device columns or a
-    host-resident ChunkedTable) — the scanBytes term of the per-query
-    roofline accounting."""
-    if hasattr(t, "nbytes"):               # ChunkedTable
+    """Resident byte size of a catalog table (device columns, a meshed
+    table's share or a host-resident ChunkedTable) — the scanBytes term
+    of the per-query roofline accounting."""
+    if hasattr(t, "nbytes"):               # ChunkedTable, ShardedTable
         return int(t.nbytes)
     return sum(c.data.nbytes + (0 if c.valid is None else c.valid.nbytes)
                for c in t.columns.values())
@@ -404,6 +405,9 @@ class Planner:
         raise ExecError(f"unknown table {name!r}")
 
     def _alias_table(self, t: DeviceTable, alias: str) -> DeviceTable:
+        if isinstance(t, SH.ShardedTable):
+            return SH.ShardedTable([self._alias_table(p, alias)
+                                    for p in t.parts], t.mesh, t.spec)
         cols = {}
         for n, c in t.columns.items():
             base = n.split(".")[-1]
@@ -461,9 +465,9 @@ class Planner:
                 # projection pushdown: drop scan columns nothing in the
                 # statement references (fact tables are 20+ columns wide,
                 # queries touch a handful)
-                keep = {n for n in t.columns
+                keep = {n for n in t.column_names
                         if n.split(".")[-1] in self._needed_names}
-                if keep and len(keep) < len(t.columns):
+                if keep and len(keep) < len(t.column_names):
                     t = t.select([n for n in t.column_names if n in keep])
             return [t], [], [name_l if is_base else None]
         if isinstance(from_, A.SubqueryRef):
@@ -893,7 +897,8 @@ class Planner:
                 continue
             ok = True
             for fk, dk in zip(fks, dks):
-                fkc, dkc = tables[fact_slot][fk], tables[dim_slot][dk]
+                fkc = SH.column_meta(tables[fact_slot], fk)
+                dkc = SH.column_meta(tables[dim_slot], dk)
                 if fkc.kind == "f64" or dkc.kind == "f64":
                     ok = False                 # surrogate keys only
                 if (fkc.kind == "str") != (dkc.kind == "str"):
@@ -1363,6 +1368,12 @@ class Planner:
         for i, (p, f) in enumerate(zip(parts, filters_per_part)):
             if not f:
                 masks.append(None)
+            elif SH.is_row(p):
+                # a row-sharded part filters and compacts shard by shard
+                # (it never carries a deferred mask)
+                tables[i] = SH.per_shard(
+                    p, lambda _i, t, f=f: self._filter_conjuncts(t, f))
+                masks.append(None)
             elif p.plen > DEFER_FILTER_MAX_ROWS:
                 tables[i] = self._filter_conjuncts(p, f)
                 masks.append(None)
@@ -1401,12 +1412,22 @@ class Planner:
             if gather is not None:
                 fact_slot, dim_slot, fk_names, dk_names = gather
                 fact_t, dim_t = tables[fact_slot], tables[dim_slot]
-                got = E.pk_gather_join_multi(
-                    [fact_t[n] for n in fk_names],
-                    [dim_t[n] for n in dk_names],
-                    fact_t.nrows, dim_t.nrows,
-                    f_excl=masks[fact_slot], d_excl=masks[dim_slot])
-            if got is not None:
+                if SH.is_row(fact_t):
+                    got = SH.pk_gather_join(fact_t, dim_t, fk_names,
+                                            dk_names, d_excl=masks[dim_slot])
+                else:
+                    got = E.pk_gather_join_multi(
+                        [fact_t[n] for n in fk_names],
+                        [dim_t[n] for n in dk_names],
+                        fact_t.nrows, dim_t.nrows,
+                        f_excl=masks[fact_slot], d_excl=masks[dim_slot])
+            if isinstance(got, SH.ShardedTable):
+                # a row-sharded fact side joined shard by shard, each
+                # shard compacted to its matches
+                tables[a] = got
+                masks[a] = masks[b] = None
+                sources[a] = sources[fact_slot]
+            elif got is not None:
                 r_idx, matched = got
                 cols = dict(fact_t.columns)
                 cols.update(E.gather_table_rows(
@@ -1448,8 +1469,14 @@ class Planner:
         out = tables[live[0]]
         for s in live[1:]:
             out = self._cartesian(out, tables[s])
-        # residual predicates apply on the fully joined result
-        out = self._filter_conjuncts(out, residual)
+        # residual predicates apply on the fully joined result (shard by
+        # shard on a row-sharded one, unless a subquery needs it whole)
+        if SH.is_row(out) and residual and \
+                not any(self._has_subquery(c) for c in residual):
+            out = SH.per_shard(
+                out, lambda _i, t: self._filter_conjuncts(t, residual))
+        else:
+            out = self._filter_conjuncts(out, residual)
         # synthetic join keys must not leak into SELECT * expansion
         if any(n.startswith("__jk") for n in out.column_names):
             out = out.select([n for n in out.column_names
@@ -1479,6 +1506,12 @@ class Planner:
         has_group = sel.group_by is not None
         if has_group or agg_calls:
             out, _ = self._aggregate(sel, table, agg_calls)
+        elif SH.is_row(table) and not any(
+                self._has_window(it.expr) or self._has_subquery(it.expr)
+                for it in sel.items if not isinstance(it.expr, A.Star)):
+            # a plain projection of a row-sharded table: shard by shard
+            out = SH.per_shard(
+                table, lambda _i, t: self._project(sel, EvalCtx(t)))
         else:
             ctx = EvalCtx(table)
             self._eval_windows(sel, ctx)

@@ -1500,3 +1500,109 @@ def test_exchange_and_q3_across_distinct_cards(cuda):
     for k in ("d_year", "item_index", "count"):
         assert np.array_equal(a[k], b[k]), k
     assert np.allclose(a["sum_agg"], b["sum_agg"], rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the meshed resident session
+# ---------------------------------------------------------------------------
+
+
+def _mesh_tables():
+    """A fact table and two small dimensions, from a fixed seed."""
+    import pyarrow as pa
+    rng = np.random.default_rng(31)
+    n = 20000
+    return {
+        "sales": pa.table({
+            "s_item": pa.array(rng.integers(1, 90, n), pa.int64()),
+            "s_date": pa.array(rng.integers(1, 300, n), pa.int64()),
+            "s_qty": pa.array(rng.integers(1, 50, n), pa.int64()),
+            "s_price": pa.array([None if x % 17 == 0 else float(x) / 7
+                                 for x in rng.integers(1, 9000, n)],
+                                pa.float64())}),
+        "items": pa.table({
+            "i_item": pa.array(np.arange(1, 81), pa.int64()),
+            "i_cat": pa.array([f"cat{k % 7}" for k in range(80)])}),
+        "dates": pa.table({
+            "d_date": pa.array(np.arange(1, 301), pa.int64()),
+            "d_year": pa.array(1998 + np.arange(300) // 100, pa.int64())}),
+    }
+
+
+MESH_SQL = [
+    """select d_year, i_cat, sum(s_qty) qty, count(*) cnt, avg(s_price) p,
+              min(s_price) lo
+       from sales, items, dates
+       where s_item = i_item and s_date = d_date and s_qty > 5
+       group by d_year, i_cat order by d_year, i_cat""",
+    """select s_item, s_qty, i_cat from sales, items
+       where s_item = i_item and s_qty > 47 order by s_item, s_qty, i_cat""",
+]
+
+
+def _mesh_rows(session, tables):
+    for name, t in tables.items():
+        session.create_temp_view(name, t)
+    return [session.sql(q).collect() for q in MESH_SQL]
+
+
+def _rows_equal(a, b) -> bool:
+    """Exact kinds bit for bit, doubles within rel 1e-5 (a double sum's
+    order on the card is not fixed), row order exact."""
+    import math
+
+    def same(x, y):
+        if isinstance(x, float) and isinstance(y, float):
+            return math.isclose(x, y, rel_tol=1e-5, abs_tol=1e-12)
+        return x == y
+
+    return len(a) == len(b) and all(
+        len(ra) == len(rb) and all(same(x, y) for x, y in zip(ra, rb))
+        for ra, rb in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limit", [20000, 64])
+def test_meshed_session_sharing_the_card_equals_unmeshed(cuda, limit):
+    """Mesh 2 with both shards on this card (inside the sharing seam, on
+    a host of any number of cards), the fact row-sharded (and at 64 bytes
+    everything, so the join takes the exchange), gives the unmeshed rows;
+    a third sight replays as one CUDA graph."""
+    from nds_tpu_torch.engine import sharded as SH
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.parallel import exchange as X
+    tables = _mesh_tables()
+    want = _mesh_rows(Session({"replay": "off"}, device="cuda"), tables)
+    with X.sharing_devices():
+        s = Session({"mesh_shape": 2, "broadcast_bytes": limit,
+                     "replay": "force"}, device="cuda")
+    assert s.mesh.one_device() and s.mesh.devices[0] == torch.device(
+        "cuda", torch.cuda.current_device())
+    SH.COUNTS["exchange_joins"] = 0
+    got = _mesh_rows(s, tables)
+    assert all(_rows_equal(g, w) for g, w in zip(got, want))
+    assert s.catalog["sales"].spec == "row"
+    assert (SH.COUNTS["exchange_joins"] > 0) == (limit == 64)
+    for tier in ("record", "replayed"):
+        assert _rows_equal(s.sql(MESH_SQL[0]).collect(), want[0])
+        assert s.last_tier == tier, s.replay_reason(MESH_SQL[0])
+
+
+@pytest.mark.gpu
+def test_meshed_session_across_distinct_cards(cuda):
+    """Mesh 2 on two cards (no sharing): the unmeshed rows, and replay
+    refused with its reason."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a distinct-card mesh puts "
+                    "each shard on a card of its own")
+    from nds_tpu_torch.engine.session import Session
+    tables = _mesh_tables()
+    want = _mesh_rows(Session({"replay": "off"}, device="cuda"), tables)
+    s = Session({"mesh_shape": 2, "broadcast_bytes": 64, "replay": "force"},
+                device="cuda")
+    assert not s.mesh.one_device()
+    got = _mesh_rows(s, tables)
+    assert all(_rows_equal(g, w) for g, w in zip(got, want))
+    for _ in range(2):
+        assert _rows_equal(s.sql(MESH_SQL[0]).collect(), want[0])
+    assert s.last_tier.startswith("blacklisted: meshed over distinct")

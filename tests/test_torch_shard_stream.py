@@ -13,9 +13,8 @@ equal to the reference's; the compiled path within 6 host syncs. Then the
 port's own contracts: one shard is the unsharded pipeline, a pipeline
 built for one shard count never serves another, a fault at the exchange
 seam reruns the statement eagerly with the same rows, too few devices
-without sharing builds unsharded, the meshed resident session is refused,
-and the pipeline cache's budget counts graph-pool bytes (a stand-in on
-the CPU). Inputs come from fixed numpy seeds."""
+without sharing builds unsharded, and the pipeline cache's budget counts
+graph-pool bytes (a stand-in on the CPU). Inputs come from fixed numpy seeds."""
 
 import numpy as np
 import pytest
@@ -30,7 +29,6 @@ from tests.test_torch_stream import _port_star, _run
 
 from nds_tpu_torch.engine import faults as F
 from nds_tpu_torch.engine import stream as S
-from nds_tpu_torch.engine.session import Session
 from nds_tpu_torch.listener import drain_stream_events
 from nds_tpu_torch.parallel import exchange as X
 
@@ -186,12 +184,6 @@ def test_too_few_devices_without_sharing_builds_unsharded():
         rows, _s, events = _run(s, q)
     assert rows == _run(plain, q)[0]
     assert [(e.path, e.shards) for e in events] == [("compiled", 1)]
-
-
-def test_meshed_resident_session_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Session(conf={"mesh_shape": 2}, device="cpu")
-    Session(conf={"mesh_shape": 1}, device="cpu")
 
 
 def test_shard_row_bound_matches_reference():
