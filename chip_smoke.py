@@ -6,11 +6,12 @@
 
 Phases (each prints one JSON line; any failure makes the exit code non-zero
 and suppresses the final ``ok`` line; ``--only`` runs the named ones of
-kernels, power, mesh, census, replay, stream, shard, agreement, bench
-and full_bench after device, build and data, and ends without the ``ok``
-line). ``--stream-scale 10 --stream-ci 13`` runs the stream phase as the
-reference's SF10 setting (tables above 1.5e9 bytes) with the first 13 CI
-statements, the run that once took the card out of memory:
+kernels, power, mesh, census, replay, stream, shard, agreement,
+validate, bench, campaign and full_bench after device, build and data, and
+ends without the ``ok`` line). ``--stream-scale 10 --stream-ci 13`` runs
+the stream phase as the reference's SF10 setting (tables above 1.5e9
+bytes) with the first 13 CI statements, the run that once took the card
+out of memory:
 
 1. device      the card's name and power limit (nvidia-smi);
 2. build       the CUDA kernels of ``nds_tpu_torch/csrc`` (nvcc, sm_90a);
@@ -47,11 +48,14 @@ statements, the run that once took the card out of memory:
                ``torch.searchsorted`` pair); a ``k4_sweep`` line times
                every plan of ``kernels.scan_plans`` on the same chunk,
                each checked bit for bit;
-4. data        builds ``native/ndsgen`` and writes SF0.01, SF1 and SF5
+4. data        builds ``native/ndsgen`` and writes SF0.01, SF1 and SF3
                raw data (parallel children) under ``.smoke_data/``, in
-               the background while the earlier phases run; SF5 is
-               waited for only by the stream phase; for the full_bench
-               phase also SF1's refresh sets 1-4 (``nds_tpu_torch.datagen
+               the background while the earlier phases run, then SF3 and
+               SF1 as parquet for the stream and shard phases (a child
+               process, so the power, mesh, census and replay phases
+               run beside it); SF3 is waited for only by the stream
+               phase; for the full_bench
+               phase also SF1's refresh sets 1-3 (``nds_tpu_torch.datagen
                --update``, in ``.smoke_data/sf1_<n>``);
 5. power       the 25 CI statements at SF1 through the port's Power Run
                entry on ``cuda``, plus one MIN/MAX-of-double statement;
@@ -74,8 +78,8 @@ statements, the run that once took the card out of memory:
                (``fetches``), collectives and bytes,
                summed ms against the unmeshed run (each statement run
                twice eagerly, the second timed), K1-K3 and K5 launches,
-               peak memory, and a ``mesh_profile`` line for the forced
-               arm's slowest statement under ``torch.profiler``; a
+               peak memory (no ``torch.profiler`` runs here, for the
+               smoke's time limit); a
                ``mesh_retry`` line drives a skewed
                repartition join whose capacity retries must each reach
                the failure listeners; the ``mesh`` line gives the replay
@@ -83,7 +87,8 @@ statements, the run that once took the card out of memory:
                graph) and fails on a differing statement, a forced arm
                without an exchange join, an unreported retry or a
                statement whose tiers are not eager, record, replayed;
-   census      the same 25 statements again under ``torch.profiler``
+   census      the first 13 of those statements (``CENSUS_QUERIES``,
+               for the smoke's time limit) again under ``torch.profiler``
                (the Power Run's ``--profile``): every CUDA kernel they
                launch and its device time, with ``prim.true_div``'s
                divisors kept as the port keeps them (the arm with a fresh
@@ -105,9 +110,9 @@ statements, the run that once took the card out of memory:
                with more than 1 sync before the fetch, or on launches
                unequal to eager. The watchdog line runs with
                replay off (it arms blocking reads, which a replay lacks);
-6. stream      SF5 transcoded to parquet (the port's ``write_table``); a
-               cuda session that streams every table above 7.5e8 bytes
-               in 2^22-row chunks (store_sales: 4 chunks) against an
+6. stream      SF3 as parquet (the port's ``write_table``, data phase); a
+               cuda session that streams every table above 4.5e8 bytes
+               in 2^22-row chunks (store_sales: 3 chunks) against an
                all-resident one: the 14 streamed A/B statements of
                ``tests/test_synccount.py`` (and the partitioned subset at 2
                partitions; the three that join two fact tables on the
@@ -134,6 +139,14 @@ statements, the run that once took the card out of memory:
                first sight's time outside the chunk loop into codec
                planning and encoding, record, capture, the first chunk's
                upload and the rest;
+               the raw-wire arm runs ab0, ab2, query37 and ab7 twice
+               more in the same process under ``NDS_TPU_ENCODED=0`` (plain
+               widths): rows equal to the encoded runs bit for bit, every
+               scan a captured or replayed graph, at most 6 syncs, no
+               synchronizing call in the loop, K4/K5 launches equal to
+               the encoded runs' (one ``raw_wire_statement`` line each,
+               and a ``raw_wire`` line with query37's host-to-device
+               bytes and ms a chunk, encoded against raw);
                the ``pipeline_budget`` record holds the cached
                pipelines' static operands and graph-pool bytes
                (``stream.static_report``) against their budget after
@@ -141,15 +154,17 @@ statements, the run that once took the card out of memory:
                pipeline held more than it;
                a ``k4_specs`` line counts K4's launches by spec shape
                (entry kinds, column dtypes and validity, dict table sizes,
-               IN-list lengths, key dtypes, plen) and by the statement that
-               made them (``<q>/compare``: the second run of a CI
-               statement whose rows are compared), and ``k1_groups`` /
+               IN-list lengths, decimal divisors, key dtypes, plen) and by
+               the statement that made them (``<q>/compare``: the second
+               run of a CI statement whose rows are compared;
+               ``raw/<q>``: the raw-wire arm), and ``k1_groups`` /
                ``k23_groups`` lines count K1-K3's launches by group count;
    k4 real     K4 at each spec shape of ``k4_specs``, on the first chunk
                of that shape (repeated to 2^22 rows where shorter):
                bit-exact, warm and cold L2, the bytes bound and its
-               share, the plain time, and a ``k4_sweep`` line of every
-               plan;
+               share, the plain time, the wire that launched it
+               (``encoded``, ``raw``: the plain-width int64 and ``"id"``
+               lanes), and a ``k4_sweep`` line of every plan;
    shard       ``exchange_join_pairs`` on cuda against cpu (50 % and 95 %
                dead rows, the skewed capacity retry; 2, 4 and 8 shards
                sharing the card; exact pair arrays) and
@@ -174,30 +189,56 @@ statements, the run that once took the card out of memory:
                MIN/MAX-of-double one, on ``cuda`` and on ``cpu``: exact
                kinds bit for bit, doubles within rel 1e-5; the line names
                each statement that differs and gives the phase's seconds.
-8. bench       ``python -m nds_tpu_torch.bench`` twice (runs A and B,
-               fresh processes) at SF1, run A over every statement of
-               its stream (103), run B over the first 25 templates (28
-               statements; ``BENCH_B_QUERIES``), on the SF1
-               raw data of the data phase, each with
-               its ledger under ``chiprun_out/smoke/``: both end
-               ``completed`` with every statement ``ok`` and K1 and K2
-               launched (the stream has no MIN/MAX of a double, so no
-               K3) under the default replay policy, ``auto`` (the line
-               counts the statements each run replayed and names those
-               blacklisted, with the reason; a blacklist other than the
-               eviction of a slower replay fails it), both ledgers load,
-               ``bench_compare --gate`` of A against itself passes and
-               its ``--inject-drift`` self-test rejects. One line gives
-               each run's geomean, the statements' B/A ratios (the ten
-               largest by name) and, as a finding, the A-versus-B gate
-               verdict at 1.10 / 1.50 over B's statements; a second line the phase's seconds
-               and the card.
+   validate    the 25 CI statements at SF1 through ``python -m
+               nds_tpu_torch.power --output_prefix`` on ``cuda`` and on
+               ``cpu`` (two processes in the background, both started
+               before the shard phase; the shard and agreement phases run
+               meanwhile), then ``python -m
+               nds_tpu_torch.validate`` of the cpu outputs against the
+               cuda ones: exit 0 and every summary ``Pass``; then a copy
+               of the cuda outputs with the first double of the first
+               statement that has one changed by 1e-3 relative: exit 1,
+               that statement alone unmatched and ``Fail``. The line gives
+               the statements, rows, both runs' and the phase's seconds;
+8. bench       ``python -m nds_tpu_torch.bench`` (run A, a fresh process)
+               at SF1 over every statement of its stream (103) on the SF1
+               raw data of the data phase, its ledger beside the other
+               results: it ends ``completed`` with every
+               statement ``ok`` and K1 and K2 launched (the stream has no
+               MIN/MAX of a double, so no K3) under the default replay
+               policy, ``auto`` (the line counts the statements replayed
+               and names those blacklisted, with the reason; a blacklist
+               other than the eviction of a slower replay fails it), the
+               ledger loads, ``bench_compare --gate`` of A against itself
+               passes and its ``--inject-drift`` self-test rejects; a
+               second line gives the phase's seconds and the card. Run B
+               (the first 14 templates, 15 statements,
+               ``BENCH_B_QUERIES``, resident, in a fresh process) is the
+               campaign's ``resident`` arm;
+   campaign    ``python -m nds_tpu_torch.tools.campaign`` over the arms
+               ``base``, ``encoded-off`` (``NDS_TPU_ENCODED=0``) and
+               ``prefetch-off`` (``NDS_TPU_PREFETCH_DEPTH=0``), each
+               ``python -m nds_tpu_torch.bench`` over ``BENCH_B_QUERIES``
+               at SF1 with ``NDS_TPU_STREAM_BYTES=1.5e8`` (store_sales,
+               catalog_sales and inventory stream), and ``resident`` (the
+               threshold unset: nothing streams): every arm completes
+               with 15 statements ``ok``, the same command again skips
+               all four, ``--report`` writes a row an arm and the
+               encoded/raw delta (the raw wire uploads more bytes), each
+               arm's ``--gate`` against run A is a finding, the resident
+               arm streams nothing and fails no replay and its ratios to
+               run A are run B's A-versus-B finding, ``base`` against
+               ``resident`` prices the streamed path (a finding), and
+               ``python -m nds_tpu_torch.tools.trace_report`` renders the
+               base arm's traces;
 9. full_bench  first two processes build the kernel library at once (the
                built one set aside) and must both load it; then
                ``python -m nds_tpu_torch.nds_bench`` on a configuration
                under ``.smoke_data/full_bench/`` (the keys of
-               ``bench.yml``): SF1, 5 streams (2 concurrent streams a
-               Throughput Test), the data phase's base data and refresh
+               ``bench.yml``): SF1, 4 streams (Throughput 1 runs streams
+               1 and 2 at once on the card, Throughput 2 stream 3: fewer
+               than bench.yml's, for the smoke's time limit), the data
+               phase's base data and refresh
                sets, an ``iceberg`` warehouse, ``device: cuda``,
                ``NDS_TPU_CONCURRENT_QUERIES`` unset. The ``full_bench``
                line gives Tld, TPower, Ttt1, Ttt2, Tdm1 and Tdm2 (seconds,
@@ -288,14 +329,18 @@ PROBE_DUP_ROWS = 102000          # the duplicate-heavy build side
 PROBE_SPARSE_ROWS = 1 << 20      # a build side of nulls but 16 rows
 # the stream phase: the reference's SF10 run (streaming threshold 1.5e9
 # bytes, 2^22-row chunks: store_sales 28,800,501 rows in 7 chunks) cut to
-# SF5 for the smoke's time, with the threshold halved so that the same
-# four fact tables stream (store_sales 14,400,000 rows in 4 chunks)
-STREAM_SCALE = 5
+# SF3 for the smoke's time (SF5 until the whole smoke passed 1,200 s on a
+# slow host), with the threshold scaled down alike so that the same four
+# fact tables stream (store_sales 3 chunks, inventory 18)
+STREAM_SCALE = 3
 STREAM_CHUNK_ROWS = 1 << 22
-STREAM_BYTES = 7.5e8
+STREAM_BYTES = 1.5e8 * STREAM_SCALE
 # the CI statements the stream phase runs through the Power Run entry
 # (``--stream-ci``: its first N)
 STREAM_CI = CI_QUERIES
+# the census phase's statements: the first 13 CI statements, for the
+# smoke's time limit
+CENSUS_QUERIES = CI_QUERIES[:13]
 # the A/B statements that join store_sales to store_returns on the item
 # alone. At SF10 about 28 returns match each sale, so their joins hold up
 # to 8e8 pairs (SF5 about half): more than the card holds, resident or
@@ -303,23 +348,28 @@ STREAM_CI = CI_QUERIES
 # output). They run on SF1 instead, streamed above 1.5e8 bytes in
 # 2^19-row chunks (store_sales 6 chunks), against SF1 all-resident.
 STREAM_AB_FANOUT = (7, 8, 13)
+# the raw-wire arm (NDS_TPU_ENCODED=0): these statements again, after
+# their encoded runs, in the same process
+RAW_WIRE = ("ab0", "ab2", "query37", "ab7")
 FANOUT_SCALE = 1
 FANOUT_CHUNK_ROWS = 1 << 19
 FANOUT_STREAM_BYTES = 1.5e8
 # the bench phase: two runs of the port's bench entry at SF1, each held to
 # a round budget well inside the smoke's time limit. Run A takes every
-# statement of the stream (103); run B, there for the run-to-run spread,
-# takes the first 25 templates (28 statements with the two-part ones):
-# two whole runs made the smoke pass its time limit on a slow host once
-# the shard phase came (a run is mostly first sights, records and
-# captures, host work)
+# statement of the stream (103); run B, there for the run-to-run spread
+# and run as the campaign phase's ``resident`` arm, takes the first 14
+# templates (15 statements with query14's two parts), as do the
+# campaign's other arms: two whole runs made the smoke pass its time
+# limit on a slow host once the shard phase came, and four arms of 28
+# statements once the campaign came (a run is mostly first sights,
+# records and captures, host work)
 BENCH_SCALE = 1
 BENCH_BUDGET_S = 300
-BENCH_B_TEMPLATES = 25
+BENCH_B_TEMPLATES = 14
 BENCH_B_QUERIES = [name for i in range(1, BENCH_B_TEMPLATES + 1)
                    for name in ((f"query{i}_part1", f"query{i}_part2")
                                 if i in (14, 23, 24) else (f"query{i}",))]
-BENCH_STATEMENTS = {"a": 103, "b": len(BENCH_B_QUERIES)}
+BENCH_STATEMENTS = {"a": 103}
 BENCH_KERNELS = ("segment_sum_i64", "segment_sum_f64")
 
 
@@ -913,6 +963,32 @@ def gen_data(binary, scale, out_dir, parallel):
     return out_dir
 
 
+# the background transcode of the stream and shard phases' parquet: its
+# seconds and each table's
+TRANSCODE = {}
+
+
+def streamed_data(binary, raw, parallel):
+    """SF``STREAM_SCALE``'s raw data, then it and SF``FANOUT_SCALE``'s as
+    parquet through the port's ``write_table`` (``bench.transcode``, in a
+    child process, so that the phases running meanwhile keep this
+    process's interpreter), for the stream and shard phases."""
+    gen_data(binary, STREAM_SCALE, raw, parallel)
+    t0 = time.time()
+    code = ("import json, sys; from nds_tpu_torch.bench import transcode; "
+            "print(json.dumps([transcode(sys.argv[1], sys.argv[2]), "
+            "transcode(sys.argv[3], sys.argv[4])]))")
+    res = subprocess.run(
+        [sys.executable, "-c", code, raw,
+         os.path.join(DATA, f"sf{STREAM_SCALE}_parquet"),
+         os.path.join(DATA, f"sf{FANOUT_SCALE}"),
+         os.path.join(DATA, f"sf{FANOUT_SCALE}_parquet")],
+        cwd=REPO, capture_output=True, text=True, check=True, timeout=900)
+    TRANSCODE["tables"] = json.loads(res.stdout.strip().splitlines()[-1])[0]
+    TRANSCODE["s"] = round(time.time() - t0, 3)
+    return raw
+
+
 def stream_file(scale) -> str:
     from nds_tpu_torch.queries import generate_query_streams
     d = os.path.join(DATA, f"stream_sf{scale}")
@@ -1145,7 +1221,7 @@ def sync_detector_works(torch) -> bool:
                str(w.message).lower() for w in seen)
 
 
-def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
+def stream_phase(torch, K, queries, capture):
     """The streamed path at ``STREAM_SCALE`` against an all-resident
     session; the fan-out A/B statements at ``FANOUT_SCALE``. K4's launches
     count into ``capture`` under the statement that made them."""
@@ -1158,13 +1234,10 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     from nds_tpu_torch.listener import drain_stream_events
     from nds_tpu_torch.power import (run_query_stream, setup_tables,
                                      strip_stream_markers)
-    t0 = time.time()
+    # the parquet of both scales comes from the background transcode
     pq = os.path.join(DATA, f"sf{STREAM_SCALE}_parquet")
-    from nds_tpu_torch.bench import transcode
-    transcode_tables = transcode(raw_dir, pq)
-    transcode_s = time.time() - t0
+    transcode_tables, transcode_s = TRANSCODE["tables"], TRANSCODE["s"]
     pq_fanout = os.path.join(DATA, f"sf{FANOUT_SCALE}_parquet")
-    transcode(raw_fanout, pq_fanout)
     stream_conf = {"stream_bytes": STREAM_BYTES,
                    "stream_chunk_rows": STREAM_CHUNK_ROWS}
 
@@ -1295,6 +1368,9 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
 
     K.reset_launches()
     records, failures = [], []
+    # the raw-wire arm's statements as the encoded wire ran them: (session,
+    # sql, rows, ms, stream events, K4/K5 launches)
+    encoded = {}
 
     def run_ab(resident, streamed, indices, scale):
         """The A/B statements ``indices``, then those of them in the
@@ -1329,6 +1405,9 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
             rec.update(more)
             records.append(rec)
             emit({"phase": "stream", **rec})
+            if f"ab{i}" in RAW_WIRE:
+                encoded[f"ab{i}"] = (streamed, STREAM_AB[i], got, ms,
+                                     events, graph_launches)
             problems += [p for p in (graph_problem(graphs),) if p]
             if why or not (compiled or reran) or problems or \
                     (compiled and syncs > STREAM_SYNC_BUDGET):
@@ -1370,7 +1449,6 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     marks = {}
     run_ab(resident, streamed, [i for i in range(len(STREAM_AB))
                                 if i not in STREAM_AB_FANOUT], STREAM_SCALE)
-    del streamed
     fanout_streamed = session(pq_fanout, {
         "stream_bytes": FANOUT_STREAM_BYTES,
         "stream_chunk_rows": FANOUT_CHUNK_ROWS})
@@ -1379,7 +1457,7 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
     marks["ab_stream_scale_s"] = round(time.time() - t_phase, 3)
     run_ab(fanout_resident, fanout_streamed, STREAM_AB_FANOUT, FANOUT_SCALE)
     marks["ab_fanout_s"] = round(time.time() - t_phase, 3)
-    del fanout_streamed, fanout_resident
+    del fanout_resident
     # the 25 CI statements through the Power Run entry, parquet input
     props = os.path.join(OUT, "stream.properties")
     with open(props, "w") as f:
@@ -1438,6 +1516,9 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
         rec.update(more)
         records.append(rec)
         emit({"phase": "stream", **rec})
+        if q in RAW_WIRE:
+            encoded[q] = (power_s, sql, got, compare_ms, events,
+                          graph_launches)
         problems += [p for p in (graph_problem(first_graphs),
                                  graph_problem(graphs)) if p]
         if why or problems or js["queryStatus"][-1] != "Completed":
@@ -1445,6 +1526,12 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
                             f"{problems}")
     drain_stream_events()
     marks["ci_s"] = round(time.time() - t_phase, 3)
+    raw_line, raw_problems = raw_wire_arm(encoded, timed, last, capture,
+                                          scans)
+    failures += raw_problems
+    encoded.clear()
+    del streamed, fanout_streamed
+    marks["raw_wire_s"] = round(time.time() - t_phase, 3)
     launches = dict(K.LAUNCHES)
     # the resident session's card memory goes back before the split (its
     # warm-store arms run in a child process, which needs the card too)
@@ -1508,7 +1595,90 @@ def stream_phase(torch, K, raw_dir, raw_fanout, queries, capture):
                 "loop_syncs": {r["statement"]: r["loop_syncs"]
                                for r in records if r.get("loop_syncs")}},
             "failures": failures[:40], "statements": records,
-            "chunk_split": split}
+            "chunk_split": split, "raw_wire": raw_line}
+
+
+def raw_wire_arm(encoded, timed, last, capture, scans):
+    """The ``RAW_WIRE`` statements again under ``NDS_TPU_ENCODED=0``, on
+    the sessions that ran them encoded, twice each (the first sight
+    builds the plain-width wire plan, records and captures; the second
+    replays): rows equal to the encoded run's bit for bit, every scan
+    compiled as a graph, at most ``STREAM_SYNC_BUDGET`` syncs, no
+    synchronizing call in the chunk loop, and K4/K5 launches equal to the
+    encoded run's. (the ``raw_wire`` line, problems)."""
+    from nds_tpu_torch.io.columnar import encoded_enabled
+    problems, rows = [], []
+    os.environ["NDS_TPU_ENCODED"] = "0"
+    try:
+        assert not encoded_enabled()
+        for name in RAW_WIRE:
+            if name not in encoded:
+                problems.append(f"raw/{name}: no encoded run to hold it to")
+                continue
+            sess, sql, want, enc_ms, enc_events, enc_launches = \
+                encoded[name]
+            runs = []
+            for sight in ("first", "again"):
+                capture.context = f"raw/{name}" + (
+                    "" if sight == "first" else "/again")
+                got, ms, syncs, events = timed(sess, sql)
+                runs.append((got, ms, syncs, events, last["launches"],
+                             last["loop_syncs"]))
+            (got, ms, syncs, events, launches, loop_syncs), \
+                (got2, ms2, syncs2, events2, launches2, loop_syncs2) = runs
+            compiled = [e for e in events + events2 if e.path == "compiled"]
+            graphs = [e.graph for e in compiled]
+            chunks = max((e.chunks for e in events), default=0)
+            # query37's encoded rows came from its second sight; the A/B
+            # statements' from their first
+            held = launches2 if name.startswith("query") else launches
+            rec = {
+                "statement": name, "rows": got.num_rows,
+                "equal_bit_for_bit": got.equals(want) and got2.equals(want),
+                "first_ms": round(ms, 3), "again_ms": round(ms2, 3),
+                "encoded_ms": round(enc_ms, 3), "chunks": chunks,
+                "ms_per_chunk": round(ms2 / max(chunks, 1), 3),
+                "encoded_ms_per_chunk": round(enc_ms / max(chunks, 1), 3),
+                "h2d_bytes": sum(e.bytes_h2d for e in events2),
+                "encoded_h2d_bytes": sum(e.bytes_h2d for e in enc_events),
+                "syncs": [syncs, syncs2], "loop_syncs": loop_syncs
+                + loop_syncs2, "graph": graphs,
+                "launches": [launches, launches2],
+                "encoded_launches": enc_launches,
+                "scans": scans(events2)}
+            rows.append(rec)
+            emit({"phase": "raw_wire_statement", **rec})
+            why = []
+            if not rec["equal_bit_for_bit"]:
+                why.append("rows differ from the encoded run")
+            if not compiled or len(compiled) != len(events + events2) \
+                    or any(g not in ("captured", "replayed")
+                           for g in graphs):
+                why.append(f"scans {[(e.path, e.graph[:80]) for e in events]}")
+            if max(syncs, syncs2) > STREAM_SYNC_BUDGET or rec["loop_syncs"]:
+                why.append(f"syncs {rec['syncs']}, loop {rec['loop_syncs']}")
+            if held != enc_launches:
+                why.append(f"launches {held} against the encoded "
+                           f"{enc_launches}")
+            if why:
+                problems.append(f"raw/{name}: {why}")
+    finally:
+        os.environ.pop("NDS_TPU_ENCODED", None)
+        capture.context = None
+    k4 = sum(r["launches"][0]["chunk_scan"] + r["launches"][1]["chunk_scan"]
+             for r in rows)
+    if not k4:
+        problems.append("raw wire: K4 never launched")
+    q37 = next((r for r in rows if r["statement"] == "query37"), {})
+    line = {"phase": "raw_wire", "ok": not problems, "scale": STREAM_SCALE,
+            "statements": [r["statement"] for r in rows], "k4_launches": k4,
+            "query37": {k: q37.get(k) for k in (
+                "chunks", "h2d_bytes", "encoded_h2d_bytes", "ms_per_chunk",
+                "encoded_ms_per_chunk", "first_ms", "again_ms",
+                "encoded_ms")},
+            "problems": problems}
+    emit(line)
+    return line, problems
 
 
 # ---------------------------------------------------------------------------
@@ -1614,10 +1784,10 @@ def exchange_checks(torch):
     return problems, recs
 
 
-def shard_phase(torch, K, raw_dir, raw_fanout, queries):
+def shard_phase(torch, K, queries):
     """The exchange on its own, then sharded streaming on this card: the
     A/B and CI statements of ``SHARD_AB``/``SHARD_CI`` on the stream
-    phase's SF5 data and threshold and the fan-out template on the SF1
+    phase's SF3 data and threshold and the fan-out template on the SF1
     fan-out data, at 1 shard and at each of ``SHARD_COUNTS`` (shards
     sharing the card), each twice (the capture, then a replay). Each
     sharded run's rows equal the one-shard run's bit for bit, every
@@ -1628,7 +1798,6 @@ def shard_phase(torch, K, raw_dir, raw_fanout, queries):
     loop, the fan-out template makes at least one all-to-all a chunk,
     and K4 and K5 launch. With two or more cards, the fan-out template
     runs again on shards of distinct cards. Returns (ok, lines)."""
-    from nds_tpu_torch.bench import transcode
     from nds_tpu_torch.engine import ops as E
     from nds_tpu_torch.engine import prefetch as PF
     from nds_tpu_torch.engine import stream as S
@@ -1643,11 +1812,9 @@ def shard_phase(torch, K, raw_dir, raw_fanout, queries):
     problems += ex_problems
     lines.append({"phase": "shard_exchange", "ok": not ex_problems,
                   "cases": ex_recs, "s": round(time.time() - t_phase, 3)})
+    # the parquet of both scales comes from the background transcode
     pq = os.path.join(DATA, f"sf{STREAM_SCALE}_parquet")
     pq_fanout = os.path.join(DATA, f"sf{FANOUT_SCALE}_parquet")
-    for raw, out in ((raw_dir, pq), (raw_fanout, pq_fanout)):
-        if not os.path.isdir(os.path.join(out, "store_sales")):
-            transcode(raw, out)
     syncs_in_loop = watch_chunk_loop(torch, S, PF)
     S._PIPELINE_CACHE.clear()
 
@@ -1781,30 +1948,6 @@ MESH_KERNELS = ("segment_sum_i64", "segment_sum_f64", "segment_minmax_f64",
                 "join_probe")
 
 
-def mesh_profile(torch, base, m, n, sqls, ms, plain_ms):
-    """The forced arm's statement slowest against its unmeshed run, once
-    more on the meshed session ``m`` and on the unmeshed ``base``, each
-    under ``torch.profiler``: wall, host syncs, device kernel ms,
-    launches and the top kernels (a ``mesh_profile`` line)."""
-    from nds_tpu_torch.engine import ops as E
-    from nds_tpu_torch.power import _profiler, profile_summary
-    q = max(ms, key=lambda k: ms[k] / max(plain_ms[k], 1e-9))
-    rec = {"phase": "mesh_profile", "mesh_shape": n, "statement": q}
-    for arm, s in (("meshed", m), ("unmeshed", base)):
-        prof = _profiler(torch.device("cuda"))
-        s0 = E.sync_count()
-        with prof:
-            t = time.perf_counter()
-            s.sql(sqls[q]).to_arrow()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        rec[arm] = {"profiled_wall_ms": round(wall, 3),
-                    "host_syncs": E.sync_count() - s0,
-                    **profile_summary(prof, top=8)}
-    rec["smi"] = smi_line()
-    return rec
-
-
 def mesh_phase(torch, K, Session, base, queries):
     """The meshed resident session on this card, its shards sharing it:
     the CI statements at ``mesh_shape`` 2 and 4 at the default 128 MiB
@@ -1896,11 +2039,6 @@ def mesh_phase(torch, K, Session, base, queries):
             lines.append(rec)
             if diffs:
                 problems.append(f"mesh {n} forced={forced}: {diffs}")
-            if forced and ms:
-                # where the slowest forced statement's time goes: its
-                # device kernel time and launches against its wall
-                lines.append(mesh_profile(torch, base, m, n, sqls, ms,
-                                          plain_ms))
             if forced and not rec["exchange_joins"]:
                 problems.append(f"mesh {n}: the forced arm engaged no "
                                 "exchange join")
@@ -2025,7 +2163,9 @@ def spec_shape(flat, spec):
         return str(t.dtype).replace("torch.", "")
     cols = [{"dtype": dt(flat[c[0]]), "valid": c[1] >= 0, "decode": c[2],
              **({"table": len(spec.tables[c[4]])} if c[2] == "dict"
-                else {})} for c in spec.cols]
+                else {}),
+             **({"divisor": c[5]} if c[5] != 1.0 else {})}
+            for c in spec.cols]
     entries = []
     for e in spec.entries:
         ent = {"kind": e[0], "col": e[1]}
@@ -2183,7 +2323,7 @@ def watchdog_cost(torch, session, sql):
 
 
 def launch_census(torch, sf1, queries, run_query_stream):
-    """The CI statements at SF1 through the Power Run entry with
+    """``CENSUS_QUERIES`` at SF1 through the Power Run entry with
     ``profile_folder``, with the device divisors of ``prim.true_div``
     kept: the device events the profiler summed (kernels, memcpys,
     memsets) and their device ms, the kernels and fill kernels of the
@@ -2205,7 +2345,7 @@ def launch_census(torch, sf1, queries, run_query_stream):
         try:
             run_query_stream(
                 sf1, None, queries, os.path.join(OUT, f"census_{arm}.csv"),
-                sub_queries=CI_QUERIES, input_format="raw",
+                sub_queries=CENSUS_QUERIES, input_format="raw",
                 json_summary_folder=summ, allow_failure=True, device="cuda",
                 profile_folder=traces)
             torch.cuda.synchronize()
@@ -2229,10 +2369,10 @@ def launch_census(torch, sf1, queries, run_query_stream):
             "fill_kernels": sum(f for _k, f in kern.values()),
             "true_div_calls": calls[0],
             "kernels_by_query": {q: list(v) for q, v in kern.items()}}
-    ok = all(a["completed"] == len(CI_QUERIES) and a["kernels"] > 0
+    ok = all(a["completed"] == len(CENSUS_QUERIES) and a["kernels"] > 0
              for a in arms.values())
     return ok, {"phase": "census", "scale": 1, "ok": ok,
-                "statements": len(CI_QUERIES), **arms}
+                "statements": len(CENSUS_QUERIES), **arms}
 
 
 def k4_real_phase(torch, K, capture):
@@ -2252,7 +2392,10 @@ def k4_real_phase(torch, K, capture):
         n_dev = rec["n_dev"] if plen == SCAN_ROWS else torch.tensor(
             SCAN_ROWS - 12345, dtype=torch.int64, device=rec["n_dev"].device)
         r, sweep = k4_record(torch, K, flat, n_dev, spec)
-        r = dict(shape=rec["shape"], chunk_plen=plen,
+        wires = {"raw" if k.startswith("raw/") else "encoded"
+                 for k in rec["by_statement"]}
+        wire = wires.pop() if len(wires) == 1 else "both"
+        r = dict(shape=rec["shape"], wire=wire, chunk_plen=plen,
                  live=int(n_dev), launches=rec["launches"],
                  by_statement=rec["by_statement"], **r)
         ok = ok and r["ok"]
@@ -2329,16 +2472,54 @@ def bench_run(label, raw_dir, queries=None):
     return res.returncode, ledger, final
 
 
+def replay_tiers(data):
+    """A resident bench ledger's replay tiers: (the statements whose
+    replay failed, {replayed count, blacklisted statements and reasons}).
+    The one blacklist reason a resident bench may show is the eviction of
+    a slower replay; any other (a failed capture, a mismatch) is a
+    failure."""
+    last = {n: (r.get("replayTier") or [""])[-1]
+            for n, r in data.queries.items()}
+    failed = {n: t for n, t in last.items() if t.startswith(
+        "blacklisted: ") and t != "blacklisted: replay slower than eager "
+        "twice"}
+    return failed, {
+        "replayed": sum(t == "replayed" for t in last.values()),
+        "blacklisted": {n: t[len("blacklisted: "):] for n, t in last.items()
+                        if t.startswith("blacklisted: ")}}
+
+
+def ratio_finding(a_path, b_path):
+    """Ledger B's walls against ledger A's over B's statements: the
+    geomean ratio, the spread of the per-statement ratios, the largest,
+    and ``bench_compare``'s gate verdict (a finding, never a failure)."""
+    from nds_tpu_torch.tools import bench_compare as BC
+    a, b = BC.load_round(a_path), BC.load_round(b_path)
+    cmp = BC.compare(a, b)
+    violations = BC.gate(cmp, b_round=b, allow_missing=True)
+    ratios = sorted(((r["ratio"], r["query"]) for r in cmp["rows"]),
+                    reverse=True)
+    rs = [round(r, 4) for r, _q in reversed(ratios)] or [None]
+    return {
+        "geomean_ratio": round(cmp.get("geomean_ratio", 0), 4),
+        "ratio": {k: rs[min(int(f * len(rs)), len(rs) - 1)]
+                  for k, f in (("min", 0), ("p25", 0.25), ("median", 0.5),
+                               ("p75", 0.75), ("max", 1.0))},
+        "largest_ratios": [[n, round(r, 4)] for r, n in ratios[:10]],
+        "gate": {"threshold": 1.10, "per_query_threshold": 1.50,
+                 "passed": not violations, "violations": violations[:12]}}
+
+
 def bench_phase(raw_dir):
-    """Runs A and B of the bench entry, their ledgers loaded and gated.
+    """Run A of the bench entry, its ledger loaded and gated against
+    itself (run B's place is the campaign phase's ``resident`` arm).
     Returns (ok, the result line, the seconds line)."""
     import contextlib
     import io
     from nds_tpu_torch.obs.ledger import load_ledger
     from nds_tpu_torch.tools import bench_compare as BC
     t0 = time.time()
-    runs = {"a": bench_run("a", raw_dir),
-            "b": bench_run("b", raw_dir, BENCH_B_QUERIES)}
+    runs = {"a": bench_run("a", raw_dir)}
     problems = []
     geo, launches, counts, tiers = {}, {}, {}, {}
     for label, (rc, ledger, final) in runs.items():
@@ -2370,26 +2551,13 @@ def bench_phase(raw_dir):
             for k, v in (r.get("kernelLaunches") or {}).items():
                 total[k] = total.get(k, 0) + v
         launches[label] = total
-        # the one blacklist reason a resident bench may show is the
-        # eviction of a slower replay; any other (a failed capture, a
-        # mismatch) fails the phase
-        failed_replays = {n: t for n, r in data.queries.items()
-                          for t in [(r.get("replayTier") or [""])[-1]]
-                          if t.startswith("blacklisted: ") and t !=
-                          "blacklisted: replay slower than eager twice"}
-        if failed_replays:
-            problems.append(f"{label}: replays failed: {failed_replays}")
-        tiers[label] = {
-            "replayed": sum((r.get("replayTier") or [""])[-1] == "replayed"
-                            for r in data.queries.values()),
-            "blacklisted": {n: t[-1][len("blacklisted: "):]
-                            for n, r in data.queries.items()
-                            for t in [r.get("replayTier") or [""]]
-                            if t[-1].startswith("blacklisted: ")}}
+        failed, tiers[label] = replay_tiers(data)
+        if failed:
+            problems.append(f"{label}: replays failed: {failed}")
         if not all(total.get(k, 0) > 0 for k in BENCH_KERNELS):
             problems.append(f"{label}: launches {total}")
         geo[label] = final.get("value") if final else None
-    led_a, led_b = runs["a"][1], runs["b"][1]
+    led_a = runs["a"][1]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         self_rc = BC.main([led_a, led_a, "--gate"])
@@ -2399,25 +2567,8 @@ def bench_phase(raw_dir):
         problems.append(f"self gate exit {self_rc}")
     if not drift_ok:
         problems.append("the drift self-test did not reject")
-    # the finding: run-to-run spread, B against A at the gate's thresholds
-    # over B's statements
-    a, b = BC.load_round(led_a), BC.load_round(led_b)
-    cmp = BC.compare(a, b)
-    violations = BC.gate(cmp, b_round=b, allow_missing=True)
-    ratios = sorted(((r["ratio"], r["query"]) for r in cmp["rows"]),
-                    reverse=True)
-    rs = [round(r, 4) for r, _q in reversed(ratios)] or [None]
     line = {"phase": "bench", "ok": not problems, "scale": BENCH_SCALE,
             "statements": counts, "geomean_ms": geo,
-            "geomean_ratio_b_a": round(cmp.get("geomean_ratio", 0), 4),
-            "ratio_b_a": {k: rs[min(int(f * len(rs)), len(rs) - 1)]
-                          for k, f in (("min", 0), ("p25", 0.25),
-                                       ("median", 0.5), ("p75", 0.75),
-                                       ("max", 1.0))},
-            "largest_ratios": [[n, round(r, 4)] for r, n in ratios[:10]],
-            "gate_a_b": {"threshold": 1.10, "per_query_threshold": 1.50,
-                         "passed": not violations,
-                         "violations": violations[:12]},
             "self_gate_rc": self_rc, "drift_rejected": drift_ok,
             "launches": launches, "replay": tiers, "problems": problems}
     seconds = {"phase": "bench_time", "s": round(time.time() - t0, 3),
@@ -2801,10 +2952,12 @@ def chunk_split_child(spec_path) -> int:
 
 
 # the full_bench phase: the whole NDS pipeline through the port's
-# orchestrator at SF1 with 5 streams (2 concurrent streams a Throughput
-# Test, refresh sets 1-4), every step a subprocess on the card
+# orchestrator at SF1 with 4 streams (Throughput 1 runs streams 1 and 2 at
+# once on the card, Throughput 2 stream 3; refresh sets 1-3: fewer
+# streams than bench.yml's, for the smoke's time limit), every step a
+# subprocess on the card
 FULL_SCALE = 1
-FULL_STREAMS = 5
+FULL_STREAMS = 4
 FULL_REFRESH_SETS = range(1, FULL_STREAMS)
 FULL_TIMEOUT_S = 900
 FULL_STATEMENTS = 103          # a generated stream's statements
@@ -2815,13 +2968,14 @@ FULL_STEPS = {
     "Power": ["power"],
     "Throughput 1": ["throughput_1", "throughput_2"],
     "Maintenance 1": ["maintenance_1", "maintenance_2"],
-    "Throughput 2": ["throughput_3", "throughput_4"],
-    "Maintenance 2": ["maintenance_3", "maintenance_4"],
+    "Throughput 2": ["throughput_3"],
+    "Maintenance 2": ["maintenance_3"],
 }
 
 
 def gen_refresh_sets(scale, parallel):
-    """Refresh sets 1-4 at ``scale`` beside its base data, where the
+    """Refresh sets ``FULL_REFRESH_SETS`` at ``scale`` beside its base
+    data, where the
     orchestrator's data step puts them (``<raw>_<i>``), through the port's
     data generation."""
     import argparse
@@ -3071,6 +3225,343 @@ def full_bench_phase(K):
     return (not problems and build["ok"] and agree["ok"]), lines
 
 
+# ---------------------------------------------------------------------------
+# validate: the card's Power Run outputs against the CPU's at SF1
+# ---------------------------------------------------------------------------
+
+VALIDATE_QUERIES = CI_QUERIES
+VALIDATE_PERTURB = 1e-3            # the relative change the validator catches
+VALIDATE_TIMEOUT_S = 600
+
+
+def _unmatched(stdout):
+    """The validator's unmatched list, from its last summary line."""
+    import ast
+    for ln in reversed(stdout.splitlines()):
+        if ln.startswith("=== Unmatch Queries: "):
+            return ast.literal_eval(ln[len("=== Unmatch Queries: "):-4])
+    return []
+
+
+def _statuses(folder) -> dict:
+    out = {}
+    for fn in os.listdir(folder):
+        with open(os.path.join(folder, fn)) as f:
+            js = json.load(f)
+        out[js["query"]] = (js.get("queryValidationStatus") or [None])[0]
+    return out
+
+
+def perturb_one_double(src, dst, queries):
+    """Copy the output folder ``src`` to ``dst`` and multiply the first
+    finite non-zero double of the first statement that has one by
+    1 + ``VALIDATE_PERTURB``; returns that statement."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from nds_tpu_torch.io.columnar import read_table
+    shutil.copytree(src, dst)
+    for q in queries:
+        path = os.path.join(dst, q)
+        if not os.path.isdir(path):
+            continue
+        table = read_table(path)
+        for name in table.column_names:
+            if table.schema.field(name).type != pa.float64():
+                continue
+            vals = table.column(name).to_pylist()
+            hit = next((i for i, v in enumerate(vals) if v is not None
+                        and math.isfinite(v) and v != 0), None)
+            if hit is None:
+                continue
+            vals[hit] *= 1 + VALIDATE_PERTURB
+            table = table.set_column(table.schema.get_field_index(name),
+                                     name, pa.array(vals, pa.float64()))
+            shutil.rmtree(path)
+            os.makedirs(path)
+            pq.write_table(table, os.path.join(path, "part-0.parquet"))
+            return q
+    raise RuntimeError("no statement output holds a finite double")
+
+
+def start_validation_runs(sf1):
+    """The CI statements at SF1 through ``python -m nds_tpu_torch.power``
+    on cuda and on cpu, a process each in the background, started before
+    the shard phase (the shard and agreement phases run meanwhile):
+    returns the handle :func:`validate_phase` waits on."""
+    root = os.path.join(OUT, "validate")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stream, subset = stream_file(1), ",".join(VALIDATE_QUERIES)
+    handle = {"t0": time.time(), "root": root, "stream": stream,
+              "subset": subset, "procs": {}}
+    procs = handle["procs"]
+    for dev in ("cpu", "cuda"):
+        log = open(os.path.join(root, f"{dev}.log"), "w")
+        procs[dev] = (time.time(), log, subprocess.Popen(
+            [sys.executable, "-m", "nds_tpu_torch.power", sf1, stream,
+             os.path.join(root, f"{dev}_time.csv"), "--input_format", "raw",
+             "--device", dev, "--output_prefix",
+             os.path.join(root, f"{dev}_out"), "--json_summary_folder",
+             os.path.join(root, f"{dev}_json"), "--sub_queries", subset],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT))
+    return handle
+
+
+def stop_validation_runs(handle):
+    """Kill what :func:`start_validation_runs` left running."""
+    for _t, log, p in handle["procs"].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def validate_phase(handle):
+    """Waits for the two Power Runs of :func:`start_validation_runs`,
+    holds them against each other with ``python -m
+    nds_tpu_torch.validate``, then a copy of the cuda output with one
+    double changed by ``VALIDATE_PERTURB`` relative, which the validator
+    must catch. (ok, line)."""
+    from nds_tpu_torch.io.columnar import read_table
+    t0, root = handle["t0"], handle["root"]
+    stream, subset, procs = handle["stream"], handle["subset"], \
+        handle["procs"]
+    run_s, problems = {}, []
+    for dev, (t, log, p) in procs.items():
+        try:
+            rc = p.wait(timeout=max(VALIDATE_TIMEOUT_S
+                                    - (time.time() - t0), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        log.close()
+        run_s[dev] = round(time.time() - t, 3)
+        if rc != 0:
+            problems.append(f"{dev} Power Run exit {rc}")
+    cpu_out, cuda_out = (os.path.join(root, f"{d}_out")
+                         for d in ("cpu", "cuda"))
+
+    def validate(actual, summaries, label):
+        res = subprocess.run(
+            [sys.executable, "-m", "nds_tpu_torch.validate", cpu_out,
+             actual, stream, "--json_summary_folder", summaries,
+             "--sub_queries", subset],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        with open(os.path.join(root, f"validate_{label}.log"), "w") as f:
+            f.write(res.stdout + "\n# stderr\n" + res.stderr)
+        return res.returncode, _unmatched(res.stdout), _statuses(summaries)
+
+    rows = 0
+    line = {"phase": "validate", "scale": 1,
+            "statements": len(VALIDATE_QUERIES), "run_s": run_s}
+    if not problems:
+        rows = sum(read_table(os.path.join(cpu_out, q)).num_rows
+                   for q in VALIDATE_QUERIES)
+        rc, unmatched, statuses = validate(
+            cuda_out, os.path.join(root, "cuda_json"), "cuda")
+        not_pass = {q: st for q, st in statuses.items() if st != "Pass"}
+        if rc != 0 or unmatched or not_pass or \
+                len(statuses) != len(VALIDATE_QUERIES):
+            problems.append(f"cuda against cpu: exit {rc}, unmatched "
+                            f"{unmatched}, not Pass {not_pass}")
+        pert_json = os.path.join(root, "perturbed_json")
+        shutil.copytree(os.path.join(root, "cuda_json"), pert_json)
+        changed = perturb_one_double(cuda_out, os.path.join(
+            root, "perturbed_out"), VALIDATE_QUERIES)
+        prc, punmatched, pstatuses = validate(
+            os.path.join(root, "perturbed_out"), pert_json, "perturbed")
+        fails = sorted(q for q, st in pstatuses.items() if st != "Pass")
+        if prc != 1 or punmatched != [changed] or fails != [changed] or \
+                pstatuses.get(changed) != "Fail":
+            problems.append(f"perturbed {changed}: exit {prc}, unmatched "
+                            f"{punmatched}, not Pass {fails}")
+        line.update(rows=rows, validator_rc=rc, unmatched=unmatched,
+                    statuses=sorted(set(statuses.values()), key=str),
+                    perturbed={"statement": changed,
+                               "relative": VALIDATE_PERTURB,
+                               "validator_rc": prc,
+                               "unmatched": punmatched,
+                               "status": pstatuses.get(changed)})
+    line.update(ok=not problems, problems=problems,
+                s=round(time.time() - t0, 3), nvidia_smi=smi_line())
+    return not problems, line
+
+
+# ---------------------------------------------------------------------------
+# campaign: three arms of the bench entry through the campaign CLI
+# ---------------------------------------------------------------------------
+
+# the streamed arms, then ``resident`` (the streaming threshold unset:
+# every table resident, the statements replayed), which is run B: the
+# same statements as run A's first 15 in a fresh process
+CAMPAIGN_ARMS = (("base", {}), ("encoded-off", {"NDS_TPU_ENCODED": "0"}),
+                 ("prefetch-off", {"NDS_TPU_PREFETCH_DEPTH": "0"}),
+                 ("resident", {"NDS_TPU_STREAM_BYTES": ""}))
+# store_sales, catalog_sales and inventory past it at SF1 (the stream
+# phase's 1.5e8 a scale unit)
+CAMPAIGN_STREAM_BYTES = "1.5e8"
+
+
+def campaign_phase(sf1, baseline):
+    """``python -m nds_tpu_torch.tools.campaign`` over ``CAMPAIGN_ARMS``
+    (the bench entry on ``BENCH_B_QUERIES`` at SF1, the facts streamed
+    but in ``resident``): every arm completes; the same command again
+    skips every arm; the report has a row an arm and the encoded/raw
+    delta; each arm's gate against ``baseline`` (the bench phase's run A)
+    is a finding; ``resident`` streams nothing and its replays are sound,
+    and its ratios to run A are the A-versus-B finding; ``base`` against
+    ``resident`` is the streamed path's cost; the trace report renders
+    ``base``'s traces. (ok, line)."""
+    import shlex
+    from nds_tpu_torch.obs.campaign import load_manifest
+    from nds_tpu_torch.obs.ledger import load_ledger
+    from nds_tpu_torch.tools import bench_compare as BC
+    t0 = time.time()
+    d = os.path.join(OUT, "campaign")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    matrix = os.path.join(OUT, "campaign_matrix.json")
+    with open(matrix, "w") as f:
+        json.dump({"v": 1, "env": {
+            "NDS_BENCH_SCALE": str(BENCH_SCALE),
+            "NDS_BENCH_BUDGET_S": str(BENCH_BUDGET_S),
+            "NDS_TPU_STREAM_BYTES": CAMPAIGN_STREAM_BYTES},
+            "arms": [{"name": n, "env": e} for n, e in CAMPAIGN_ARMS]}, f)
+    bench = " ".join(shlex.quote(x) for x in (
+        sys.executable, "-m", "nds_tpu_torch.bench", "--raw-dir", sf1,
+        "--cache-root", os.path.join(DATA, "bench_cache"), "--out-dir",
+        os.path.join(d, "bench_out"), "--sub_queries",
+        ",".join(BENCH_B_QUERIES)))
+    base_cmd = [sys.executable, "-m", "nds_tpu_torch.tools.campaign",
+                "--matrix", matrix, "--dir", d]
+
+    def cli(label, *extra):
+        res = subprocess.run(
+            base_cmd + list(extra), cwd=REPO, capture_output=True,
+            text=True, timeout=len(CAMPAIGN_ARMS) * (BENCH_BUDGET_S + 90))
+        with open(os.path.join(OUT, f"campaign_{label}.log"), "w") as f:
+            f.write(res.stdout + "\n# stderr\n" + res.stderr)
+        return res
+    problems, marks = [], {}
+    run = cli("run", "--bench-cmd", bench)
+    marks["run_s"] = round(time.time() - t0, 3)
+    manifest = load_manifest(d) or {"arms": []}
+    statuses = {a["name"]: a["status"] for a in manifest["arms"]}
+    if run.returncode != 0 or set(statuses.values()) != {"completed"}:
+        problems.append(f"run: exit {run.returncode}, arms {statuses}")
+    again = cli("again", "--bench-cmd", bench)
+    marks["again_s"] = round(time.time() - t0 - marks["run_s"], 3)
+    again_st = {a["name"]: a["status"]
+                for a in (load_manifest(d) or {"arms": []})["arms"]}
+    skipped = again.stderr.count("already completed")
+    if again.returncode != 0 or skipped != len(CAMPAIGN_ARMS) or \
+            set(again_st.values()) != {"done"}:
+        problems.append(f"rerun: exit {again.returncode}, {skipped} "
+                        f"skipped, arms {again_st}")
+    gate_args = ["--gate", baseline, "--allow-missing"] \
+        if baseline and os.path.exists(baseline) else []
+    rep = cli("report", "--report", *gate_args)
+    report = []
+    if os.path.exists(os.path.join(d, "report.md")):
+        with open(os.path.join(d, "report.md")) as f:
+            report = f.read().splitlines()
+    rows = {n: any(ln.startswith(f"| {n} | ") for ln in report)
+            for n, _e in CAMPAIGN_ARMS}
+    delta = next((ln for ln in report
+                  if ln.startswith("# encoded-vs-raw wire delta")), None)
+    if not all(rows.values()) or delta is None:
+        problems.append(f"report: rows {rows}, encoded/raw delta {delta}")
+    gates = {}
+    for block in rep.stdout.split("## gate: ")[1:]:
+        gates[block.split()[0]] = {
+            "passed": "# gate: no regressions" in block,
+            "violations": [ln.strip() for ln in block.splitlines()
+                           if ln.strip().startswith("REGRESSION")][:8]}
+    arms = {}
+    for name, _e in CAMPAIGN_ARMS:
+        ledger = os.path.join(d, name, "ledger.jsonl")
+        if not os.path.exists(ledger):
+            arms[name] = None
+            continue
+        data, r = load_ledger(ledger), BC.load_round(ledger)
+        launches = {}
+        for rec in data.queries.values():
+            for k, v in (rec.get("kernelLaunches") or {}).items():
+                launches[k] = launches.get(k, 0) + v
+        failed_replays, tiers = replay_tiers(data)
+        arms[name] = {
+            "statements": len(data.queries),
+            "replayed": tiers["replayed"],
+            "blacklisted": len(tiers["blacklisted"]),
+            "not_ok": sorted(n for n, q in data.queries.items()
+                             if q["status"] != "ok"),
+            "streamed": sum(1 for q in data.queries.values()
+                            if q.get("streamedScans")),
+            "geomean_ms": round(BC._geomean(list(r["times"].values())), 3)
+            if r["times"] else None,
+            "h2d_bytes": sum(e.get("bytesH2d", 0)
+                             for e in r["evidence"].values()),
+            "launches": launches,
+            "end": (data.end or {}).get("status"),
+            "wall_s": next((a.get("wallS") for a in manifest["arms"]
+                            if a["name"] == name), None)}
+        if arms[name]["not_ok"] or arms[name]["statements"] != \
+                len(BENCH_B_QUERIES) or arms[name]["end"] != "completed":
+            problems.append(f"arm {name}: {arms[name]}")
+        if name == "resident" and (arms[name]["streamed"] or
+                                   failed_replays):
+            problems.append(f"resident arm: {arms[name]['streamed']} "
+                            "statements streamed, replays failed: "
+                            f"{failed_replays}")
+    # run B's A-versus-B finding, from the resident arm (run A's first 15
+    # statements, resident, in a fresh process), and the streamed path's
+    # cost, base against resident (both fresh processes, the same
+    # statements)
+    run_b = None
+    if gate_args and arms.get("resident"):
+        run_b = ratio_finding(baseline, os.path.join(d, "resident",
+                                                     "ledger.jsonl"))
+    streamed_vs_resident = None
+    if arms.get("base") and arms.get("resident"):
+        streamed_vs_resident = ratio_finding(
+            os.path.join(d, "resident", "ledger.jsonl"),
+            os.path.join(d, "base", "ledger.jsonl"))
+    if arms.get("base") and arms.get("encoded-off") and not (
+            arms["encoded-off"]["h2d_bytes"] > arms["base"]["h2d_bytes"]
+            > 0):
+        problems.append("the raw wire did not upload more bytes than the "
+                        "encoded one")
+    tr = subprocess.run(
+        [sys.executable, "-m", "nds_tpu_torch.tools.trace_report",
+         os.path.join(d, "base", "traces")], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    with open(os.path.join(OUT, "campaign_trace_report.txt"), "w") as f:
+        f.write(tr.stdout + "\n# stderr\n" + tr.stderr)
+    tr_lines = tr.stdout.splitlines()
+    if tr.returncode != 0 or not tr_lines or \
+            not tr_lines[0].startswith("# trace report: "):
+        problems.append(f"trace report: exit {tr.returncode}, "
+                        f"{tr_lines[:1]}")
+    line = {"phase": "campaign", "ok": not problems, "scale": BENCH_SCALE,
+            "statements": len(BENCH_B_QUERIES),
+            "stream_bytes": CAMPAIGN_STREAM_BYTES, "arms": arms,
+            "resume_skipped": skipped, "report_rows": rows,
+            "encoded_vs_raw": delta, "gate_baseline": baseline
+            if gate_args else None, "gates": gates,
+            "resident_against_run_a": run_b,
+            "streamed_against_resident": streamed_vs_resident,
+            "trace_report": {"head": tr_lines[:1], "columns":
+                             tr_lines[2] if len(tr_lines) > 2 else None,
+                             "bottleneck": next(
+                                 (tr_lines[i + 1].strip() for i, ln in
+                                  enumerate(tr_lines[:-1]) if
+                                  ln.startswith("# next bottleneck")),
+                                 None)},
+            "seconds": marks, "problems": problems,
+            "s": round(time.time() - t0, 3), "nvidia_smi": smi_line()}
+    return not problems, line
+
+
 class _Skipped(Exception):
     """A phase left out by ``--only``."""
 
@@ -3089,7 +3580,8 @@ def load_session(Session, data_dir, device):
 
 
 PHASES = ("kernels", "power", "mesh", "census", "replay", "stream",
-          "shard", "agreement", "bench", "full_bench")
+          "shard", "agreement", "validate", "bench", "campaign",
+          "full_bench")
 
 
 def main(argv=None) -> int:
@@ -3161,7 +3653,7 @@ def main(argv=None) -> int:
         runs("full_bench") and gen_refresh_sets(FULL_SCALE, cpus - 2)))
     stream_raw = os.path.join(DATA, f"sf{STREAM_SCALE}")
     if runs("stream") or runs("shard"):
-        stream_f = pool.submit(gen_data, ndsgen, STREAM_SCALE, stream_raw,
+        stream_f = pool.submit(streamed_data, ndsgen, stream_raw,
                                max(cpus - 2, 1))
 
     # 2. build
@@ -3396,6 +3888,7 @@ def main(argv=None) -> int:
               "error": traceback.format_exc()[-3000:]})
         failed.append("replay")
 
+    campaign_launches = {}
     # 6. the streamed path at STREAM_SCALE, against all-resident; K4's
     # launches by spec shape and statement, K1-K3's by group count
     capture = K4Capture(K)
@@ -3411,8 +3904,8 @@ def main(argv=None) -> int:
         try:
             with capture:
                 res = stream_phase(
-                    torch, K, stream_raw, os.path.join(DATA, "sf1"),
-                    gen_sql_from_stream(stream_file(STREAM_SCALE)), capture)
+                    torch, K, gen_sql_from_stream(stream_file(STREAM_SCALE)),
+                    capture)
         finally:
             restore()
         res["data_wait_s"] = wait_s
@@ -3422,7 +3915,8 @@ def main(argv=None) -> int:
         with open(os.path.join(OUT, "stream.json"), "w") as f:
             json.dump(res, f, indent=1)
         emit({k: v for k, v in res.items()
-              if k not in ("statements", "k4_specs", "chunk_split")})
+              if k not in ("statements", "k4_specs", "chunk_split",
+                           "raw_wire")})
         emit({"phase": "k4_specs", "launches": res["launches"]["chunk_scan"],
               "counted": sum(r["launches"] for r in res["k4_specs"]),
               "specs": res["k4_specs"]})
@@ -3462,6 +3956,17 @@ def main(argv=None) -> int:
         failed.append("k4_real")
     capture.shapes.clear()
 
+    # the validate phase's two Power Runs, in the background from here
+    validation = None
+    if runs("validate"):
+        try:
+            validation = start_validation_runs(os.path.join(DATA, "sf1"))
+        except Exception:
+            import traceback
+            emit({"phase": "validate", "ok": False,
+                  "error": traceback.format_exc()[-3000:]})
+            failed.append("validate")
+
     # sharded streaming and the exchange, on this card's shards
     shard_launches = {}
     try:
@@ -3472,8 +3977,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         stream_f.result()
         ok, lines = shard_phase(
-            torch, K, stream_raw, os.path.join(DATA, "sf1"),
-            gen_sql_from_stream(stream_file(STREAM_SCALE)))
+            torch, K, gen_sql_from_stream(stream_file(STREAM_SCALE)))
         for line in lines:
             emit(line)
         shard_launches = lines[-1]["launches"]
@@ -3527,6 +4031,26 @@ def main(argv=None) -> int:
               "error": traceback.format_exc()[-2000:]})
         failed.append("agreement")
 
+    # the CI statements' outputs at SF1, cuda against cpu (the two Power
+    # Runs started before the shard phase)
+    try:
+        if validation is None:
+            raise _Skipped
+        ok, line = validate_phase(validation)
+        emit(line)
+        if not ok:
+            failed.append("validate")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "validate", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("validate")
+    finally:
+        if validation is not None:
+            stop_validation_runs(validation)
+
     # 8. the bench entry, twice, at SF1
     try:
         if not runs("bench"):
@@ -3546,6 +4070,29 @@ def main(argv=None) -> int:
         emit({"phase": "bench", "ok": False,
               "error": traceback.format_exc()[-3000:]})
         failed.append("bench")
+
+    # the campaign CLI: three arms of the bench entry, the facts streamed
+    try:
+        if not runs("campaign"):
+            raise _Skipped
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()       # the children need the card's memory
+        ok, line = campaign_phase(os.path.join(DATA, "sf1"),
+                                  os.path.join(OUT, "bench_a.jsonl"))
+        emit(line)
+        campaign_launches = {k: sum((a or {}).get("launches", {}).get(k, 0)
+                                    for a in line["arms"].values())
+                             for k in KERNEL_META}
+        if not ok:
+            failed.append("campaign")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "campaign", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("campaign")
 
     # 9. the whole NDS benchmark through the port's orchestrator at SF1
     try:
@@ -3588,7 +4135,8 @@ def main(argv=None) -> int:
             extra["real_shapes"] = [{
                 "entries": [e["kind"] for e in x["shape"]["entries"]],
                 "cols": [c["dtype"] for c in x["shape"]["cols"]],
-                "keys": x["shape"]["keys"], "launches": x["launches"],
+                "keys": x["shape"]["keys"], "wire": x["wire"],
+                "launches": x["launches"],
                 "ms": x["ms"], "cold_ms": x["cold_ms"],
                 "bound_ms": x["bound_ms"], "plain_ms": x["plain_ms"],
                 "max_abs_err": x["max_abs_err"]}
@@ -3599,6 +4147,8 @@ def main(argv=None) -> int:
             extra["shard_launches"] = shard_launches[name]
         if name in mesh_launches:
             extra["mesh_launches"] = mesh_launches[name]
+        if campaign_launches.get(name):
+            extra["campaign_launches"] = campaign_launches[name]
         line.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCE[name],
                      "replaces": replaces, "launches": launches.get(name, 0),

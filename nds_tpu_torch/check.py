@@ -1,13 +1,25 @@
 # Copyright (c) 2026, nds-tpu authors. Licensed under the Apache License, Version 2.0.
-"""Fail-fast precondition gates of the entries: output-folder protection,
-query-subset checks, argument types and the native data generator
-(ref: nds/check.py)."""
+"""Fail-fast precondition gates of the entries: the interpreter version,
+output-folder protection, query-subset checks, argument types and the
+native data generator (ref: nds/check.py)."""
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from pathlib import Path
+
+MIN_PYTHON = (3, 8)
+
+
+def check_version(min_version=MIN_PYTHON) -> None:
+    """Abort on interpreters older than the entries support
+    (ref: nds/check.py:38-44)."""
+    if sys.version_info < min_version:
+        raise RuntimeError(
+            f"Python {min_version[0]}.{min_version[1]}+ required, "
+            f"found {sys.version_info.major}.{sys.version_info.minor}")
 
 
 def repo_root() -> Path:

@@ -138,8 +138,10 @@ def stream_graph() -> bool:
 
 
 # The streamed path's settings: ``Session(conf=...)`` keys and their
-# defaults. Read per statement through :func:`setting`, never from the
-# environment.
+# defaults. Read per statement through :func:`setting`; the two in
+# :data:`SETTING_ENV` are also campaign arms, and their variable, when set,
+# overrides the session's value (as ``NDS_TPU_REPLAY`` does the replay
+# policy).
 STREAM_DEFAULTS = {
     # "compiled": the chunk pipeline (engine/stream.py); "eager": the
     # per-chunk planner loop only
@@ -164,12 +166,25 @@ STREAM_DEFAULTS = {
 }
 
 
+# settings a campaign arm sets from the environment: the prefetch ring's
+# depth, read when the ring is built, and the shard count, read when a
+# pipeline is built (the reference's variables)
+SETTING_ENV = {
+    "prefetch_depth": "NDS_TPU_PREFETCH_DEPTH",
+    "stream_shards": "NDS_TPU_STREAM_SHARDS",
+}
+
+
 def setting(name: str):
     """The calling statement's value of a streamed-path setting (a string
-    from a property file is read as the default's type)."""
+    from a property file or the environment is read as the default's
+    type)."""
     conf = getattr(_sync_tls, "conf", None) or {}
     default = STREAM_DEFAULTS[name]
-    v = conf.get(name, default)
+    env = SETTING_ENV.get(name)
+    v = os.environ.get(env) if env else None
+    if not v:
+        v = conf.get(name, default)
     if not isinstance(v, str) or isinstance(default, str):
         return v
     if isinstance(default, bool):

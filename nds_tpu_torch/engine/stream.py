@@ -1285,7 +1285,11 @@ class StreamPipeline:
                     self._finish_sharded(accs, hist, exovf, n_chunks)
                 evidence.update(
                     outer=outer, shards=S, collectives=coll, bytes_ici=ici,
-                    shard_rows=tuple(sum(c) for c in per))
+                    shard_rows=tuple(sum(c) for c in per),
+                    # the cards the shards span: shards sharing one card
+                    # move their collective bytes through its memory
+                    shard_cards=len(set(self.mesh.devices))
+                    * self.mesh.world)
                 if P > 1:
                     evidence.update(
                         partitions=P, part_input=tuple(hist_host),
@@ -1623,6 +1627,7 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
                   shards=evidence.get("shards", 1),
                   collectives=evidence.get("collectives", -1),
                   bytesIci=evidence.get("bytes_ici", -1),
+                  shardCards=evidence.get("shard_cards", 1),
                   bytesH2d=evidence["h2d"],
                   scanLaunches=evidence["scan_launches"],
                   probeLaunches=evidence["probe_launches"],

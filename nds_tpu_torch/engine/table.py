@@ -316,8 +316,13 @@ class ChunkedTable:
     def _int_encodings(self) -> dict:
         """name -> (narrow whole-table codes, valid | None, Encoding) for
         every encodable int-path column (io/columnar.plan_column_codec),
-        computed ONCE per table and shared across select() views."""
-        from nds_tpu_torch.io.columnar import plan_column_codec
+        computed ONCE per table and shared across select() views. Empty
+        when ``NDS_TPU_ENCODED=0`` (read per call; a plan already
+        computed stays cached for a later re-enable)."""
+        from nds_tpu_torch.io.columnar import (encoded_enabled,
+                                               plan_column_codec)
+        if not encoded_enabled():
+            return {}
         out = {}
         for name in self.arrow.column_names:
             if name not in self._enc_store:
@@ -336,7 +341,9 @@ class ChunkedTable:
         entry memory-maps back, with no codec planning and no lowering,
         and a miss (or a stale fingerprint) builds the plan and persists
         it; with it off the plan stays in memory. Either way the chunks
-        are the ones lowering each arrow slice gives, bit for bit.
+        are the ones lowering each arrow slice gives, bit for bit. The plan
+        is keyed by the column set, the store root and the encoded gate
+        (``NDS_TPU_ENCODED``), so a flip of the gate builds the other plan.
 
         Faults: a corrupt entry (or an injected ``chunk-store-read``
         fault) is deleted and re-encoded once from the arrow source,
@@ -344,8 +351,9 @@ class ChunkedTable:
         ``chunk-store-write`` seam's degrade to the in-memory plan. A
         version drift (``ChunkStoreError``) raises."""
         from nds_tpu_torch.io import chunk_store
+        from nds_tpu_torch.io.columnar import encoded_enabled
         root = chunk_store.store_root()
-        key = (tuple(self.arrow.column_names), root)
+        key = (tuple(self.arrow.column_names), root, encoded_enabled())
         hit = self._wire_store.get(key)
         if hit is not None:
             return hit

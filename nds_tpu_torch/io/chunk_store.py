@@ -23,8 +23,8 @@ module persists the plan across processes:
 The layout, version, identity digest and fingerprint are the JAX
 package's (``nds_tpu/io/chunk_store.py``) byte for byte: a store written
 by either package is read by the other. The fingerprint's codec flag is
-always 1 here, since this package always encodes (the reference's
-default).
+the ``NDS_TPU_ENCODED`` gate, read as the reference reads it, so an entry
+saved under one setting is a miss under the other.
 
 Integrity is refused at load, recovered at the caller, staleness
 silent (the ``chunk-store-read``/``-write`` seams of engine/faults.py):
@@ -157,14 +157,16 @@ def _identity_digest(arrow, canonical_types: dict) -> str:
 def table_fingerprint(arrow, canonical_types: dict) -> str:
     """Content fingerprint of the source table: row count, schema, per
     column null count + byte size + CRC of head/tail buffer samples,
-    plus the codec-relevant knobs (the encoded flag, always 1 here, and
+    plus the codec-relevant knobs (the ``NDS_TPU_ENCODED`` gate and
     ``DICT_MAX_VALUES``). Any data regeneration that changes values
-    moves this; the stale store entry then reads as a miss."""
+    moves this, and so does a flip of the gate; the stale store entry
+    then reads as a miss."""
     from nds_tpu_torch import types as _t
-    from nds_tpu_torch.io.columnar import DICT_MAX_VALUES
+    from nds_tpu_torch.io.columnar import DICT_MAX_VALUES, encoded_enabled
     h = sha256()
     h.update(f"v{STORE_VERSION};rows={arrow.num_rows};"
-             f"enc=1;dict={DICT_MAX_VALUES};".encode())
+             f"enc={int(encoded_enabled())};dict={DICT_MAX_VALUES};"
+             .encode())
     for name in arrow.column_names:
         ct = (canonical_types or {}).get(name) or _t.arrow_to_canonical(
             arrow.schema.field(name).type)

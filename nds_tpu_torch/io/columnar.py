@@ -33,7 +33,15 @@ import pyarrow.dataset as pads
 # Both are order-preserving, so predicates/joins/group-bys evaluate on
 # encoded values inside the per-chunk program and decode happens only at
 # materialize (engine/column.py). A column whose span fits no narrow width
-# stays unencoded — the narrow-width overflow guard.
+# stays unencoded — the narrow-width overflow guard. NDS_TPU_ENCODED=0
+# turns the int-path codecs off: every such column then goes up at its
+# plain lowering (the raw wire).
+
+
+def encoded_enabled() -> bool:
+    """The ``NDS_TPU_ENCODED`` gate (default on; "0" uploads int-path
+    columns at their plain widths). Read at use time, never at import."""
+    return os.environ.get("NDS_TPU_ENCODED", "1") != "0"
 
 
 # max distinct values for the sorted-dictionary codec (int16 codes with

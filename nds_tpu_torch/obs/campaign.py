@@ -58,6 +58,9 @@ FINGERPRINT_KNOBS = (
     "NDS_TPU_REPLAY",                # whole-statement replay policy
     "NDS_TPU_REPLAY_SYNC_THR",       # replay's host-sync threshold
     "NDS_TPU_CONCURRENT_QUERIES",    # device admission slots
+    "NDS_TPU_PREFETCH_DEPTH",        # prefetch ring depth: 0 = inline
+    "NDS_TPU_STREAM_SHARDS",         # streamed shard count: 1/2/4/8
+    "NDS_TPU_ENCODED",               # encoded upload: 0 = raw wire
 )
 
 _UNSET = "<unset>"
@@ -136,10 +139,56 @@ class Arm:
     env: dict = field(default_factory=dict)
 
 
+# built-in arm matrices (the reference's, over the port's arms). ``env``
+# is the campaign-level overlay every arm inherits; an arm's own overlay
+# wins. ``{dir}`` in a value expands to the campaign directory, so the warm
+# chunk store lands inside the campaign's own artifact tree. The
+# reference's ``pallas-off`` arm has no counterpart: a CUDA tensor always
+# launches its hand-written kernel, and no setting runs the plain version
+# on the card.
+_NO_PLAIN_ARM = ("no pallas-off arm: on cuda every kernel wrapper launches "
+                 "its kernel, and nothing runs the plain version there")
+PRESETS = {
+    "sf10-full": {
+        "description": "every landed mechanism priced in one unattended "
+                       "SF10 campaign; a shards-N arm prices scaling only "
+                       "where the visible cards hold N shards, else it "
+                       "runs unsharded and the report says so ("
+                       + _NO_PLAIN_ARM + ")",
+        "env": {"NDS_BENCH_SCALE": "10",
+                "NDS_TPU_CHUNK_STORE": "{dir}/chunk_store"},
+        "arms": [
+            # base runs FIRST: it warms the shared chunk store the later
+            # default-knob arms reuse (store-cold opts out)
+            {"name": "base", "env": {}},
+            {"name": "prefetch-off", "env": {"NDS_TPU_PREFETCH_DEPTH": "0"}},
+            {"name": "store-cold", "env": {"NDS_TPU_CHUNK_STORE": ""}},
+            {"name": "encoded-off", "env": {"NDS_TPU_ENCODED": "0"}},
+            {"name": "replay-off", "env": {"NDS_TPU_REPLAY": "off"}},
+            {"name": "shards-1", "env": {"NDS_TPU_STREAM_SHARDS": "1"}},
+            {"name": "shards-2", "env": {"NDS_TPU_STREAM_SHARDS": "2"}},
+            {"name": "shards-4", "env": {"NDS_TPU_STREAM_SHARDS": "4"}},
+            {"name": "shards-8", "env": {"NDS_TPU_STREAM_SHARDS": "8"}},
+        ],
+    },
+    "smoke": {
+        "description": "three-arm bench-scale shakeout of the campaign "
+                       "tooling itself, minutes not hours ("
+                       + _NO_PLAIN_ARM + ")",
+        "env": {"NDS_BENCH_SCALE": "0.05"},
+        "arms": [
+            {"name": "base", "env": {}},
+            {"name": "encoded-off", "env": {"NDS_TPU_ENCODED": "0"}},
+            {"name": "prefetch-off", "env": {"NDS_TPU_PREFETCH_DEPTH": "0"}},
+        ],
+    },
+}
+
+
 def expand_arms(matrix: dict, campaign_dir: str) -> list:
-    """Expand one matrix dict (``{"env": {...}, "arms": [{"name": ...,
-    "env": {...}}, ...]}``, or a loaded JSON file of one) into the
-    ordered :class:`Arm` list. Validates loudly: version
+    """Expand one matrix dict (a :data:`PRESETS` entry, or a loaded JSON
+    file of ``{"env": {...}, "arms": [{"name": ..., "env": {...}}, ...]}``)
+    into the ordered :class:`Arm` list. Validates loudly: version
     drift, missing/duplicate/unsafe arm names. ``{dir}`` in any env
     value expands to the campaign directory."""
     if not isinstance(matrix, dict) or not matrix.get("arms"):

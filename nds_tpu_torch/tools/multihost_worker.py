@@ -7,6 +7,9 @@ Launch it once per process, from the repository root:
     NDS_NUM_PROCESSES=2 NDS_PROCESS_ID=<i> \\
     python -m nds_tpu_torch.tools.multihost_worker [--device cpu|cuda]
 
+The device defaults to cuda, and without a GPU the worker refuses to run
+unless given ``--device cpu``.
+
 Each process holds shards of the session mesh: on the CPU four, sharing
 its one device (``sharing_devices()``); on cuda one on each of its cards,
 so give every process its own cards
@@ -174,8 +177,12 @@ def streamed_arm(device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                    help="execution device (default cuda; raises when no "
+                    "GPU is present)")
     args = ap.parse_args(argv)
+    from nds_tpu_torch import resolve_device
+    resolve_device(args.device)
     wd = float(os.environ.get("NDS_MULTIHOST_WATCHDOG_S", "0"))
     if wd:
         import faulthandler

@@ -986,14 +986,14 @@ STREAM_QS = [
 ]
 
 
-def _stream_session(conf=None):
+def _stream_session(conf=None, device="cuda"):
     import pyarrow as pa
 
     from nds_tpu_torch.engine.session import Session
     from nds_tpu_torch.engine.table import ChunkedTable
     rng = np.random.default_rng(42)
     n, nd = 200_000, 365
-    s = Session(conf=dict(conf or {}), device="cuda")
+    s = Session(conf=dict(conf or {}), device=device)
     s.create_temp_view("date_dim", pa.table({
         "d_date_sk": pa.array(np.arange(1, nd + 1), pa.int64()),
         "d_year": pa.array(1998 + np.arange(nd) // 120, pa.int64()),
@@ -1606,3 +1606,76 @@ def test_meshed_session_across_distinct_cards(cuda):
     for _ in range(2):
         assert _rows_equal(s.sql(MESH_SQL[0]).collect(), want[0])
     assert s.last_tier.startswith("blacklisted: meshed over distinct")
+
+
+@pytest.mark.gpu
+def test_raw_wire_stream_on_cuda_equals_cpu(cuda, monkeypatch):
+    """Under ``NDS_TPU_ENCODED=0`` a streamed statement uploads its
+    int64 columns at 8 bytes a row: K4 runs its int64 lane with the
+    ``"id"`` decode on the card, and the rows are the CPU's, captured and
+    replayed."""
+    from nds_tpu_torch.engine import stream as S
+    monkeypatch.setenv("NDS_TPU_ENCODED", "0")
+    S._PIPELINE_CACHE.clear()
+    lanes = []
+    real = K.chunk_scan
+
+    def scan(flat, n_dev, spec):
+        if flat[spec.cols[0][0]].device.type == "cuda" and \
+                not torch.cuda.is_current_stream_capturing():
+            lanes.extend((flat[c[0]].dtype, c[2]) for c in spec.cols)
+        return real(flat, n_dev, spec)
+
+    monkeypatch.setattr(K, "chunk_scan", scan)
+    want = _stream_session(device="cpu").sql(STREAM_QS[1]).collect()
+    s = _stream_session()
+    for graph in ("captured", "replayed"):
+        rows, launches, events = _streamed(s, STREAM_QS[1])
+        assert rows == want and rows
+        assert [e.graph for e in events] == [graph]
+        assert launches["chunk_scan"] > 0
+    assert (torch.int64, "id") in lanes
+
+
+@pytest.mark.gpu
+def test_validate_cuda_against_cpu_outputs(cuda, tmp_path):
+    """Power Runs of four statements at SF0.01 on cuda and on cpu write
+    outputs that ``python -m nds_tpu_torch.validate`` passes, every
+    summary ``Pass``."""
+    import argparse
+    import glob
+    import json
+    import subprocess
+    import sys
+
+    from nds_tpu_torch import datagen
+    from nds_tpu_torch.queries import generate_query_streams
+    raw = str(tmp_path / "raw")
+    datagen.generate_data(argparse.Namespace(
+        data_dir=raw, update=None, type="local", scale="0.01", parallel=2,
+        range=None, overwrite_output=True, rngseed=None))
+    generate_query_streams(str(tmp_path), streams=1, rngseed=19620718,
+                           scale=0.01)
+    stream = str(tmp_path / "query_0.sql")
+    subset = "query3,query7,query78,query96"
+    for dev in ("cuda", "cpu"):
+        res = subprocess.run(
+            [sys.executable, "-m", "nds_tpu_torch.power", raw, stream,
+             str(tmp_path / f"{dev}.csv"), "--input_format", "raw",
+             "--device", dev, "--output_prefix", str(tmp_path / dev),
+             "--json_summary_folder", str(tmp_path / f"{dev}_json"),
+             "--sub_queries", subset],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        assert res.returncode == 0, res.stderr[-2000:]
+    res = subprocess.run(
+        [sys.executable, "-m", "nds_tpu_torch.validate",
+         str(tmp_path / "cpu"), str(tmp_path / "cuda"), stream,
+         "--json_summary_folder", str(tmp_path / "cuda_json"),
+         "--sub_queries", subset],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:]
+    statuses = []
+    for fn in glob.glob(str(tmp_path / "cuda_json" / "*.json")):
+        with open(fn) as f:
+            statuses.append(json.load(f)["queryValidationStatus"])
+    assert statuses == [["Pass"]] * 4

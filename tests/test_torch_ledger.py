@@ -415,7 +415,10 @@ def test_fingerprint_and_stamp():
 _ADDED_KNOBS = [("NDS_TPU_CHUNK_STORE", "{dir}/store"),
                 ("NDS_TPU_REPLAY", "off"),
                 ("NDS_TPU_REPLAY_SYNC_THR", "0"),
-                ("NDS_TPU_CONCURRENT_QUERIES", "2")]
+                ("NDS_TPU_CONCURRENT_QUERIES", "2"),
+                ("NDS_TPU_PREFETCH_DEPTH", "0"),
+                ("NDS_TPU_STREAM_SHARDS", "2"),
+                ("NDS_TPU_ENCODED", "0")]
 
 
 @pytest.mark.parametrize("knob,value", _ADDED_KNOBS)

@@ -76,6 +76,19 @@ def federation():
     return json.loads(lines[0])
 
 
+def test_worker_defaults_to_cuda_and_refuses_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device would run")
+    env = dict(os.environ, NDS_TPU_MULTIHOST="1",
+               NDS_COORDINATOR=f"localhost:{_free_port()}",
+               NDS_NUM_PROCESSES="1", NDS_PROCESS_ID="0")
+    res = subprocess.run(
+        [sys.executable, "-m", "nds_tpu_torch.tools.multihost_worker"],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr, res.stderr[-2000:]
+
+
 def test_federation_spans_both_processes(federation):
     got = federation
     assert (got["world"], got["mesh"], got["shards"]) == (2, 8, 4)
