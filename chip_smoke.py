@@ -6,7 +6,7 @@
 
 Phases (each prints one JSON line; any failure makes the exit code non-zero
 and suppresses the final ``ok`` line; ``--only`` runs the named ones of
-kernels, power, mesh, census, replay, stream, shard, agreement,
+kernels, power, mesh, census, replay, param, stream, shard, agreement,
 validate, bench, campaign and full_bench after device, build and data, and
 ends without the ``ok`` line). ``--stream-scale 10 --stream-ci 13`` runs
 the stream phase as the reference's SF10 setting (tables above 1.5e9
@@ -110,6 +110,29 @@ out of memory:
                with more than 1 sync before the fetch, or on launches
                unequal to eager. The watchdog line runs with
                replay off (it arms blocking reads, which a replay lacks);
+   param       parameterized plans: the 7 statements with bindable slots
+               (query9, 28, 37, 44, 48, 49, 82; ``analysis/param_audit``)
+               at SF1 raw, the campaign's threshold (1.5e8 bytes:
+               store_sales, catalog_sales, web_sales and inventory
+               stream) in 2^19-row chunks (each at least two), replay
+               off; each over 4 vectors that change only its bindable
+               slots (``tools.param_audit_diff.statement_vectors``),
+               after one warm-up run, first a fresh recording of each
+               (``NDS_TPU_PARAM_BIND=0``, the pipeline cache cleared
+               before each), then bound. One
+               ``param_statement`` line a statement: pipelines built,
+               hits, captures and replays a vector, slots bound in K4's
+               words and as graph scalars, rows (bit for bit against the
+               fresh recording), syncs (never more than it), synchronizing
+               calls in the chunk loop (0), K4/K5 launches, capture ms
+               saved against the ms of writing the values; query37's
+               line holds K4 over its pipeline's bound words against the
+               plain version and against the same spec unbound. The
+               ``param`` line sums them and reports which templates share
+               one skeleton across 4 generator seeds (not checked); it
+               fails when a pipeline is built again under a key an
+               earlier vector built, a build does not capture, rows
+               differ, the bound arm reads more or a loop synchronizes;
 6. stream      SF3 as parquet (the port's ``write_table``, data phase); a
                cuda session that streams every table above 4.5e8 bytes
                in 2^22-row chunks (store_sales: 3 chunks) against an
@@ -117,8 +140,9 @@ out of memory:
                ``tests/test_synccount.py`` (and the partitioned subset at 2
                partitions; the three that join two fact tables on the
                item alone run on SF1 in 2^19-row chunks, since at SF5 and
-               up their joins outgrow the card) and the 25 CI statements
-               through the Power Run entry with ``--input_format
+               up their joins outgrow the card) and the first 13 CI
+               statements (``--stream-ci``; all 25 until the param phase
+               came) through the Power Run entry with ``--input_format
                parquet``; streamed rows equal
                resident rows, every ``must_stream`` statement runs
                ``compiled`` within 6 syncs, K4/K5 launch, and no
@@ -201,8 +225,10 @@ out of memory:
                that statement alone unmatched and ``Fail``. The line gives
                the statements, rows, both runs' and the phase's seconds;
 8. bench       ``python -m nds_tpu_torch.bench`` (run A, a fresh process)
-               at SF1 over every statement of its stream (103) on the SF1
-               raw data of the data phase, its ledger beside the other
+               at SF1 over the statements of the first 50 templates (54,
+               ``BENCH_A_QUERIES``; all 103 until the param phase came)
+               on the SF1 raw data of the data phase, its ledger beside
+               the other
                results: it ends ``completed`` with every
                statement ``ok`` and K1 and K2 launched (the stream has no
                MIN/MAX of a double, so no K3) under the default replay
@@ -212,7 +238,7 @@ out of memory:
                ledger loads, ``bench_compare --gate`` of A against itself
                passes and its ``--inject-drift`` self-test rejects; a
                second line gives the phase's seconds and the card. Run B
-               (the first 14 templates, 15 statements,
+               (the first 4 templates, 4 statements,
                ``BENCH_B_QUERIES``, resident, in a fresh process) is the
                campaign's ``resident`` arm;
    campaign    ``python -m nds_tpu_torch.tools.campaign`` over the arms
@@ -222,7 +248,7 @@ out of memory:
                at SF1 with ``NDS_TPU_STREAM_BYTES=1.5e8`` (store_sales,
                catalog_sales and inventory stream), and ``resident`` (the
                threshold unset: nothing streams): every arm completes
-               with 15 statements ``ok``, the same command again skips
+               with 4 statements ``ok``, the same command again skips
                all four, ``--report`` writes a row an arm and the
                encoded/raw delta (the raw wire uploads more bytes), each
                arm's ``--gate`` against run A is a finding, the resident
@@ -336,8 +362,10 @@ STREAM_SCALE = 3
 STREAM_CHUNK_ROWS = 1 << 22
 STREAM_BYTES = 1.5e8 * STREAM_SCALE
 # the CI statements the stream phase runs through the Power Run entry
-# (``--stream-ci``: its first N)
-STREAM_CI = CI_QUERIES
+# (``--stream-ci``: its first N): the first 13, as the census phase, for
+# the smoke's time limit once the param phase came (all 25 until then)
+STREAM_CI_DEFAULT = 13
+STREAM_CI = CI_QUERIES[:STREAM_CI_DEFAULT]
 # the census phase's statements: the first 13 CI statements, for the
 # smoke's time limit
 CENSUS_QUERIES = CI_QUERIES[:13]
@@ -355,21 +383,34 @@ FANOUT_SCALE = 1
 FANOUT_CHUNK_ROWS = 1 << 19
 FANOUT_STREAM_BYTES = 1.5e8
 # the bench phase: two runs of the port's bench entry at SF1, each held to
-# a round budget well inside the smoke's time limit. Run A takes every
-# statement of the stream (103); run B, there for the run-to-run spread
-# and run as the campaign phase's ``resident`` arm, takes the first 14
-# templates (15 statements with query14's two parts), as do the
-# campaign's other arms: two whole runs made the smoke pass its time
-# limit on a slow host once the shard phase came, and four arms of 28
-# statements once the campaign came (a run is mostly first sights,
-# records and captures, host work)
+# a round budget well inside the smoke's time limit. Run A takes the
+# statements of the first 50 templates (54; every statement of the stream,
+# 103, until the param phase came; the full_bench phase's Power and
+# Throughput steps still run all 103 on the card); run B, there for the
+# run-to-run spread and run as the campaign phase's ``resident`` arm,
+# takes the first 4 templates (4 statements), as do the campaign's other
+# arms: two whole runs made the smoke pass its time limit on a slow host
+# once the shard phase came, four arms of 28 statements once the campaign
+# came, and of 15 once the param phase came (a run is mostly first
+# sights, records and captures, host work); the whole smoke with the
+# param phase took 1,181 s on the slowest host seen
 BENCH_SCALE = 1
 BENCH_BUDGET_S = 300
-BENCH_B_TEMPLATES = 14
-BENCH_B_QUERIES = [name for i in range(1, BENCH_B_TEMPLATES + 1)
-                   for name in ((f"query{i}_part1", f"query{i}_part2")
-                                if i in (14, 23, 24) else (f"query{i}",))]
-BENCH_STATEMENTS = {"a": 103}
+
+
+def _template_statements(n):
+    """The statement names of the first ``n`` templates (the split
+    templates in two parts)."""
+    from_split = (14, 23, 24, 39)     # nds_tpu_torch.queries.SPECIAL_SPLIT
+    return [name for i in range(1, n + 1)
+            for name in ((f"query{i}_part1", f"query{i}_part2")
+                         if i in from_split else (f"query{i}",))]
+
+
+BENCH_A_QUERIES = _template_statements(50)
+BENCH_B_TEMPLATES = 4
+BENCH_B_QUERIES = _template_statements(BENCH_B_TEMPLATES)
+BENCH_STATEMENTS = {"a": len(BENCH_A_QUERIES)}
 BENCH_KERNELS = ("segment_sum_i64", "segment_sum_f64")
 
 
@@ -1527,7 +1568,7 @@ def stream_phase(torch, K, queries, capture):
     drain_stream_events()
     marks["ci_s"] = round(time.time() - t_phase, 3)
     raw_line, raw_problems = raw_wire_arm(encoded, timed, last, capture,
-                                          scans)
+                                          scans, drive_launches)
     failures += raw_problems
     encoded.clear()
     del streamed, fanout_streamed
@@ -1598,14 +1639,14 @@ def stream_phase(torch, K, queries, capture):
             "chunk_split": split, "raw_wire": raw_line}
 
 
-def raw_wire_arm(encoded, timed, last, capture, scans):
+def raw_wire_arm(encoded, timed, last, capture, scans, drive_launches):
     """The ``RAW_WIRE`` statements again under ``NDS_TPU_ENCODED=0``, on
     the sessions that ran them encoded, twice each (the first sight
     builds the plain-width wire plan, records and captures; the second
     replays): rows equal to the encoded run's bit for bit, every scan
     compiled as a graph, at most ``STREAM_SYNC_BUDGET`` syncs, no
-    synchronizing call in the chunk loop, and K4/K5 launches equal to the
-    encoded run's. (the ``raw_wire`` line, problems)."""
+    synchronizing call in the chunk loop, and each drive's K4/K5 launches
+    equal to the encoded run's. (the ``raw_wire`` line, problems)."""
     from nds_tpu_torch.io.columnar import encoded_enabled
     problems, rows = [], []
     os.environ["NDS_TPU_ENCODED"] = "0"
@@ -1629,9 +1670,10 @@ def raw_wire_arm(encoded, timed, last, capture, scans):
             compiled = [e for e in events + events2 if e.path == "compiled"]
             graphs = [e.graph for e in compiled]
             chunks = max((e.chunks for e in events), default=0)
-            # query37's encoded rows came from its second sight; the A/B
-            # statements' from their first
-            held = launches2 if name.startswith("query") else launches
+            # each drive's K4/K5 launches (a record's own launches are
+            # not a drive's: whether a run records depends on the cache)
+            held = [drive_launches(events), drive_launches(events2)]
+            want_drive = drive_launches(enc_events)
             rec = {
                 "statement": name, "rows": got.num_rows,
                 "equal_bit_for_bit": got.equals(want) and got2.equals(want),
@@ -1645,6 +1687,7 @@ def raw_wire_arm(encoded, timed, last, capture, scans):
                 + loop_syncs2, "graph": graphs,
                 "launches": [launches, launches2],
                 "encoded_launches": enc_launches,
+                "drive_launches": held, "encoded_drive_launches": want_drive,
                 "scans": scans(events2)}
             rows.append(rec)
             emit({"phase": "raw_wire_statement", **rec})
@@ -1657,9 +1700,9 @@ def raw_wire_arm(encoded, timed, last, capture, scans):
                 why.append(f"scans {[(e.path, e.graph[:80]) for e in events]}")
             if max(syncs, syncs2) > STREAM_SYNC_BUDGET or rec["loop_syncs"]:
                 why.append(f"syncs {rec['syncs']}, loop {rec['loop_syncs']}")
-            if held != enc_launches:
-                why.append(f"launches {held} against the encoded "
-                           f"{enc_launches}")
+            if held != [want_drive, want_drive]:
+                why.append(f"drive launches {held} against the encoded "
+                           f"{want_drive}")
             if why:
                 problems.append(f"raw/{name}: {why}")
     finally:
@@ -2219,8 +2262,8 @@ class K4Capture:
     def __enter__(self):
         from nds_tpu_torch.engine import stream as S
 
-        def scan(flat, n_dev, spec):
-            out = self.real(flat, n_dev, spec)
+        def scan(flat, n_dev, spec, bound=None):
+            out = self.real(flat, n_dev, spec, bound)
             if flat[spec.cols[0][0]].device.type == "cuda" and \
                     self.context is not None:
                 self.note(flat, n_dev, spec)
@@ -2519,7 +2562,7 @@ def bench_phase(raw_dir):
     from nds_tpu_torch.obs.ledger import load_ledger
     from nds_tpu_torch.tools import bench_compare as BC
     t0 = time.time()
-    runs = {"a": bench_run("a", raw_dir)}
+    runs = {"a": bench_run("a", raw_dir, BENCH_A_QUERIES)}
     problems = []
     geo, launches, counts, tiers = {}, {}, {}, {}
     for label, (rc, ledger, final) in runs.items():
@@ -3562,6 +3605,274 @@ def campaign_phase(sf1, baseline):
     return not problems, line
 
 
+# ---------------------------------------------------------------------------
+# param: parameterized plans on the streamed path
+# ---------------------------------------------------------------------------
+
+# the corpus statements with bindable slots (analysis/param_audit.py: 63
+# slots in these 7), at SF1 with the campaign's streaming threshold
+# (store_sales, catalog_sales, web_sales and inventory stream) in
+# 2^19-row chunks, so that each streamed table has at least two (web_sales
+# 2; at 2^20 it had one); K vectors a statement, and the one whose bound
+# K4 words are held against the plain version (vector 2, each value one
+# above the statement's own: it selects rows); the generator seeds of the
+# skeleton report
+PARAM_QUERIES = ("query9", "query28", "query37", "query44", "query48",
+                 "query49", "query82")
+PARAM_STREAM_BYTES = 1.5e8
+PARAM_CHUNK_ROWS = 1 << 19
+PARAM_K = 4
+PARAM_K4_VECTOR = 2
+PARAM_SEEDS = (SEED, SEED + 1, SEED + 2, SEED + 3)
+
+
+def param_tables(texts):
+    """The catalog tables the statements read."""
+    import re
+    from nds_tpu_torch.schema import get_schemas
+    return sorted(t for t in get_schemas(use_decimal=True)
+                  if any(re.search(rf"\b{t}\b", x) for x in texts))
+
+
+def param_skeletons():
+    """Which templates collapse onto one skeleton across the port's
+    generator seeds, the texts taken unchanged: a reading, not a check."""
+    import numpy as np
+    from nds_tpu_torch.analysis.param_audit import (ParamAuditor,
+                                                    skeleton_text)
+    from nds_tpu_torch.queries import instantiate_template, load_template
+    auditor = ParamAuditor()
+    out = {}
+    for q in PARAM_QUERIES:
+        text = load_template(f"{q}.tpl")
+        sk = set()
+        for seed in PARAM_SEEDS:
+            sql = instantiate_template(text, np.random.default_rng(seed))
+            sk.add(skeleton_text(sql, auditor.audit_sql(sql).slots))
+        out[q] = len(sk)
+    return out
+
+
+def param_k4_check(torch, K, S):
+    """K4 over a cached pipeline's bound words (its static operands as the
+    last execution left them) against its plain version over the same
+    bound entries, and its time against the same spec unbound (the
+    build's own words) on the same chunk."""
+    pipes = [p for p in S._PIPELINE_CACHE.values()
+             if p.scan_spec is not None and p.scan_spec.binds
+             and p._static is not None and p._static.params is not None]
+    if not pipes:
+        return {"ok": False, "error": "no pipeline with bound K4 words"}
+    pipe = max(pipes, key=lambda p: p.chunk_cap)
+    st, spec = pipe._static, pipe.scan_spec
+    bound = st.params.scan
+    m, _h = K.chunk_scan(st.slots, st.n_dev, spec, bound)
+    pm, _ph = K.chunk_scan_plain(st.slots, st.n_dev, spec, bound.entries)
+    torch.cuda.synchronize()
+    good = bits_equal(torch, m, pm)
+    plen = int(st.slots[spec.cols[0][0]].shape[0])
+    nbytes = scan_bytes(st.slots, spec, plen)
+    # the kernel alone over the bound words and over the spec's own,
+    # alternating, then the wrappers a query calls
+    times = {}
+    for label, words in (("bound", bound.words), ("unbound", None),
+                         ("bound", bound.words), ("unbound", None)):
+        launch = K.launcher("chunk_scan", st.slots, st.n_dev, spec,
+                            words=words)
+        times.setdefault(label, []).append(
+            cuda_ms(torch, launch, reps=KERNEL_REPS))
+    return {"ok": good, "tol": "bit-exact",
+            "max_abs_err": 0 if good else int((m != pm).sum()),
+            "entries": [e[0] for e in bound.entries], "n": plen,
+            "survivors": int(m.sum()), "bound_fields": len(spec.binds),
+            "ms_bound": times["bound"], "ms_unbound": times["unbound"],
+            "wrapper_ms_bound": cuda_ms(torch, lambda: K.chunk_scan(
+                st.slots, st.n_dev, spec, bound)),
+            "wrapper_ms_unbound": cuda_ms(torch, lambda: K.chunk_scan(
+                st.slots, st.n_dev, spec)),
+            "plain_ms": cuda_ms(torch, lambda: K.chunk_scan_plain(
+                st.slots, st.n_dev, spec, bound.entries)),
+            "bound_ms": bytes_bound_ms(nbytes), "bytes": nbytes}
+
+
+def param_phase(torch, K, device="cuda", data=None,
+                chunk_rows=PARAM_CHUNK_ROWS, stream_bytes=PARAM_STREAM_BYTES):
+    """The 7 statements with bindable slots, each over ``PARAM_K``
+    vectors that change only those slots
+    (``tools.param_audit_diff.statement_vectors``), streamed at SF1: bound
+    (one session, binding on) against a fresh recording of each vector
+    (``NDS_TPU_PARAM_BIND=0``, the pipeline cache cleared before each).
+    (ok, lines, K4/K5 launches of the bound arm)."""
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.engine import prefetch as PF
+    from nds_tpu_torch.engine import stream as S
+    from nds_tpu_torch.engine.session import Session
+    from nds_tpu_torch.engine.table import ChunkedTable
+    from nds_tpu_torch.listener import drain_stream_events
+    from nds_tpu_torch.obs import metrics as M
+    from nds_tpu_torch.obs import trace as obs_trace
+    from nds_tpu_torch.schema import get_schemas
+    from nds_tpu_torch.tools.param_audit_diff import statement_vectors
+    t0 = time.time()
+    data = data or os.path.join(DATA, "sf1")
+    vectors = {q: statement_vectors(q, PARAM_K) for q in PARAM_QUERIES}
+    schemas = get_schemas(use_decimal=True)
+    s = Session({"stream_bytes": stream_bytes, "stream_chunk_rows":
+                 chunk_rows, "replay": "off"}, device=device)
+    for t in param_tables([v[2][0] for v in vectors.values()]):
+        s.read_raw_view(t, os.path.join(data, t), schemas[t])
+    chunks = {k: v.num_chunks() for k, v in s.catalog.items()
+              if isinstance(v, ChunkedTable)}
+    load_s = round(time.time() - t0, 3)
+    cuda = device == "cuda"
+    loop_syncs = watch_chunk_loop(torch, S, PF) if cuda else []
+    reg = M.default()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def execute(sql):
+        """(arrow rows, ms, syncs, events, span ms by name, launches,
+        synchronizing calls in the chunk loop, misses, hits, the pipeline
+        keys it built)."""
+        keys0 = set(S._PIPELINE_CACHE)
+        obs_trace.drain_spans()
+        drain_stream_events()
+        before, l0, w0 = E.sync_count(), dict(K.LAUNCHES), len(loop_syncs)
+        h0, m0 = reg.counter(M.PIPE_HIT), reg.counter(M.PIPE_MISS)
+        sync()
+        t = time.perf_counter()
+        rows = s.sql(sql).to_arrow()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        spans = {k: v["ms"] for k, v in
+                 _rollup(obs_trace.drain_spans()).items()}
+        return (rows, ms, E.sync_count() - before, drain_stream_events(),
+                spans, {k: K.LAUNCHES[k] - l0[k]
+                        for k in ("chunk_scan", "join_probe")},
+                len(loop_syncs) - w0, reg.counter(M.PIPE_MISS) - m0,
+                reg.counter(M.PIPE_HIT) - h0, set(S._PIPELINE_CACHE) - keys0)
+
+    lines, ok = [], True
+    launches = {"chunk_scan": 0, "join_probe": 0}
+    S._PIPELINE_CACHE.clear()
+    for q, (_sql, slots, texts) in vectors.items():
+        # one warm-up run first: a statement's first run in a session
+        # differs from later ones in its syncs (a count left host-known by
+        # a first sight), whichever arm it falls in
+        os.environ["NDS_TPU_PARAM_BIND"] = "0"
+        try:
+            execute(texts[0])
+            off = []
+            for t in texts:
+                S._PIPELINE_CACHE.clear()
+                off.append(execute(t))
+        finally:
+            os.environ.pop("NDS_TPU_PARAM_BIND", None)
+        S._PIPELINE_CACHE.clear()
+        on, k4_check = [], None
+        for i, t in enumerate(texts):
+            on.append(execute(t))
+            if cuda and q == "query37" and i == PARAM_K4_VECTOR:
+                k4_check = param_k4_check(torch, K, S)
+        S._PIPELINE_CACHE.clear()
+        for r in on:
+            for k in launches:
+                launches[k] += r[5][k]
+        graphs = [[e.graph[:120] for e in r[3] if e.path == "compiled"]
+                  for r in on]
+        paths = sorted({e.path for r in on + off for e in r[3]})
+        first = on[0][3]
+        rec = {
+            "phase": "param_statement", "query": q,
+            "slots": len(slots), "scans": len(first),
+            "chunks": [e.chunks for e in first],
+            "slots_in_k4_words": sum(e.param_k4 for e in first),
+            "slots_as_graph_scalars": sum(e.param_graph for e in first),
+            "builds": [r[7] for r in on], "hits": [r[8] for r in on],
+            "builds_off": [r[7] for r in off],
+            "captures": [sum(g == "captured" for g in gs) for gs in graphs],
+            "replays": [sum(g == "replayed" for g in gs) for gs in graphs],
+            "graphs": sorted({g for gs in graphs for g in gs}),
+            "paths": paths,
+            "rows": [r[0].num_rows for r in on],
+            "rows_equal": all(a[0].equals(b[0]) for a, b in zip(on, off)),
+            "syncs": [r[2] for r in on], "syncs_off": [r[2] for r in off],
+            "loop_sync_calls": sum(r[6] for r in on + off),
+            "k4": sum(r[5]["chunk_scan"] for r in on),
+            "k5": sum(r[5]["join_probe"] for r in on),
+            "ms": [round(r[1], 3) for r in on],
+            "ms_off": [round(r[1], 3) for r in off],
+            "capture_ms": [round(r[4].get("stream.capture", 0.0), 3)
+                           for r in on],
+            "capture_ms_off": [round(r[4].get("stream.capture", 0.0), 3)
+                               for r in off],
+            "record_ms_off": [round(r[4].get("stream.record", 0.0), 3)
+                              for r in off],
+            "write_ms": [round(sum(max(e.param_ms, 0.0) for e in r[3]), 3)
+                         for r in on]}
+        rec["capture_ms_saved"] = round(sum(rec["capture_ms_off"][1:])
+                                        - sum(rec["capture_ms"][1:]), 3)
+        # a pipeline built again under a key an earlier vector built: the
+        # binding did not serve it (a later vector may build other keys,
+        # where a bound value changes the rows of another scan's part)
+        seen, rebuilt = set(), 0
+        for r in on:
+            rebuilt += len(r[9] & seen)
+            seen |= r[9]
+        rec["rebuilt"] = rebuilt
+        problems = []
+        if paths != ["compiled"]:
+            problems.append(f"paths {paths}")
+        if rebuilt:
+            problems.append(f"{rebuilt} pipelines built again under a "
+                            "key an earlier vector built")
+        if cuda and (rec["captures"] != rec["builds"]
+                     or any(g not in ("captured", "replayed")
+                            for g in rec["graphs"])):
+            problems.append(f"graphs {rec['graphs']}")
+        if not rec["rows_equal"]:
+            problems.append("rows differ from the fresh recording")
+        # the fresh recording builds every scan; a bound hit skips the
+        # record's reads, so the bound arm may only read less
+        if any(a > b for a, b in zip(rec["syncs"], rec["syncs_off"])):
+            problems.append("more syncs than the fresh recording")
+        if rec["loop_sync_calls"]:
+            problems.append(f"{rec['loop_sync_calls']} synchronizing "
+                            "calls in the chunk loop")
+        if not rec["slots_in_k4_words"] + rec["slots_as_graph_scalars"]:
+            problems.append("no slot bound")
+        if min(rec["chunks"], default=0) < 2:
+            problems.append(f"chunks {rec['chunks']}")
+        if k4_check is not None:
+            rec["k4_bound_words"] = k4_check
+            if not k4_check["ok"]:
+                problems.append("K4 over bound words differs from plain")
+        rec["problems"] = problems
+        rec["ok"] = not problems
+        ok = ok and rec["ok"]
+        lines.append(rec)
+    skeletons = param_skeletons()
+    summary = {
+        "phase": "param", "ok": ok, "scale": 1, "chunk_rows": chunk_rows,
+        "stream_bytes": stream_bytes, "chunks": chunks,
+        "statements": len(lines), "vectors": PARAM_K,
+        "slots": sum(r["slots"] for r in lines),
+        "builds": sum(r["builds"][0] for r in lines),
+        "builds_off": sum(sum(r["builds_off"]) for r in lines),
+        "capture_ms_saved": round(sum(r["capture_ms_saved"]
+                                      for r in lines), 3),
+        "write_ms": round(sum(sum(r["write_ms"]) for r in lines), 3),
+        "launches": launches,
+        # templates whose instantiations at PARAM_SEEDS share one
+        # skeleton (1) or not: reported, not checked
+        "skeletons_across_seeds": skeletons,
+        "load_s": load_s, "s": round(time.time() - t0, 3),
+        "nvidia_smi": smi_line() if cuda else ""}
+    return ok, lines + [summary], launches
+
+
 class _Skipped(Exception):
     """A phase left out by ``--only``."""
 
@@ -3579,8 +3890,8 @@ def load_session(Session, data_dir, device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "power", "mesh", "census", "replay", "stream",
-          "shard", "agreement", "validate", "bench", "campaign",
+PHASES = ("kernels", "power", "mesh", "census", "replay", "param",
+          "stream", "shard", "agreement", "validate", "bench", "campaign",
           "full_bench")
 
 
@@ -3598,9 +3909,9 @@ def main(argv=None) -> int:
                     help="scale factor of the stream and shard phases "
                     f"(default {STREAM_SCALE}; 10 is the reference's SF10 "
                     "setting: tables above 1.5e9 bytes stream)")
-    ap.add_argument("--stream-ci", type=int, default=len(CI_QUERIES),
+    ap.add_argument("--stream-ci", type=int, default=STREAM_CI_DEFAULT,
                     help="run the stream phase's first N CI statements "
-                    f"(default all {len(CI_QUERIES)})")
+                    f"(default {STREAM_CI_DEFAULT} of {len(CI_QUERIES)})")
     args = ap.parse_args(argv)
     if args.stream_scale != STREAM_SCALE:
         STREAM_SCALE = args.stream_scale
@@ -3888,6 +4199,32 @@ def main(argv=None) -> int:
               "error": traceback.format_exc()[-3000:]})
         failed.append("replay")
 
+    # parameterized plans: the 7 statements with bindable slots over 4
+    # vectors each, streamed at SF1, bound against a fresh recording
+    param_launches, param_k4 = {}, None
+    try:
+        if not runs("param"):
+            raise _Skipped
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        ok, lines, param_launches = param_phase(torch, K)
+        for line in lines:
+            emit(line)
+            param_k4 = line.get("k4_bound_words", param_k4)
+        with open(os.path.join(OUT, "param.json"), "w") as f:
+            json.dump(lines, f, indent=1)
+        if not ok:
+            failed.append("param")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "param", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("param")
+
     campaign_launches = {}
     # 6. the streamed path at STREAM_SCALE, against all-resident; K4's
     # launches by spec shape and statement, K1-K3's by group count
@@ -4149,6 +4486,10 @@ def main(argv=None) -> int:
             extra["mesh_launches"] = mesh_launches[name]
         if campaign_launches.get(name):
             extra["campaign_launches"] = campaign_launches[name]
+        if param_launches.get(name):
+            extra["param_launches"] = param_launches[name]
+        if name == "chunk_scan" and param_k4 is not None:
+            extra["param_bound_words"] = param_k4
         line.append({"name": name, "route": "cuda",
                      "source": KERNEL_SOURCE[name],
                      "replaces": replaces, "launches": launches.get(name, 0),

@@ -39,6 +39,59 @@ _DICT_MEMO_LOCK = threading.Lock()
 # literals / lifting
 # ---------------------------------------------------------------------------
 
+# Parameter-binding context: inside a streamed pipeline's per-chunk program,
+# audited-bindable WHERE literals are served from device scalars the
+# pipeline owns instead of being baked (one build and one capture, many
+# parameter vectors — see analysis/param_audit). The map is keyed by
+# id(Literal AST node): stream.StreamPipeline keeps the build statement's
+# slot nodes alive for the life of the cached program.
+_PARAM_TL = threading.local()
+
+
+class param_binding:
+    """Context manager installing ``{id(node): (typetag, scalar)}`` for the
+    planner's Literal arm to consult (thread-local, nestable). ``scalar``
+    is a 0-d device tensor the caller owns: int64 for ``i64`` and
+    ``dec:<s>`` (the pre-scaled int), float64 for ``f64``."""
+
+    def __init__(self, bindings: dict):
+        self._bindings = bindings
+
+    def __enter__(self):
+        self._prev = getattr(_PARAM_TL, "bindings", None)
+        _PARAM_TL.bindings = self._bindings
+        return self
+
+    def __exit__(self, *exc):
+        _PARAM_TL.bindings = self._prev
+        return False
+
+
+def param_bindings_active() -> bool:
+    """True inside a per-chunk program that carries bound literals."""
+    return bool(getattr(_PARAM_TL, "bindings", None))
+
+
+def bound_literal(e, n: int) -> Column | None:
+    """The Column of a bound Literal node: an ``expand``ed view of the
+    slot's 0-d device scalar (no allocation, no copy, so a captured graph
+    reads the scalar's memory and sees each execution's value), or None
+    when no binding is active for it (the planner then bakes the value)."""
+    bindings = getattr(_PARAM_TL, "bindings", None)
+    if not bindings:
+        return None
+    hit = bindings.get(id(e))
+    if hit is None:
+        return None
+    tag, scalar = hit
+    if tag == "i64":
+        return Column("i64", scalar.expand(n))
+    if tag == "f64":
+        return Column("f64", scalar.expand(n))
+    s = int(tag.split(":")[1])           # "dec:<scale>": pre-scaled int
+    return Column(f"dec(38,{s})", scalar.expand(n))
+
+
 def _full(n: int, value, dtype, dev=None) -> torch.Tensor:
     return torch.full((n,), value, dtype=dtype,
                       device=device() if dev is None else dev)
@@ -743,7 +796,9 @@ def _scan_frac(value, scale: int):
     return Fraction(value) * (10 ** scale)
 
 
-def _lower_compare(op, lit, ci, meta):
+def _lower_compare(op, lit, ci, meta, slot=None, binds=None):
+    if slot is not None:
+        return _lower_bound_compare(op, lit.value, ci, meta, slot, binds)
     from fractions import Fraction
 
     from nds_tpu_torch.analysis import kernel_spec as KS
@@ -820,7 +875,28 @@ def _with_ci(ent, ci):
     raise ValueError(f"unexpected entry {ent!r}")
 
 
-def _lower_between(c, ci, meta):
+def _lower_between(c, ci, meta, slot_of=None, binds=None):
+    """:func:`_lower_between_fresh`, with each bound bound's field map
+    recorded in ``binds``: the entry kinds of a BETWEEN never depend on its
+    values (one range, or a ``>=``/``<=`` pair across lanes)."""
+    ents = _lower_between_fresh(c, ci, meta)
+    if ents is None or slot_of is None:
+        return ents
+    kind = meta["kind"]
+    scale = dec_scale(kind) if is_dec(kind) else 0
+    for pos, (b, lo) in enumerate(((c.low, True), (c.high, False))):
+        k = slot_of(b)
+        if k is None:
+            continue
+        # one entry holds both ends, or the pair holds one each
+        ent, field = (0, 2 + pos) if len(ents) == 1 else (pos, 2)
+        fl = ents[ent][0][0] == "f"
+        binds.append((ent, field, k, _ScanField("f") if fl else
+                      _ScanField("i", meta, scale, ceil=lo, lo=lo)))
+    return ents
+
+
+def _lower_between_fresh(c, ci, meta):
     """Total over the eligible shapes (analysis/kernel_spec.py rejects
     unparseable date bounds and negated-with-float-bounds up front):
     int-lane bounds fuse into one (n)range entry in encoded space;
@@ -881,6 +957,83 @@ def _lower_between(c, ci, meta):
     return [_with_ci(ent, ci)]
 
 
+# ---- bound slots: opcodes fixed over the safe domain, fields per value ----
+#
+# A bound literal's entry kind must not depend on its value: ``=`` and
+# ``<>`` lower as ``irange``/``nrange`` over ``[ceil q, floor q]`` (empty
+# when q is not whole, in value, FOR and dict space alike: a dict bisect of
+# -1 or len selects nothing, the codes being clipped into [0, len)), and
+# each bound field records the value -> stored-threshold map of the fresh
+# lowering (_scan_frac, value_cmp's ceil/floor, shift_for, dict_map).
+
+
+class _ScanField:
+    """value -> one entry field of a bound slot: the float lane's f64
+    (``_f64_literal``), or the int lane's stored-space threshold of
+    ``round(q) + add`` (``round`` ceil or floor of the exact rational
+    ``q = value x 10^scale``), mapped as a range's low end (``lo``: FOR
+    shift, dict ``bisect_left``) or high end (FOR shift, dict
+    ``bisect_right - 1``)."""
+
+    __slots__ = ("lane", "scale", "ceil", "add", "lo", "base", "values")
+
+    def __init__(self, lane, meta=None, scale=0, ceil=False, add=0,
+                 lo=True):
+        self.lane, self.scale, self.ceil = lane, scale, ceil
+        self.add, self.lo = add, lo
+        enc = None if meta is None else meta["enc"]
+        self.base = int(enc.base) if enc is not None and \
+            enc.mode == "for" else None
+        self.values = [int(v) for v in enc.values] \
+            if enc is not None and enc.mode != "for" else None
+
+    def __call__(self, value):
+        import bisect
+        import math
+        if self.lane == "f":
+            return _f64_literal(value)
+        q = _scan_frac(value, self.scale)
+        t = (math.ceil(q) if self.ceil else math.floor(q)) + self.add
+        if self.base is not None:
+            return t - self.base
+        if self.values is not None:
+            return bisect.bisect_left(self.values, t) if self.lo \
+                else bisect.bisect_right(self.values, t) - 1
+        return t
+
+
+def _int_fields(op, meta):
+    """(kind, [(field, _ScanField)]) of a bound int-lane compare."""
+    kind = meta["kind"]
+    scale = dec_scale(kind) if is_dec(kind) else 0
+
+    def f(ceil, add, lo):
+        return _ScanField("i", meta, scale, ceil, add, lo)
+    if op in ("=", "<>"):
+        return ("irange" if op == "=" else "nrange",
+                [(2, f(True, 0, True)), (3, f(False, 0, False))])
+    return {"<": ("ile", [(2, f(True, -1, False))]),
+            "<=": ("ile", [(2, f(False, 0, False))]),
+            ">": ("ige", [(2, f(False, 1, True))]),
+            ">=": ("ige", [(2, f(True, 0, True))])}[op]
+
+
+def _lower_bound_compare(op, value, ci, meta, slot, binds):
+    """A compare whose literal is bound (a numeric value of a num/date
+    column): one entry whose fields ``binds`` maps from the slot."""
+    if meta["kind"] == "f64" or isinstance(value, float):
+        ekind = {"=": "feq", "<>": "fne", "<": "flt", "<=": "fle",
+                 ">": "fgt", ">=": "fge"}[op]
+        fields = [(2, _ScanField("f"))]
+    else:
+        ekind, fields = _int_fields(op, meta)
+    ent = [ekind, ci] + [None] * len(fields)
+    for f, m in fields:
+        ent[f] = m(value)
+        binds.append((0, f, slot, m))
+    return [tuple(ent)]
+
+
 def _lower_in_list(c, ci, meta):
     """Mirror Planner._eval_in_list exactly (Decimal scaling, fractional
     drop, ANSI NOT IN with NULL, string dictionary membership)."""
@@ -938,13 +1091,18 @@ def _lower_in_list(c, ci, meta):
     return [("inotin" if c.negated else "iin", ci, stored)]
 
 
-def lower_scan_spec(conjuncts, cols_meta, owned):
+def lower_scan_spec(conjuncts, cols_meta, owned, bound=None):
     """(ScanSpec | None, kept conjuncts): lower every eligible
     chunk-owned conjunct into the fused scan pass and return the rest
     for the recorded per-chunk graph. ``cols_meta`` describes the chunk's
     columns in flattened-buffer order (dicts with name/kind/enc/
     dict_values/data_slot/valid_slot); ``owned(c)`` is the planner's
-    single-ownership test for the streamed part.
+    single-ownership test for the streamed part. ``bound`` maps
+    ``id(Literal node)`` to its parameter slot index: a bound literal
+    lowers to opcodes that no value in its safe domain changes, and the
+    spec's ``binds`` record which entry fields each slot feeds and how a
+    value maps to them (:func:`kernels.bind_scan_entries`). IN-list
+    members are never bound.
 
     None means NO fused pass (nothing eligible, or an eligible conjunct
     that the lowering declines — the whole pass then stands down, as in
@@ -976,33 +1134,42 @@ def lower_scan_spec(conjuncts, cols_meta, owned):
         used[i] = len(spec_cols) - 1
         return used[i]
 
+    def slot_of(lit):
+        return None if bound is None else bound.get(id(lit))
+
     n_lowered = 0
+    binds = []
     for c in conjuncts:
         if not owned(c) or not eligible_conjunct(c, class_of):
             kept.append(c)
             continue
-        ents = _lower_one(c, resolve, cols_meta, col_index)
+        local = []
+        ents = _lower_one(c, resolve, cols_meta, col_index, slot_of, local)
         if ents is None:
             return None, list(conjuncts)
+        binds.extend((len(entries) + i, f, k, fn) for (i, f, k, fn)
+                     in local)
         entries.extend(ents)
         n_lowered += 1
     if not n_lowered:
         return None, list(conjuncts)
     return ScanSpec(entries, spec_cols, tables=tables,
-                    n_conjuncts=n_lowered), kept
+                    n_conjuncts=n_lowered, binds=binds), kept
 
 
-def _lower_one(c, resolve, cols_meta, col_index):
+def _lower_one(c, resolve, cols_meta, col_index, slot_of=None, binds=None):
     from nds_tpu_torch.analysis.kernel_spec import _ref_lit
     from nds_tpu_torch.sql import ast as A
     got = _ref_lit(c)
     if got is not None:
         ref, lit, op = got
         i = resolve(ref)
-        return _lower_compare(op, lit, col_index(i), cols_meta[i])
+        return _lower_compare(op, lit, col_index(i), cols_meta[i],
+                              None if slot_of is None else slot_of(lit),
+                              binds)
     if isinstance(c, A.Between):
         i = resolve(c.expr)
-        return _lower_between(c, col_index(i), cols_meta[i])
+        return _lower_between(c, col_index(i), cols_meta[i], slot_of, binds)
     if isinstance(c, A.InList):
         i = resolve(c.expr)
         return _lower_in_list(c, col_index(i), cols_meta[i])

@@ -503,13 +503,17 @@ class ScanSpec:
     ("id" | "for" | "dict", FOR base, dict table index, the 10**scale
     divisor). ``tables`` are the sorted dict value tables the float lane
     gathers (host arrays). ``key_slots`` are the chunk buffers the
-    partition hash folds (empty = no hash output)."""
+    partition hash folds (empty = no hash output). ``binds`` are the
+    fields that bound parameter slots feed: ``(entry, field, slot, map)``,
+    ``map`` taking the slot's literal value to the entry's field
+    (``engine/exprs.lower_scan_spec``); :func:`bind_scan_entries` and
+    :func:`bind_scan_words` give one execution's entries and words."""
 
     __slots__ = ("entries", "n_conjuncts", "cols", "tables", "key_slots",
-                 "_blobs")
+                 "binds", "_blobs")
 
     def __init__(self, entries, cols, tables=(), key_slots=(),
-                 n_conjuncts=None):
+                 n_conjuncts=None, binds=()):
         self.entries = tuple(entries)
         # a conjunct may lower to SEVERAL entries (mixed-lane BETWEEN), so
         # the stage count tracks CONJUNCTS
@@ -518,6 +522,7 @@ class ScanSpec:
         self.cols = tuple(cols)
         self.tables = tuple(tables)
         self.key_slots = tuple(key_slots)
+        self.binds = tuple(binds)
         self._blobs = {}
 
     def stages(self) -> int:
@@ -563,10 +568,11 @@ def fold_hash(keybufs) -> torch.Tensor:
     return torch.where(h >= (1 << 31), h - (1 << 32), h).to(torch.int32)
 
 
-def _eval_entries(spec: ScanSpec, datas, valids, tables):
+def _eval_entries(spec: ScanSpec, datas, valids, tables, entries=None):
     """Survivor mask: AND of every lowered conjunct's contribution (the
     plain version of the K4 kernel body; all boolean logic mirrors the
-    eager engine's ``mask & data & valid_mask`` WHERE contract)."""
+    eager engine's ``mask & data & valid_mask`` WHERE contract).
+    ``entries``: one execution's bound entries (default the spec's)."""
     shape, dev = datas[0].shape, datas[0].device
     m = torch.ones(shape, dtype=torch.bool, device=dev)
 
@@ -575,7 +581,7 @@ def _eval_entries(spec: ScanSpec, datas, valids, tables):
         return torch.ones(shape, dtype=torch.bool, device=dev) \
             if v is None else v
 
-    for e in spec.entries:
+    for e in spec.entries if entries is None else entries:
         kind, ci = e[0], e[1]
         if kind == "false":
             m = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -588,6 +594,10 @@ def _eval_entries(spec: ScanSpec, datas, valids, tables):
             continue
         if kind[0] == "i" or kind == "nrange":
             x = datas[ci].to(I64)
+            if kind not in ("iin", "inotin"):
+                # thresholds clamped to int64 as the packed words hold
+                # them (a literal scaled past int64 selects all or none)
+                e = (*e[:2], *(_clamp_i64(v) for v in e[2:]))
             if kind == "ieq":
                 c = x == e[2]
             elif kind == "ine":
@@ -603,11 +613,11 @@ def _eval_entries(spec: ScanSpec, datas, valids, tables):
             elif kind == "iin":
                 c = torch.zeros(shape, dtype=torch.bool, device=dev)
                 for v in e[2]:
-                    c = c | (x == v)
+                    c = c | (x == _clamp_i64(v))
             elif kind == "inotin":
                 c = torch.ones(shape, dtype=torch.bool, device=dev)
                 for v in e[2]:
-                    c = c & (x != v)
+                    c = c & (x != _clamp_i64(v))
             else:
                 raise ValueError(f"unknown scan entry {kind!r}")
             m = m & c & vmask(ci)
@@ -661,13 +671,14 @@ def _scan_inputs(chunk_flat, spec: ScanSpec):
     return datas, valids, keybufs
 
 
-def chunk_scan_plain(chunk_flat, n_dev, spec: ScanSpec):
-    """Plain version of :func:`chunk_scan`."""
+def chunk_scan_plain(chunk_flat, n_dev, spec: ScanSpec, entries=None):
+    """Plain version of :func:`chunk_scan` (``entries``: one execution's
+    bound entries, :func:`bind_scan_entries`)."""
     datas, valids, keybufs = _scan_inputs(chunk_flat, spec)
     dev = datas[0].device
     tables = [torch.as_tensor(np.asarray(t, dtype=np.int64), device=dev)
               for t in spec.tables]
-    mask = _eval_entries(spec, datas, valids, tables)
+    mask = _eval_entries(spec, datas, valids, tables, entries)
     mask = mask & (torch.arange(datas[0].shape[0], device=dev) < n_dev)
     return mask, (fold_hash(keybufs) if keybufs else None)
 
@@ -759,6 +770,33 @@ def pack_scan_spec(spec: ScanSpec):
     layout = ScanLayout(len(spec.entries), len(spec.cols), o_cols, o_iv,
                         o_fv, o_tb, len(words))
     return np.asarray(words, dtype=np.int64), layout
+
+
+def bind_scan_entries(spec: ScanSpec, values) -> tuple:
+    """One execution's entries: the spec's, every bound field recomputed
+    from ``values`` (literal values, by parameter slot). Kinds and the
+    entry count stay the spec's."""
+    ents = [list(e) for e in spec.entries]
+    for (i, f, k, fn) in spec.binds:
+        ents[i][f] = fn(values[k])
+    return tuple(tuple(e) for e in ents)
+
+
+def bind_scan_words(spec: ScanSpec, entries) -> np.ndarray:
+    """The entry region of the packed spec (its first ``off_cols`` words)
+    for one execution's ``entries`` (:func:`bind_scan_entries`): the
+    spec's packed words with each bound field's word rewritten — int
+    fields at ``a``/``b``, float fields at their bits. Layout, opcodes and
+    word count stay those of :func:`packed_scan_spec`."""
+    words, lay = packed_scan_spec(spec)
+    out = words[:lay.off_cols].copy()
+    for (i, f, _k, _fn) in spec.binds:
+        v = entries[i][f]
+        if entries[i][0][0] == "f":
+            out[SCAN_ENT_WORDS * i + f + 2] = _f64_bits(v)
+        else:
+            out[SCAN_ENT_WORDS * i + f] = _clamp_i64(v)
+    return out
 
 
 def scan_staged_words(layout: ScanLayout,
@@ -881,9 +919,10 @@ def _cuda_1d(name, t, dev, n, dtypes=None):
 
 
 def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
-               plan: ScanPlan | None = None):
+               plan: ScanPlan | None = None, words=None):
     """(argument block, keep-alive tensors, mask, hash) of one K4 launch;
-    ``plan`` defaults to :func:`scan_plan` on this card."""
+    ``plan`` defaults to :func:`scan_plan` on this card; ``words`` is one
+    execution's packed spec on the card (default the spec's own)."""
     datas, valids, keybufs = _scan_inputs(chunk_flat, spec)
     dev = datas[0].device
     if dev.type != "cuda":
@@ -917,7 +956,15 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
     a.ncols, a.nentries, a.nkeys = len(datas), len(spec.entries), \
         len(keybufs)
     lay = packed_scan_spec(spec)[1]
-    a.spec = _scan_blob(spec, dev).data_ptr()
+    if words is None:
+        words = _scan_blob(spec, dev)
+    elif not (words.device == dev and words.dtype == I64
+              and words.dim() == 1 and words.shape[0] >= max(lay.total, 1)
+              and words.is_contiguous()):
+        raise ValueError("chunk_scan: bound words must be a contiguous "
+                         f"int64 vector of {lay.total} words on {dev}")
+    keep.append(words)
+    a.spec = words.data_ptr()
     a.off_cols, a.off_ivals = lay.off_cols, lay.off_ivals
     a.off_fvals, a.off_tables = lay.off_fvals, lay.off_tables
     a.total_words, a.staged_words = lay.total, plan.staged
@@ -936,18 +983,30 @@ def _scan_args(chunk_flat, n_dev, spec: ScanSpec,
     return a, keep, mask, h
 
 
-def chunk_scan(chunk_flat, n_dev, spec: ScanSpec):
+class ScanBinding(NamedTuple):
+    """One execution's bound K4 spec: its entries (the plain version reads
+    them) and its packed words on the device (the kernel reads them)."""
+    entries: tuple
+    words: torch.Tensor | None
+
+
+def chunk_scan(chunk_flat, n_dev, spec: ScanSpec,
+               bound: ScanBinding | None = None):
     """``(mask, hash)`` of one padded chunk: the AND of the spec's lowered
     WHERE entries on the stored codes, & ``row < n_dev``; and the routing
     hash over ``spec.key_slots`` (int32 holding uint32 bits; None without
     key slots). ``chunk_flat`` is the pipeline's flattened chunk (data,
     validity per column), ``n_dev`` the live row count as a 0-d int64
-    tensor on the chunk's device. On the card the launch takes
+    tensor on the chunk's device. ``bound`` carries one execution's
+    parameter values (a spec with ``binds``). On the card the launch takes
     :func:`scan_plan`."""
     first = chunk_flat[spec.cols[0][0]]
     if first.device.type == "cpu":
-        return chunk_scan_plain(chunk_flat, n_dev, spec)
-    args, keep, mask, h = _scan_args(chunk_flat, n_dev, spec)
+        return chunk_scan_plain(chunk_flat, n_dev, spec,
+                                None if bound is None else bound.entries)
+    args, keep, mask, h = _scan_args(
+        chunk_flat, n_dev, spec, words=None if bound is None
+        else bound.words)
     rc = _lib().nds_chunk_scan(ctypes.byref(args), _stream(mask))
     _check("chunk_scan", rc)
     LAUNCHES["chunk_scan"] += 1
@@ -1089,18 +1148,20 @@ def join_probe(views, valids, n_valid, excluded, rh_sorted):
 # ---------------------------------------------------------------------------
 
 
-def launcher(name: str, *args, plan=None):
+def launcher(name: str, *args, plan=None, words=None):
     """A function that launches kernel ``name`` (a key of ``LAUNCHES``)
     once on outputs allocated here, with no input check, allocation or
     count per call: what a measurement of the kernel's own device time
     calls in a loop. ``args`` are the wrapper's arguments (for
     ``segment_sum_f64`` the values may be None: a count-only launch);
     K1-K3 also take ``plan=`` (a :class:`SegmentPlan`) and K4 a
-    :class:`ScanPlan` in place of the card's own, for a sweep. Sums
-    accumulate across calls; nothing reads them."""
+    :class:`ScanPlan` in place of the card's own, for a sweep; K4 takes
+    ``words=``, one execution's bound spec on the card. Sums accumulate
+    across calls; nothing reads them."""
     if name in ("chunk_scan", "join_probe"):
         if name == "chunk_scan":
-            block, keep, out, out2 = _scan_args(*args, plan=plan)
+            block, keep, out, out2 = _scan_args(*args, plan=plan,
+                                                words=words)
             fn_name = "nds_chunk_scan"
         else:
             block, keep, out, out2 = _probe_args(*args)

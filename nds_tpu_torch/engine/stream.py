@@ -118,6 +118,17 @@ classified fault there or in the drive (an exhausted retry) takes one
 step down the ladder, to the eager chunk loop, recorded as a fault event.
 A statement timeout raises, and any other exception raises as before.
 
+Parameterized plans (analysis/param_audit.py): a WHERE literal the shared
+rule proves bindable keys the pipeline cache on its template skeleton, so
+K parameter vectors of a template share one build and one capture. The
+pipeline keeps the build statement's slot nodes; each execution passes its
+own literal values, which are written before its chunk loop into two of
+the program's static operands: the slot scalars the planner's Literal arm
+reads (``exprs.bound_literal``), and the K4 spec's entry words where the
+slot's conjunct lowered to the scan kernel (``kernels.bind_scan_words``;
+the plain version reads the bound entries). The eager drive writes its own
+copies. ``NDS_TPU_PARAM_BIND=0`` bakes every literal.
+
 Chunk-derived host reads: the log serves ``date_part``, ``month_arith``,
 ``cast_str`` and ``concat`` reads like dimension reads, so a replay would
 hand every chunk the first chunk's values. While the program records, such
@@ -129,11 +140,14 @@ statement takes the eager chunk loop.
 from __future__ import annotations
 
 import logging
+import os
 import threading
+import time
 import weakref
 
 import torch
 
+from nds_tpu_torch.engine import exprs as _EX
 from nds_tpu_torch.engine import faults as _F
 from nds_tpu_torch.engine import kernels as _K
 from nds_tpu_torch.engine import ops as E
@@ -457,28 +471,82 @@ class _Static:
     shard the partition histogram and the exchange's overflow flag; on
     cuda the captured graph, the upload stage its capture was served from,
     the kernel launches one replay makes and the bytes its capture grew
-    the graph pool by. ``lock`` is held while an execution drives them (a
-    concurrent execution of the same pipeline takes the eager drive)."""
+    the graph pool by; ``params``, the bound-literal scalars and K4 spec
+    words each execution writes (:class:`_Params`, None when nothing is
+    bound); ``parts``, the part buffers the program was first driven
+    with, held so that a later execution whose parts are other buffers of
+    the same content (a dimension filtered again, a streamed table bound
+    whole again) runs the program on these (see :func:`_parts_differ`).
+    ``lock`` is held while an execution drives them (a concurrent
+    execution of the same pipeline takes the eager drive)."""
 
     __slots__ = ("slots", "n_dev", "resid", "accs", "hist", "exovf",
-                 "graph", "stage", "launches", "static_bytes",
-                 "pool_bytes", "lock")
+                 "params", "parts", "graph", "stage", "launches",
+                 "static_bytes", "pool_bytes", "lock")
 
-    def __init__(self, slots, n_dev, resid, accs, hist, exovf):
+    def __init__(self, slots, n_dev, resid, accs, hist, exovf, params=None,
+                 parts=()):
         self.slots, self.n_dev, self.resid = slots, n_dev, resid
         self.accs, self.hist, self.exovf = accs, hist, exovf
+        self.params = params
+        self.parts = tuple(tuple(p) for p in parts)
         self.graph = self.stage = None
         self.launches: dict = {}
         self.static_bytes = sum(int(t.nbytes) for t in (
             *(x for x in slots if x is not None), n_dev,
             *(x for r in resid for x in r), *hist, *exovf,
-            *(b for a in accs for b in a.buffers())))
+            *(b for a in accs for b in a.buffers()),
+            *(() if params is None else params.buffers()),
+            *(x for p in self.parts for x in p)))
         self.pool_bytes = 0
         self.lock = threading.Lock()
 
     @property
     def nbytes(self) -> int:
         return self.static_bytes + self.pool_bytes
+
+
+class _Params:
+    """One execution's bound literals on one device: ``vec`` holds every
+    slot's value as an int64 word (a float slot its bits), ``bindings``
+    maps each slot's Literal node to a 0-d view of its word (what the
+    planner's Literal arm reads), ``words`` is the K4 spec packed on the
+    device with this execution's entry words (None when no slot reaches
+    K4), and ``scan`` the :class:`kernels.ScanBinding` of both."""
+
+    __slots__ = ("vec", "bindings", "words", "scan")
+
+    def __init__(self, pipe, dev):
+        n = len(pipe.param_nodes)
+        self.vec = torch.zeros(max(n, 1), dtype=I64, device=dev)
+        self.bindings = {}
+        for k, (node, tag) in enumerate(zip(pipe.param_nodes,
+                                            pipe.param_tags)):
+            view = self.vec[k:k + 1].view(torch.float64).reshape(()) \
+                if tag == "f64" else self.vec[k]
+            self.bindings[id(node)] = (tag, view)
+        spec = pipe.scan_spec
+        self.words = None
+        if spec is not None and spec.binds:
+            self.words = torch.as_tensor(_K.packed_scan_spec(spec)[0],
+                                         device=dev).clone()
+        self.scan = None
+
+    def buffers(self):
+        return [self.vec] + ([] if self.words is None else [self.words])
+
+    def write(self, host) -> None:
+        """Copy one execution's host values (:meth:`StreamPipeline.
+        param_host`) into the device slots: pinned, non-blocking uploads
+        and device copies, no host wait."""
+        pvec, entries, ewords = host
+        dev = self.vec.device
+        if len(pvec):
+            self.vec.copy_(E.upload(pvec, dev, I64))
+        if self.words is not None:
+            self.words[:len(ewords)].copy_(E.upload(ewords, dev, I64))
+        self.scan = None if entries is None else \
+            _K.ScanBinding(entries, self.words)
 
 
 class StreamPipeline:
@@ -493,7 +561,12 @@ class StreamPipeline:
     ``n_shards`` > 1 runs the program on each shard of ``mesh`` (a
     contiguous slice of every chunk, or with ``exchange`` the rows routed
     to the shard, at most ``cap_ex`` from each source shard), into one
-    accumulator per shard and partition."""
+    accumulator per shard and partition.
+
+    ``param_nodes`` / ``param_tags``: the build statement's bound Literal
+    nodes and their type tags, in the cache key's slot order (kept alive
+    so their ids stay valid); ``param_k4`` / ``param_graph`` count the
+    slots that reach the K4 spec words and the graph scalars."""
 
     def __init__(self, chunk_spec, chunk_cap, part_specs, keep, log_entries,
                  operands, out_template, out_plen, acc_cap, part_refs,
@@ -501,7 +574,8 @@ class StreamPipeline:
                  key_slots=(),
                  outer_meta=(), residuals=(), resid_specs=(),
                  build_slots=(), name_catalog=None, scan_spec=None,
-                 n_shards=1, mesh=None, exchange=False, cap_ex=0):
+                 n_shards=1, mesh=None, exchange=False, cap_ex=0,
+                 param_nodes=(), param_tags=(), param_k4=0, param_graph=0):
         self.chunk_spec = chunk_spec      # ((aliased name, kind, dict), ...)
         self.chunk_cap = chunk_cap
         self.part_specs = part_specs      # specs of non-streamed parts
@@ -545,6 +619,9 @@ class StreamPipeline:
             (n_shards * cap_ex if exchange else self.shard_plen)
         self.body_out_plen = out_plen if n_shards == 1 else None
         self.coll_chunk = None
+        self.param_nodes = tuple(param_nodes)
+        self.param_tags = tuple(param_tags)
+        self.param_k4, self.param_graph = param_k4, param_graph
         # the compiled program's static operands (allocated at the first
         # compiled drive) and, once a capture failed, why
         self._static: _Static | None = None
@@ -553,11 +630,13 @@ class StreamPipeline:
     # ------------------------------------------------------------ program
 
     def _body(self, chunk_flat, n_dev, parts_flat, acc: _Acc, resid_flat,
-              live=None, pids=None, part_id=None, operands=None):
+              live=None, pids=None, part_id=None, operands=None,
+              params=None):
         """The per-chunk program: the recorded join graph replayed on one
         chunk (a shard's rows of it), its survivors scattered into
         ``acc``. ``operands``: the replay operands on this shard's device
-        (default the recorded ones). No host read."""
+        (default the recorded ones); ``params``: this execution's bound
+        literals there (:class:`_Params`). No host read."""
         from nds_tpu_torch.sql.planner import Planner, _OuterBuild, \
             _OuterProbe
         names, kinds, dicts, valided, dtypes, encs = self.out_template
@@ -601,8 +680,9 @@ class StreamPipeline:
                                              self.resid_specs, resid_flat):
             pl._subquery_residuals[rkey] = (None,
                                             _rebuild_part(rspec, rflat))
-        with E.replaying(self.log, self.operands if operands is None
-                         else operands):
+        with _EX.param_binding({} if params is None else params.bindings), \
+                E.replaying(self.log, self.operands if operands is None
+                            else operands):
             with E.stream_bounds() as sb:
                 with E.outer_match_collector() as omc:
                     out = pl._join_parts(sub, list(self.join_preds),
@@ -648,9 +728,11 @@ class StreamPipeline:
         for b, m in zip(acc.outer, matched):
             b |= m
 
-    def _scan(self, flat, n_dev):
-        """The K4 pass of one chunk: (survivor mask, routing hash)."""
-        return _K.chunk_scan(flat, n_dev, self.scan_spec)
+    def _scan(self, flat, n_dev, params=None):
+        """The K4 pass of one chunk: (survivor mask, routing hash), over
+        this execution's bound spec when ``params`` carries one."""
+        return _K.chunk_scan(flat, n_dev, self.scan_spec,
+                             None if params is None else params.scan)
 
     def _route(self, h, flat, n_dev, hist):
         """Partition ids of one chunk from its routing hash (folded here
@@ -690,7 +772,7 @@ class StreamPipeline:
             out[2].append(on(dev, self.operands))
         return out
 
-    def _send_buffers(self, flat, n_s, hist, exovf):
+    def _send_buffers(self, flat, n_s, hist, exovf, params=None):
         """One shard's half of the exchange. Its K4 pass (or the plain
         hash fold) gives the survivor mask and the routing hash; the
         partition bits of every live row count into the shard's
@@ -705,7 +787,7 @@ class StreamPipeline:
         dev = n_s.device
         alive = torch.arange(self.shard_plen, device=dev) < n_s
         if self.scan_spec is not None:
-            mask, h = self._scan(flat, n_s)
+            mask, h = self._scan(flat, n_s, params)
         else:
             mask = alive
             h = _K.fold_hash([flat[k] for k in self.key_slots])
@@ -732,8 +814,8 @@ class StreamPipeline:
                                                        device=dev)), S, cap)
         return bufs, _X.scatter_grid(slot, fits, S, cap)
 
-    def _sharded_chunk(self, shards, parts_rep, resid_rep, ops_rep, accs,
-                       hist, exovf):
+    def _sharded_chunk(self, shards, parts_rep, resid_rep, ops_rep, prm_rep,
+                       accs, hist, exovf):
         """One chunk's program over the shards (``shards``: each shard's
         buffers and live count, on its device): the K4 pass and the
         routing per shard, or the exchange, then the body of every
@@ -742,14 +824,14 @@ class StreamPipeline:
         if self.coll_chunk is None:
             with _X.collective_trace() as ct:
                 self._sharded_chunk_run(shards, parts_rep, resid_rep,
-                                        ops_rep, accs, hist, exovf)
+                                        ops_rep, prm_rep, accs, hist, exovf)
             self.coll_chunk = dict(ct.counts)
             return
-        self._sharded_chunk_run(shards, parts_rep, resid_rep, ops_rep, accs,
-                                hist, exovf)
+        self._sharded_chunk_run(shards, parts_rep, resid_rep, ops_rep,
+                                prm_rep, accs, hist, exovf)
 
     def _sharded_chunk_run(self, shards, parts_rep, resid_rep, ops_rep,
-                           accs, hist, exovf):
+                           prm_rep, accs, hist, exovf):
         S, P = self.n_shards, self.n_partitions
         devs = self.mesh.devices
         items = []
@@ -757,7 +839,8 @@ class StreamPipeline:
             bufs, valid = [], []
             for s, (flat, n_s) in enumerate(shards):
                 with E.device_scope(devs[s]):
-                    b, v = self._send_buffers(flat, n_s, hist[s], exovf[s])
+                    b, v = self._send_buffers(flat, n_s, hist[s], exovf[s],
+                                              prm_rep[s])
                 bufs.append(b)
                 valid.append(v)
             got, vgot = _X.all_to_all_exchange(bufs, valid, self.mesh)
@@ -775,7 +858,7 @@ class StreamPipeline:
                 live = h = pids = None
                 with E.device_scope(devs[s]):
                     if self.scan_spec is not None:
-                        live, h = self._scan(flat, n_s)
+                        live, h = self._scan(flat, n_s, prm_rep[s])
                     if P > 1:
                         pids = self._route(h, flat, n_s, hist[s])
                 items.append((flat, n_s, live, pids))
@@ -784,15 +867,18 @@ class StreamPipeline:
                 for p in range(P):
                     self._body(flat, n_s, parts_rep[s], accs[s * P + p],
                                resid_rep[s], live, pids,
-                               p if P > 1 else None, operands=ops_rep[s])
+                               p if P > 1 else None, operands=ops_rep[s],
+                               params=prm_rep[s])
 
-    def _finish_sharded(self, accs, hist, exovf, n_chunks):
+    def _finish_sharded(self, accs, hist, exovf, n_chunks, stale=None):
         """THE one cross-shard reduce and the one materializing read of a
         sharded drive: an all-gather of every (shard, partition) count, a
         psum of the overflow flags, of the histogram and of each
         outer-build bitmap (a build row matched by any shard of any
         partition is matched). Returns ``(counts[s][p], overflowed,
-        hist, outer extras, collectives, ici bytes)``."""
+        hist, outer extras, collectives, ici bytes, parts differ)``;
+        ``stale`` is the parts comparison's device flag of a
+        content-checked hit (it rides the read)."""
         S, P = self.n_shards, self.n_partitions
         mesh = self.mesh
         with _X.collective_trace() as ct:
@@ -819,7 +905,10 @@ class StreamPipeline:
 
         def fetch():
             return torch.cat([counts, ovf.to(I64), hist_tot]
-                             + [n for (_m, n) in miss]).cpu().tolist()
+                             + [n for (_m, n) in miss]
+                             + ([] if stale is None else
+                                [stale.to(counts.device, I64).reshape(1)])
+                             ).cpu().tolist()
 
         with _obs.span("stream.materialize", chunks=n_chunks,
                        partitions=P, shards=S):
@@ -827,13 +916,14 @@ class StreamPipeline:
         per = [[int(got[s * P + p]) for p in range(P)] for s in range(S)]
         k = S * P
         coll = self.coll_chunk
+        e = k + 2 * P + len(miss)
         return (per, any(got[k:k + P]), [int(x) for x in got[k + P:k + 2 * P]],
                 [(slot, m, int(n)) for slot, (m, _d), n
-                 in zip(self.build_slots, miss, got[k + 2 * P:])],
+                 in zip(self.build_slots, miss, got[k + 2 * P:e])],
                 _X.collective_ops(coll) * n_chunks
                 + _X.collective_ops(ct.counts),
                 (coll["bytes"] if coll else 0) * n_chunks
-                + ct.counts["bytes"])
+                + ct.counts["bytes"], bool(sum(got[e:])))
 
     def _slice_acc_sharded(self, accs, counts) -> DeviceTable:
         """The survivors of one partition's shard accumulators, shard by
@@ -968,17 +1058,18 @@ class StreamPipeline:
         if S > 1:
             self._sharded_chunk(self._shard_views(st.slots, st.n_dev),
                                 [parts_flat] * S, [st.resid] * S,
-                                [self.operands] * S, st.accs, st.hist,
-                                st.exovf)
+                                [self.operands] * S, [st.params] * S,
+                                st.accs, st.hist, st.exovf)
             return
         live = h = pids = None
         if self.scan_spec is not None:
-            live, h = self._scan(st.slots, st.n_dev)
+            live, h = self._scan(st.slots, st.n_dev, st.params)
         if P > 1:
             pids = self._route(h, st.slots, st.n_dev, st.hist[0])
         for p in range(P):
             self._body(st.slots, st.n_dev, parts_flat, st.accs[p],
-                       st.resid, live, pids, p if P > 1 else None)
+                       st.resid, live, pids, p if P > 1 else None,
+                       params=st.params)
 
     def _step(self, st: _Static, flat, n_dev, parts_flat):
         """One chunk of the compiled drive: the chunk copied into the
@@ -1065,7 +1156,8 @@ class StreamPipeline:
             _POOL_FREE = 0
             _enforce_budget(self)
 
-    def _claim(self, first: DeviceTable, resid_flat) -> _Static | None:
+    def _claim(self, first: DeviceTable, resid_flat,
+               parts_flat=()) -> _Static | None:
         """This pipeline's static operands, allocated at the first call
         and locked for one execution; None while another execution holds
         them. Other pipelines' operands and graphs go, oldest first, while
@@ -1084,7 +1176,9 @@ class StreamPipeline:
                     [torch.zeros(P, dtype=I64, device=dev)
                      for _ in range(S)],
                     [torch.zeros((), dtype=torch.bool, device=dev)
-                     for _ in range(S)])
+                     for _ in range(S)],
+                    _Params(self, dev) if self.param_nodes else None,
+                    parts_flat)
             _STATIC.pop(id(self), None)
             _STATIC[id(self)] = self
             _enforce_budget(self)
@@ -1104,8 +1198,9 @@ class StreamPipeline:
                       resid_flat):
         """The compiled drive: the first chunk captures the graph where
         none is (its warm-up executes that chunk), every other chunk
-        replays it. Returns ``(accs, hist, exovf, chunks, h2d, stall_ms,
-        captured)``."""
+        replays it (the caller has written this execution's bound
+        literals into ``st.params``). Returns ``(accs, hist, exovf,
+        chunks, h2d, stall_ms, captured)``."""
         dev = st.n_dev.device
         for a in st.accs:                # reset by kernels
             for b in a.buffers():
@@ -1152,13 +1247,23 @@ class StreamPipeline:
         return (st.accs, st.hist, st.exovf, n_chunks, h2d, stall_ms,
                 capture)
 
-    def _drive_eager(self, host_iter, first, parts_flat, resid_flat):
+    def _drive_eager(self, host_iter, first, parts_flat, resid_flat,
+                     phost=None):
         """The eager drive: the program run from Python on each chunk as
         the ring hands it over, into fresh accumulators (sharded: one per
-        shard and partition, each on its shard's device)."""
+        shard and partition, each on its shard's device), with this
+        execution's own bound literals (``phost``) on every device."""
         dev = first[next(iter(first.columns))].data.device
         S, P = self.n_shards, self.n_partitions
         devs = self.mesh.devices if S > 1 else (dev,)
+        prms = {}
+        if self.param_nodes:
+            for d in devs:
+                if d not in prms:
+                    with E.device_scope(d):
+                        prms[d] = _Params(self, d)
+                        prms[d].write(phost)
+        prm_rep = [prms.get(d) for d in devs]
         accs = [self.init_acc(d) for d in devs for _ in range(P)]
         hist = [torch.zeros(P, dtype=I64, device=d) for d in devs]
         exovf = [torch.zeros((), dtype=torch.bool, device=d) for d in devs]
@@ -1167,6 +1272,7 @@ class StreamPipeline:
             reps = self._replicas(parts_flat, resid_flat) if distinct \
                 else ([parts_flat] * S, [resid_flat] * S,
                       [self.operands] * S)
+            reps = (*reps, prm_rep)
         ring = self._ring(host_iter, dev)
         n_chunks = 0
         h2d = 0
@@ -1194,7 +1300,7 @@ class StreamPipeline:
                     flat, n_dev, nb = cur
                     h2d += nb
                     self._eager_chunk(flat, n_dev, parts_flat, resid_flat,
-                                      accs, hist[0], n_chunks)
+                                      accs, hist[0], n_chunks, prm_rep[0])
                 n_chunks += 1
                 # stall span: driver time BLOCKED on the ring for the next
                 # chunk; the end-of-stream probe drops its span
@@ -1208,13 +1314,13 @@ class StreamPipeline:
         return accs, hist, exovf, n_chunks, h2d, stall_ms
 
     def _eager_chunk(self, flat, n_dev, parts_flat, resid_flat, accs, hist,
-                     n_chunks):
+                     n_chunks, params=None):
         """One chunk of the unsharded eager drive, span by span."""
         P = self.n_partitions
         live = h = pids = None
         if self.scan_spec is not None:
             with _obs.span("stream.kernel", chunk=n_chunks):
-                live, h = self._scan(flat, n_dev)
+                live, h = self._scan(flat, n_dev, params)
         if P > 1:
             with _obs.span("stream.partition", chunk=n_chunks,
                            partitions=P):
@@ -1222,10 +1328,28 @@ class StreamPipeline:
         for p in range(P):
             with _obs.span("stream.drive", chunk=n_chunks, part=p):
                 self._body(flat, n_dev, parts_flat, accs[p], resid_flat,
-                           live, pids, p if P > 1 else None)
+                           live, pids, p if P > 1 else None, params=params)
+
+    def param_host(self, values):
+        """One execution's bound literals on the host: ``(slot words,
+        bound K4 entries or None, their entry-region words)`` from the
+        literal ``values`` of its own statement (slot order). Packing
+        reads nothing from the device."""
+        from nds_tpu_torch.analysis.param_audit import slot_param_value
+        words = []
+        for v, tag in zip(values, self.param_tags):
+            pv = slot_param_value(v, tag)
+            words.append(_K._f64_bits(pv) if tag == "f64"
+                         else _K._clamp_i64(pv))
+        spec = self.scan_spec
+        entries = ewords = None
+        if spec is not None and spec.binds:
+            entries = _K.bind_scan_entries(spec, values)
+            ewords = _K.bind_scan_words(spec, entries)
+        return words, entries, ewords
 
     def run(self, host_iter, first, parts_flat, resid_flat=(),
-            graph=True):
+            graph=True, values=(), check_parts=False):
         """Drive every chunk through the per-chunk program; returns
         ``(survivor DeviceTable | None on overflow, n_chunks, evidence)``.
         ``host_iter`` continues AFTER ``first`` (already on the device).
@@ -1235,9 +1359,29 @@ class StreamPipeline:
         counts of a partitioned run, the shard counts, collectives and
         their bytes of a sharded one, the outer-extras masks/counts,
         upload bytes, prefetch stall, kernel launches and how the graph
-        served (``graph``)."""
+        served (``graph``). ``values``: this execution's literal values of
+        the bound slots (never kept: each call writes its own).
+        ``check_parts``: ``parts_flat`` are not the buffers the pipeline was
+        built on, only of their specs; the program runs on the held ones
+        (``_Static.parts``) and the two are compared on the device, the
+        verdict riding the one materializing read: when they differ the
+        result is dropped and ``evidence["stale_parts"]`` set (also when
+        nothing is held to compare with)."""
         S, P = self.n_shards, self.n_partitions
+        stale = None
+        if check_parts:
+            with _STATIC_LOCK:
+                held = None if self._static is None else self._static.parts
+            if not held:
+                return None, 0, {"stale_parts": True}
+            stale = _parts_differ(parts_flat, held)
+            parts_flat = held
         launches0 = dict(_K.LAUNCHES)
+        phost, param_ms = None, -1.0
+        if self.param_nodes:
+            t0 = time.perf_counter()
+            phost = self.param_host(values)
+            param_ms = (time.perf_counter() - t0) * 1e3
         dev = first[next(iter(first.columns))].data.device
         st = None
         if not graph:
@@ -1248,9 +1392,13 @@ class StreamPipeline:
         elif self.refused is not None:
             status = f"refused: {self.refused}"
         else:
-            st = self._claim(first, resid_flat)
+            st = self._claim(first, resid_flat, parts_flat)
             status = "busy: eager drive" if st is None else None
         try:
+            if st is not None and st.params is not None:
+                t0 = time.perf_counter()
+                st.params.write(phost)
+                param_ms += (time.perf_counter() - t0) * 1e3
             if st is not None:
                 try:
                     accs, hist, exovf, n_chunks, h2d, stall_ms, captured = \
@@ -1271,9 +1419,10 @@ class StreamPipeline:
             if st is None:
                 accs, hist, exovf, n_chunks, h2d, stall_ms = \
                     self._drive_eager(host_iter, first, parts_flat,
-                                      resid_flat)
+                                      resid_flat, phost)
             evidence = {
                 "h2d": h2d, "stall_ms": stall_ms, "graph": status,
+                "param_ms": param_ms,
                 "scan_launches": _K.LAUNCHES["chunk_scan"]
                 - launches0["chunk_scan"],
                 "probe_launches": _K.LAUNCHES["join_probe"]
@@ -1281,8 +1430,11 @@ class StreamPipeline:
                 "kernel_stages": self.scan_spec.stages()
                 if self.scan_spec is not None else 0}
             if S > 1:
-                per, overflowed, hist_host, outer, coll, ici = \
-                    self._finish_sharded(accs, hist, exovf, n_chunks)
+                per, overflowed, hist_host, outer, coll, ici, differ = \
+                    self._finish_sharded(accs, hist, exovf, n_chunks, stale)
+                if differ:
+                    evidence["stale_parts"] = True
+                    return None, n_chunks, evidence
                 evidence.update(
                     outer=outer, shards=S, collectives=coll, bytes_ici=ici,
                     shard_rows=tuple(sum(c) for c in per),
@@ -1318,17 +1470,22 @@ class StreamPipeline:
                 got = torch.stack(
                     [a.n for a in accs] + [a.ovf.to(I64) for a in accs]
                     + list(hist[0]) + [n for (_m, n) in miss]
+                    + ([] if stale is None else [stale.to(I64)])
                 ).cpu().tolist()
+                k = 3 * P + len(miss)
                 return ([int(x) for x in got[:P]],
                         [bool(x) for x in got[P:2 * P]],
                         [int(x) for x in got[2 * P:3 * P]],
-                        [int(x) for x in got[3 * P:]])
+                        [int(x) for x in got[3 * P:k]], bool(sum(got[k:])))
 
             # THE one materializing read of the pipeline
             with _obs.span("stream.materialize", chunks=n_chunks,
                            partitions=P):
-                totals, overflowed, hist_host, extras_n = E.timed_read(
-                    "stream_final", fetch)
+                totals, overflowed, hist_host, extras_n, differ = \
+                    E.timed_read("stream_final", fetch)
+            if differ:
+                evidence["stale_parts"] = True
+                return None, n_chunks, evidence
             evidence["outer"] = [(slot, m, n) for (slot, (m, _nd), n)
                                  in zip(self.build_slots, miss, extras_n)]
             if P > 1:
@@ -1380,16 +1537,71 @@ def _dicts_equal(a, b) -> bool:
     return a is b or np.array_equal(a, b)
 
 
+def _param_bind_active() -> bool:
+    """Parameter binding is on unless ``NDS_TPU_PARAM_BIND=0``. Unlike the
+    reference, whose Pallas scan specs bake their thresholds on the host,
+    the port binds under its K4 pass too: a bound value is written into
+    the spec's entry words before each execution."""
+    return os.environ.get("NDS_TPU_PARAM_BIND", "1") != "0"
+
+
+def _param_slots(planner, parts, keep, where_conjuncts, chunk_spec):
+    """The audited-bindable slots of this statement's WHERE conjuncts:
+    ``((conjunct index, field path, typetag, Literal node), ...)`` in walk
+    order. Ownership is ``_build_pipeline``'s ``owned()`` test (the
+    planner's ``_expr_tables`` owners == {keep}); the rule itself is
+    ``analysis/param_audit.conjunct_bind_slots``, the one the static
+    auditor proves corpus-wide."""
+    from nds_tpu_torch.analysis.param_audit import (conjunct_bind_slots,
+                                                    drift_active)
+    names_keep = {nm for (nm, _k, _dv, _en) in chunk_spec}
+    sub_cols = [names_keep if i == keep else set(p.column_names)
+                for i, p in enumerate(parts)]
+    all_cols = set().union(*sub_cols)
+    drift = drift_active()
+    slots = []
+    for ci, c in enumerate(where_conjuncts):
+        has_sub = planner._has_subquery(c)
+        owned = False
+        if not has_sub:
+            tabs = planner._expr_tables(c, all_cols)
+            owners = set()
+            for p_i, pc in enumerate(sub_cols):
+                for t in tabs:
+                    if any(cc.startswith(t + ".") for cc in pc):
+                        owners.add(p_i)
+            owned = owners == {keep}
+        for (path, node, tag) in conjunct_bind_slots(
+                c, owned, has_sub, drift=drift):
+            slots.append((ci, path, tag, node))
+    return tuple(slots)
+
+
 def _cache_key(alias, keep, join_preds, where_conjuncts, sources,
-               part_infos, chunk_spec, chunk_cap, stream_rows, outer_meta):
+               part_infos, chunk_spec, chunk_cap, stream_rows, outer_meta,
+               bind_slots=()):
     from nds_tpu_torch.analysis.mem_audit import (forced_partitions,
                                                   stream_shards,
                                                   stream_skew_factor)
+    from nds_tpu_torch.analysis.param_audit import skeleton_conjunct_key
     from nds_tpu_torch.engine.column import enc_key
     from nds_tpu_torch.sql.parser import expr_key
+    # a bound conjunct keys on its template skeleton (slot values become
+    # typed placeholders): K parameter vectors of a template share one
+    # entry. The slot signature rides alongside, so two statements share
+    # an entry only when their slots line up (count, position, type).
+    by_conj = {}
+    for (ci, path, tag, node) in bind_slots:
+        by_conj.setdefault(ci, []).append((path, node, tag))
     return (
         tuple(expr_key(c) for c in join_preds),
-        tuple(expr_key(c) for c in where_conjuncts),
+        tuple(skeleton_conjunct_key(c, by_conj[i]) if i in by_conj
+              else expr_key(c) for i, c in enumerate(where_conjuncts)),
+        tuple((ci, path, tag) for (ci, path, tag, _n) in bind_slots),
+        # bind and drift modes are read at key time: a pipeline built
+        # under one never serves the other
+        os.environ.get("NDS_TPU_PARAM_BIND", "1"),
+        os.environ.get("NDS_TPU_PARAM_DRIFT"),
         keep, tuple(sources), alias.lower(), chunk_cap,
         tuple((n, k, enc_key(en)) for (n, k, _dv, en) in chunk_spec),
         tuple(((tuple((cn, ck, hv, enc_key(en))
@@ -1447,26 +1659,58 @@ def _replan_residuals(planner, pipe):
     return infos
 
 
+def _parts_differ(now, held):
+    """0-d device flag: does any buffer of ``now`` (this execution's parts,
+    flattened) differ from its counterpart in ``held`` (the parts the
+    pipeline was driven with; equal specs)? Floats compare as bits. No
+    host read: the flag rides the pipeline's materializing read."""
+    flag = None
+    for a_part, b_part in zip(now, held):
+        for a, b in zip(a_part, b_part):
+            if a is b:
+                continue
+            if a.dtype == torch.float64:
+                a, b = a.view(I64), b.view(I64)
+            elif a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            d = (a != b).any()
+            flag = d if flag is None else flag | d
+    if flag is None:
+        dev = next((x.device for p in held for x in p), E.device())
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+    return flag
+
+
 def _cache_hit(key, chunk_spec, part_infos):
+    """``(pipeline, check_parts)`` of a key, or ``(None, False)``. A hit
+    needs the chunk dictionaries and encodings equal in content (a
+    re-registered streamed table re-encodes) and the part buffers the
+    pipeline was built on (the recorded dimension-side host reads hold
+    for their content alone): the same buffers, or, when the pipeline
+    still holds its first drive's parts (``_Static.parts``), buffers of
+    the same specs, whose content ``run`` then holds against them on the
+    device (``check_parts``). Anything else evicts the entry."""
     pipe = _PIPELINE_CACHE.get(key)
     if pipe is None:
-        return None
-    # identity-validate part buffers (the recorded dimension-side host
-    # reads would be stale for others) and content-validate the chunk
-    # dictionaries and encodings
+        return None, False
     from nds_tpu_torch.engine.column import encs_equal
+    chunk_same = all(
+        _dicts_equal(dv_now, dv_then) and encs_equal(en_now, en_then)
+        for (_, _, dv_now, en_now), (_, _, dv_then, en_then)
+        in zip(chunk_spec, pipe.chunk_spec))
     flat_now = [x for (_spec, flat) in part_infos for x in flat]
     then = [r() for r in pipe.part_refs]
-    stale = len(flat_now) != len(then) or \
-        any(b is None or a is not b for a, b in zip(flat_now, then)) or \
-        any(not _dicts_equal(dv_now, dv_then)
-            or not encs_equal(en_now, en_then)
-            for (_, _, dv_now, en_now), (_, _, dv_then, en_then)
-            in zip(chunk_spec, pipe.chunk_spec))
-    if stale:
-        _evict(key)
-        return None
-    return pipe
+    if chunk_same and len(flat_now) == len(then) and \
+            all(b is not None and a is b for a, b in zip(flat_now, then)):
+        return pipe, False
+    st = pipe._static
+    if chunk_same and st is not None and st.parts and \
+            len(part_infos) == len(pipe.part_specs) and \
+            all(_spec_match(spec, want) for (spec, _f), want
+                in zip(part_infos, pipe.part_specs)):
+        return pipe, True
+    _evict(key)
+    return None, False
 
 
 def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
@@ -1521,16 +1765,18 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
     chunk_cap = chunked.chunk_cap
     n_chunks = chunked.num_chunks()
 
+    bind_slots = _param_slots(planner, parts, keep, where_conjuncts,
+                              chunk_spec) if _param_bind_active() else ()
     key = _cache_key(alias, keep, join_preds, where_conjuncts,
                      masked_sources, part_infos, chunk_spec, chunk_cap,
-                     chunked.nrows, outer_meta)
-    pipe = _cache_hit(key, chunk_spec, part_infos)
+                     chunked.nrows, outer_meta, bind_slots)
+    pipe, check_parts = _cache_hit(key, chunk_spec, part_infos)
     resid_infos = ()
     if pipe is not None and pipe.residuals:
         resid_infos = _replan_residuals(planner, pipe)
         if resid_infos is None:
             _evict(key)
-            pipe, resid_infos = None, ()
+            pipe, resid_infos, check_parts = None, (), False
     parts_flat = tuple(tuple(flat) for (_spec, flat) in part_infos)
     _obs.annotate(pipelineCache="hit" if pipe is not None else "miss")
     _metrics.default().inc(_metrics.PIPE_HIT if pipe is not None
@@ -1541,7 +1787,7 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
             pipe, resid_infos = _build_pipeline(
                 planner, parts, keep, alias, join_preds, where_conjuncts,
                 masked_sources, part_infos, outer_meta, first, chunk_spec,
-                chunk_cap, n_chunks)
+                chunk_cap, n_chunks, bind_slots)
         except _F.FaultInjected as exc:
             # the pipeline-compile seam's recovery: compiled -> eager
             _F.record_fault_event(exc.seam, "degrade",
@@ -1563,8 +1809,12 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
     resid_flat = tuple(tuple(flat) for (_spec, flat) in resid_infos)
     snapshot, checks_snapshot = _snapshot()
     try:
-        out, ran, evidence = pipe.run(host_iter, first, parts_flat,
-                                      resid_flat, graph=E.stream_graph())
+        # THIS statement's literal values for the pipe's bound slots (a hit
+        # agrees on the slots' count, order and types by its key)
+        out, ran, evidence = pipe.run(
+            host_iter, first, parts_flat, resid_flat, graph=E.stream_graph(),
+            values=tuple(nd.value for (_ci, _p, _t, nd) in bind_slots),
+            check_parts=check_parts)
     except (E.ReplayMismatch, E.StreamSyncError) as exc:
         # the replay diverged from the recording: unstreamable after all.
         # Anything else (an engine bug, a kernel refusing its launch)
@@ -1587,6 +1837,14 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
         return None, f"fault: {exc.seam} (degraded to eager)"
     finally:
         _restore_counts(snapshot, checks_snapshot)
+    if evidence.get("stale_parts"):
+        # the parts are other buffers of other content than the pipeline
+        # was built on: its recorded reads do not hold, so it goes, and
+        # the statement reruns eagerly
+        _evict(key)
+        log.info("streamed pipeline's parts changed; re-running %s "
+                 "eagerly", alias)
+        return None, "parts changed since the pipeline was built"
     if out is None:
         # device-side overflow: rows were dropped, rerun eagerly. Keep the
         # pipeline — other statements over smaller data may fit.
@@ -1620,7 +1878,10 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
                         shards=evidence.get("shards", 1),
                         shard_rows=evidence.get("shard_rows", ()),
                         collectives=evidence.get("collectives", -1),
-                        bytes_ici=evidence.get("bytes_ici", -1))
+                        bytes_ici=evidence.get("bytes_ici", -1),
+                        param_k4=pipe.param_k4,
+                        param_graph=pipe.param_graph,
+                        param_ms=evidence["param_ms"])
     _obs.annotate(path="compiled", chunks=ran, graph=evidence["graph"][:300],
                   prefetchStallMs=evidence["stall_ms"],
                   partitions=evidence.get("partitions", 1),
@@ -1637,11 +1898,15 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
 
 def _build_pipeline(planner, parts, keep, alias, join_preds,
                     where_conjuncts, masked_sources, part_infos,
-                    outer_meta, first, chunk_spec, chunk_cap, n_chunks):
+                    outer_meta, first, chunk_spec, chunk_cap, n_chunks,
+                    bind_slots=()):
     """RECORD the per-chunk join graph on the first padded chunk; ``(None,
     None)`` when not streamable. Returns ``(pipe, resid_infos)`` — the
     flattened subquery residuals the record phase pre-planned, which are
-    THIS execution's residual operands."""
+    THIS execution's residual operands. ``bind_slots``
+    (:func:`_param_slots`) lower into the K4 spec's bound fields or stay
+    in the graph as bound scalars; the record itself bakes this
+    execution's values, which no recorded host read depends on."""
     from nds_tpu_torch.engine.replay import _lift_log
     from nds_tpu_torch.sql.planner import _OuterBuild, _OuterProbe
     # the pipeline-compile seam: stream_execute degrades a fault here to
@@ -1706,8 +1971,9 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
                         owners.add(p_i)
             return owners == {keep}
 
-        scan_spec, where_kept = lower_scan_spec(where_conjuncts, cols_meta,
-                                                owned)
+        scan_spec, where_kept = lower_scan_spec(
+            where_conjuncts, cols_meta, owned,
+            {id(nd): k for k, (_ci, _p, _t, nd) in enumerate(bind_slots)})
     # save/restore: a subquery residual planned DURING this record may
     # itself stream through a nested pipeline build on the same planner
     prev_touched = planner._residuals_touched
@@ -1817,11 +2083,19 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
         scan_spec = _K.ScanSpec(scan_spec.entries, scan_spec.cols,
                                 tables=scan_spec.tables,
                                 key_slots=tuple(key_slots),
-                                n_conjuncts=scan_spec.n_conjuncts)
+                                n_conjuncts=scan_spec.n_conjuncts,
+                                binds=scan_spec.binds)
     _obs.annotate(accRows=acc_cap, partitions=n_parts, shards=n_shards,
                   provedRows=proved if proved is not None else "unproven",
                   residuals=len(residuals), outerBuilds=len(build_slots))
     lifted, operands = _lift_log(list(rec_log), E.device())
+    # bound slots by where they reach the program: the K4 spec's words,
+    # or a graph scalar (a slot whose conjunct stayed in the graph)
+    in_graph = {id(c) for c in where_kept}
+    param_k4 = len({k for (_i, _f, k, _m) in scan_spec.binds}) \
+        if scan_spec is not None else 0
+    param_graph = sum(1 for (ci, _p, _t, _nd) in bind_slots
+                      if id(where_conjuncts[ci]) in in_graph)
     pipe = StreamPipeline(
         chunk_spec, chunk_cap,
         tuple(spec for (spec, _flat) in part_infos), keep, lifted,
@@ -1833,5 +2107,8 @@ def _build_pipeline(planner, parts, keep, alias, join_preds,
         resid_specs=tuple(spec for (spec, _flat) in resid_infos),
         build_slots=build_slots, name_catalog=name_cat,
         scan_spec=scan_spec, n_shards=n_shards, mesh=mesh,
-        exchange=exchange, cap_ex=cap_ex)
+        exchange=exchange, cap_ex=cap_ex,
+        param_nodes=tuple(nd for (_ci, _p, _t, nd) in bind_slots),
+        param_tags=tuple(t for (_ci, _p, t, _nd) in bind_slots),
+        param_k4=param_k4, param_graph=param_graph)
     return pipe, resid_infos

@@ -129,6 +129,10 @@ class StreamEvent:
     collectives: int = -1      # all-to-all/psum/all-gather calls of the
     #                            sharded drive (-1 = unsharded or eager)
     bytes_ici: int = -1        # bytes one shard sent through them
+    param_k4: int = 0          # parameter slots bound in the K4 spec words
+    param_graph: int = 0       # parameter slots bound as graph scalars
+    param_ms: float = -1.0     # host ms writing this execution's values
+    #                            (-1 = nothing bound)
 
 
 _stream_tls = threading.local()
@@ -143,7 +147,9 @@ def record_stream_event(where: str, chunks: int, syncs: int, path: str,
                         prefetch_stall_ms: float = -1.0,
                         graph: str = "", shards: int = 1, shard_rows=(),
                         collectives: int = -1,
-                        bytes_ici: int = -1) -> None:
+                        bytes_ici: int = -1, param_k4: int = 0,
+                        param_graph: int = 0,
+                        param_ms: float = -1.0) -> None:
     """Engine-side hook (engine/stream.py, sql/planner.py): record how a
     streamed scan executed. Thread-scoped like the sync counters."""
     lst = getattr(_stream_tls, "events", None)
@@ -154,7 +160,7 @@ def record_stream_event(where: str, chunks: int, syncs: int, path: str,
                            scan_launches, probe_launches,
                            kernel_fused_stages, prefetch_stall_ms, graph,
                            shards, tuple(shard_rows), collectives,
-                           bytes_ici))
+                           bytes_ici, param_k4, param_graph, param_ms))
 
 
 def drain_stream_events() -> list:

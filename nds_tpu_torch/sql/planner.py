@@ -1996,6 +1996,11 @@ class Planner:
                 return hit
 
         if isinstance(e, A.Literal):
+            # audited-bindable slots read the pipeline's device scalars
+            # (one build, many parameter vectors); everything else bakes
+            bound = X.bound_literal(e, n)
+            if bound is not None:
+                return bound
             return X.literal(e.value, n)
         if isinstance(e, A.DateLiteral):
             days = X.parse_date_literal(e.text)

@@ -1620,11 +1620,11 @@ def test_raw_wire_stream_on_cuda_equals_cpu(cuda, monkeypatch):
     lanes = []
     real = K.chunk_scan
 
-    def scan(flat, n_dev, spec):
+    def scan(flat, n_dev, spec, bound=None):
         if flat[spec.cols[0][0]].device.type == "cuda" and \
                 not torch.cuda.is_current_stream_capturing():
             lanes.extend((flat[c[0]].dtype, c[2]) for c in spec.cols)
-        return real(flat, n_dev, spec)
+        return real(flat, n_dev, spec, bound)
 
     monkeypatch.setattr(K, "chunk_scan", scan)
     want = _stream_session(device="cpu").sql(STREAM_QS[1]).collect()
@@ -1679,3 +1679,75 @@ def test_validate_cuda_against_cpu_outputs(cuda, tmp_path):
         with open(fn) as f:
             statuses.append(json.load(f)["queryValidationStatus"])
     assert statuses == [["Pass"]] * 4
+
+
+# ------------------------------------------------- parameterized plans
+
+
+@pytest.mark.gpu
+def test_param_bound_pipeline_captures_once_and_replays(cuda):
+    """K=4 parameter vectors of each bindable harness template: one
+    pipeline, one capture and 3 replays, the rows those of a fresh
+    recording of each vector (``NDS_TPU_PARAM_BIND=0``)."""
+    from nds_tpu_torch.tools import param_audit_diff as D
+    tables = D.toy_tables(np.random.default_rng(20260117))
+    fresh = D.fresh_recording(tables, "cuda")
+    arm = D.run_bind_arm("base", {}, False, tables, "cuda")
+    for t in D.TEMPLATES:
+        got = arm["templates"][t["name"]]
+        assert got["rows"] == fresh[t["name"]], t["name"]
+        if t["bindable"]:
+            assert got["graphs"] == ["captured"] + ["replayed"] * 3
+            assert (got["n_keys"], got["misses"], got["hits"]) == (1, 1, 3)
+        else:
+            assert got["graphs"] == ["captured"] * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["c > {}", "c = {}",
+                                   "c between {} and {}",
+                                   "c not between {} and {}"])
+def test_k4_bound_words_match_plain(cuda, shape):
+    """K4 over one execution's bound words against its plain version over
+    the same bound entries, on a FOR-encoded decimal column."""
+    from nds_tpu_torch.analysis.param_audit import conjunct_bind_slots
+    from nds_tpu_torch.engine import exprs as X
+    from nds_tpu_torch.engine.column import Encoding
+    from nds_tpu_torch.sql import parser as PP
+    rng = np.random.default_rng(7)
+    n = 40_000
+    codes = rng.integers(0, 30_000, n).astype(np.int32)
+    valid = rng.random(n) > 0.05
+    meta = {"name": "l.c", "kind": "dec(7,2)", "enc": Encoding("for", -9000),
+            "dict_values": None, "data_slot": 0, "valid_slot": 1}
+
+    def conj(vals):
+        return PP.parse("select 1 from l where "
+                        + shape.format(*vals)).body.where
+    vectors = [("12.34", "99.99"), ("0.00", "0.00"), ("150.05", "3.00"),
+               ("46116860184273879.00", "1.00")]
+    k = shape.count("{}")
+    build = conj(vectors[0][:k])
+    slots = conjunct_bind_slots(build, True, False)
+    spec, kept = X.lower_scan_spec(
+        [build], [meta], lambda c: True,
+        {id(nd): i for i, (_p, nd, _t) in enumerate(slots)})
+    assert kept == [] and spec.binds
+    words0, lay = K.packed_scan_spec(spec)
+    flat_cpu = (_t(codes), _t(valid))
+    flat = tuple(x.to(cuda) for x in flat_cpu)
+    n_live = n - 17
+    for vals in vectors:
+        values = [nd.value for (_p, nd, _t)
+                  in conjunct_bind_slots(conj(vals[:k]), True, False)]
+        entries = K.bind_scan_entries(spec, values)
+        full = words0.copy()
+        full[:lay.off_cols] = K.bind_scan_words(spec, entries)
+        words = torch.as_tensor(full).to(cuda)
+        l0 = K.LAUNCHES["chunk_scan"]
+        m, _h = K.chunk_scan(flat, torch.tensor(n_live, device=cuda), spec,
+                             K.ScanBinding(entries, words))
+        assert K.LAUNCHES["chunk_scan"] == l0 + 1
+        want, _ = K.chunk_scan_plain(flat_cpu, torch.tensor(n_live), spec,
+                                     entries)
+        assert torch.equal(m.cpu(), want), vals
