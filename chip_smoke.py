@@ -6,8 +6,9 @@
 
 Phases (each prints one JSON line; any failure makes the exit code non-zero
 and suppresses the final ``ok`` line; ``--only`` runs the named ones of
-kernels, power, mesh, census, replay, param, stream, shard, agreement,
-validate, bench, campaign and full_bench after device, build and data, and
+kernels, perf, power, mesh, census, replay, param, stream, shard,
+agreement, validate, bench, campaign and full_bench after device, build and
+data, and
 ends without the ``ok`` line). ``--stream-scale 10 --stream-ci 13`` runs
 the stream phase as the reference's SF10 setting (tables above 1.5e9
 bytes) with the first 13 CI statements, the run that once took the card
@@ -48,6 +49,21 @@ out of memory:
                ``torch.searchsorted`` pair); a ``k4_sweep`` line times
                every plan of ``kernels.scan_plans`` on the same chunk,
                each checked bit for bit;
+   perf        the static analysis gate (``python -m
+               nds_tpu_torch.tools.lint --format json``, started in the
+               background before the build so that it runs beside the
+               build and the kernel phases): exit 0 against the baseline,
+               findings by pass, the passes not ported yet; then
+               ``tools.perf_audit_diff``'s arms on cuda (the 14 A/B
+               statements at 2 partitions, ab0/ab2/ab7 at 2 shards
+               sharing the card, ab0/ab2/ab7/ab11 on the raw wire; each
+               captured, replayed and through the eager drive): uploaded
+               and collective bytes against the static cost model's
+               closed forms, K4/K5 launches nonzero and inside its band,
+               each statement's static roofline ms at the H100 rates
+               beside its measured ms (``perf_arm`` lines, the diff in
+               ``perf_audit_diff.txt``), and the ``--inject-drift``
+               self-test on the same evidence, which must fail;
 4. data        builds ``native/ndsgen`` and writes SF0.01, SF1 and SF3
                raw data (parallel children) under ``.smoke_data/``, in
                the background while the earlier phases run, then SF3 and
@@ -87,8 +103,9 @@ out of memory:
                graph) and fails on a differing statement, a forced arm
                without an exchange join, an unreported retry or a
                statement whose tiers are not eager, record, replayed;
-   census      the first 13 of those statements (``CENSUS_QUERIES``,
-               for the smoke's time limit) again under ``torch.profiler``
+   census      the first 5 of those statements (``CENSUS_QUERIES``,
+               for the smoke's time limit: 13 until the perf phase came)
+               again under ``torch.profiler``
                (the Power Run's ``--profile``): every CUDA kernel they
                launch and its device time, with ``prim.true_div``'s
                divisors kept as the port keeps them (the arm with a fresh
@@ -224,9 +241,13 @@ out of memory:
                statement that has one changed by 1e-3 relative: exit 1,
                that statement alone unmatched and ``Fail``. The line gives
                the statements, rows, both runs' and the phase's seconds;
-8. bench       ``python -m nds_tpu_torch.bench`` (run A, a fresh process)
-               at SF1 over the statements of the first 50 templates (54,
-               ``BENCH_A_QUERIES``; all 103 until the param phase came)
+8. bench       ``python -m nds_tpu_torch.bench`` (run A, a fresh process,
+               its parquet cache seeded with the data phase's SF1 parquet,
+               hard-linked: the same ``bench.transcode`` of the same raw
+               data)
+               at SF1 over the statements of the first 25 templates (28,
+               ``BENCH_A_QUERIES``; the first 50 templates' 54 until the
+               perf phase came, all 103 until the param phase came)
                on the SF1 raw data of the data phase, its ledger beside
                the other
                results: it ends ``completed`` with every
@@ -362,13 +383,13 @@ STREAM_SCALE = 3
 STREAM_CHUNK_ROWS = 1 << 22
 STREAM_BYTES = 1.5e8 * STREAM_SCALE
 # the CI statements the stream phase runs through the Power Run entry
-# (``--stream-ci``: its first N): the first 13, as the census phase, for
-# the smoke's time limit once the param phase came (all 25 until then)
+# (``--stream-ci``: its first N): the first 13, for the smoke's time
+# limit once the param phase came (all 25 until then)
 STREAM_CI_DEFAULT = 13
 STREAM_CI = CI_QUERIES[:STREAM_CI_DEFAULT]
-# the census phase's statements: the first 13 CI statements, for the
-# smoke's time limit
-CENSUS_QUERIES = CI_QUERIES[:13]
+# the census phase's statements: the first 5 CI statements, for the
+# smoke's time limit (the first 13 until the perf phase came)
+CENSUS_QUERIES = CI_QUERIES[:5]
 # the A/B statements that join store_sales to store_returns on the item
 # alone. At SF10 about 28 returns match each sale, so their joins hold up
 # to 8e8 pairs (SF5 about half): more than the card holds, resident or
@@ -384,9 +405,10 @@ FANOUT_CHUNK_ROWS = 1 << 19
 FANOUT_STREAM_BYTES = 1.5e8
 # the bench phase: two runs of the port's bench entry at SF1, each held to
 # a round budget well inside the smoke's time limit. Run A takes the
-# statements of the first 50 templates (54; every statement of the stream,
-# 103, until the param phase came; the full_bench phase's Power and
-# Throughput steps still run all 103 on the card); run B, there for the
+# statements of the first 25 templates (28; the first 50 templates' 54
+# until the perf phase came, every statement of the stream, 103, until the
+# param phase came; the full_bench phase's Power and Throughput steps
+# still run all 103 on the card); run B, there for the
 # run-to-run spread and run as the campaign phase's ``resident`` arm,
 # takes the first 4 templates (4 statements), as do the campaign's other
 # arms: two whole runs made the smoke pass its time limit on a slow host
@@ -407,7 +429,7 @@ def _template_statements(n):
                          if i in from_split else (f"query{i}",))]
 
 
-BENCH_A_QUERIES = _template_statements(50)
+BENCH_A_QUERIES = _template_statements(25)
 BENCH_B_TEMPLATES = 4
 BENCH_B_QUERIES = _template_statements(BENCH_B_TEMPLATES)
 BENCH_STATEMENTS = {"a": len(BENCH_A_QUERIES)}
@@ -1041,63 +1063,10 @@ def stream_file(scale) -> str:
 # stream
 # ---------------------------------------------------------------------------
 
-# the 14 streamed A/B statements of tests/test_synccount.py
-# (_STREAM_AB_QUERIES; must_stream for every one), kept here so this script
-# needs nothing of the test suite
-STREAM_AB = [
-    """select d_year, i_brand_id, sum(ss_ext_sales_price) s
-       from store_sales, date_dim, item
-       where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
-         and d_moy = 11
-       group by d_year, i_brand_id order by d_year, s desc, i_brand_id""",
-    """select ss_item_sk, ss_ext_sales_price from store_sales
-       where ss_ext_sales_price > 9900 and ss_item_sk < 40
-       order by ss_item_sk, ss_ext_sales_price""",
-    """select ss_item_sk, count(*) c, sum(ss_ext_sales_price) s
-       from store_sales where ss_ext_sales_price > 5000
-       group by ss_item_sk order by ss_item_sk""",
-    """select count(*) c, sum(ss_ext_sales_price) s from store_sales
-       where ss_sold_date_sk in
-             (select d_date_sk from date_dim where d_moy = 11)""",
-    """select ss_item_sk, ss_ext_sales_price from store_sales
-       order by ss_item_sk, ss_ext_sales_price""",
-    """select count(*) c, sum(ss_ext_sales_price) s, min(ss_item_sk) m
-       from store_sales""",
-    """select ss_sold_date_sk, count(*) c from store_sales
-       group by ss_sold_date_sk order by ss_sold_date_sk""",
-    """select ss_item_sk, count(*) c, sum(sr_return_amt) r
-       from store_sales, store_returns
-       where ss_item_sk = sr_item_sk and ss_ext_sales_price > 5000
-       group by ss_item_sk order by ss_item_sk""",
-    """select i_brand_id, sum(sr_return_amt) r, count(*) c
-       from store_sales, store_returns, item
-       where ss_item_sk = sr_item_sk and ss_item_sk = i_item_sk
-         and sr_return_amt > 50
-       group by i_brand_id order by i_brand_id""",
-    """select ss_item_sk, count(*) c from store_sales
-       left join store_returns on ss_item_sk = sr_item_sk
-           and ss_ticket_number = sr_ticket_number
-       where sr_ticket_number is null
-       group by ss_item_sk order by ss_item_sk""",
-    """select sr_item_sk, sr_return_amt, ss_ext_sales_price
-       from store_returns
-       left join store_sales on sr_item_sk = ss_item_sk
-           and sr_ticket_number = ss_ticket_number
-       order by sr_item_sk, sr_return_amt, ss_ext_sales_price""",
-    """select ss_item_sk, count(*) c from store_sales
-       where ss_sold_date_sk in
-             (select d_date_sk from date_dim where d_moy = 11)
-         and ss_ext_sales_price >
-             (select avg(ss_ext_sales_price) from store_sales)
-       group by ss_item_sk order by ss_item_sk""",
-    """select count(*) c, sum(ss_ext_sales_price) s from store_sales
-       where ss_item_sk not in
-             (select i_item_sk from item where i_brand_id = 1001)""",
-    """select count(*) c from store_sales ss1 where exists (
-           select * from store_returns sr
-           where ss1.ss_item_sk = sr.sr_item_sk
-             and ss1.ss_ticket_number <> sr.sr_ticket_number)""",
-]
+# the 14 streamed A/B statements of tests/test_synccount.py (every one
+# must stream): ``nds_tpu_torch.tools.perf_audit_diff.AB_QUERIES``, set
+# by main() once the package imports
+STREAM_AB = ()
 # the fan-out subset (a store_returns equi edge on the streamed scan) that
 # runs again at a forced partition count of 2
 STREAM_AB_PARTITIONED = (7, 8, 9, 10)
@@ -2553,6 +2522,26 @@ def ratio_finding(a_path, b_path):
                  "passed": not violations, "violations": violations[:12]}}
 
 
+def seed_bench_cache(raw_dir) -> bool:
+    """The data phase's SF1 parquet (``bench.transcode`` of the same raw
+    data, for the stream and shard phases) as the bench entry's parquet
+    cache, hard-linked with the cache's marker, so run A does not
+    transcode SF1 again. False when that parquet was not written (a
+    partial run without the stream and shard phases)."""
+    src = os.path.join(DATA, f"sf{FANOUT_SCALE}_parquet")
+    dst = os.path.join(DATA, "bench_cache",
+                       f"sf{BENCH_SCALE}_torch_parquet")
+    if TRANSCODE.get("s") is None or BENCH_SCALE != FANOUT_SCALE or \
+            os.path.abspath(raw_dir) != os.path.join(DATA,
+                                                     f"sf{FANOUT_SCALE}"):
+        return False
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, copy_function=os.link)
+    with open(os.path.join(dst, ".complete"), "w") as f:
+        f.write(os.path.abspath(raw_dir))
+    return True
+
+
 def bench_phase(raw_dir):
     """Run A of the bench entry, its ledger loaded and gated against
     itself (run B's place is the campaign phase's ``resident`` arm).
@@ -2562,6 +2551,7 @@ def bench_phase(raw_dir):
     from nds_tpu_torch.obs.ledger import load_ledger
     from nds_tpu_torch.tools import bench_compare as BC
     t0 = time.time()
+    seeded = seed_bench_cache(raw_dir)
     runs = {"a": bench_run("a", raw_dir, BENCH_A_QUERIES)}
     problems = []
     geo, launches, counts, tiers = {}, {}, {}, {}
@@ -2613,7 +2603,8 @@ def bench_phase(raw_dir):
     line = {"phase": "bench", "ok": not problems, "scale": BENCH_SCALE,
             "statements": counts, "geomean_ms": geo,
             "self_gate_rc": self_rc, "drift_rejected": drift_ok,
-            "launches": launches, "replay": tiers, "problems": problems}
+            "launches": launches, "replay": tiers, "problems": problems,
+            "cache_seeded": seeded}
     seconds = {"phase": "bench_time", "s": round(time.time() - t0, 3),
                "nvidia_smi": smi_line()}
     return not problems, line, seconds
@@ -3514,6 +3505,24 @@ def campaign_phase(sf1, baseline):
                   if ln.startswith("# encoded-vs-raw wire delta")), None)
     if not all(rows.values()) or delta is None:
         problems.append(f"report: rows {rows}, encoded/raw delta {delta}")
+
+    def static_cells(lines, names):
+        """The last two cells (static-roofline %, unexplained ms) of the
+        table rows whose first cell ``names`` accepts, as numbers (a cell
+        that is none is kept as text); a later row of a name wins."""
+        out = {}
+        for ln in lines:
+            cells = [c.strip() for c in ln.strip().strip("|").split("|")]
+            if ln.startswith("| ") and names(cells[0]) and len(cells) >= 3:
+                try:
+                    out[cells[0]] = [float(c) for c in cells[-2:]]
+                except ValueError:
+                    out[cells[0]] = cells[-2:]
+        return out
+    arm_static = static_cells(report, rows.__contains__)
+    if len(arm_static) != len(rows) or not all(
+            isinstance(v[0], float) for v in arm_static.values()):
+        problems.append(f"report: static columns {arm_static}")
     gates = {}
     for block in rep.stdout.split("## gate: ")[1:]:
         gates[block.split()[0]] = {
@@ -3581,14 +3590,21 @@ def campaign_phase(sf1, baseline):
     with open(os.path.join(OUT, "campaign_trace_report.txt"), "w") as f:
         f.write(tr.stdout + "\n# stderr\n" + tr.stderr)
     tr_lines = tr.stdout.splitlines()
+    tr_static = static_cells(
+        tr_lines, lambda c: c.startswith("query") and c != "query")
     if tr.returncode != 0 or not tr_lines or \
             not tr_lines[0].startswith("# trace report: "):
         problems.append(f"trace report: exit {tr.returncode}, "
                         f"{tr_lines[:1]}")
+    elif not tr_static or not all(isinstance(v[0], float)
+                                  for v in tr_static.values()):
+        problems.append(f"trace report: static columns {tr_static}")
     line = {"phase": "campaign", "ok": not problems, "scale": BENCH_SCALE,
             "statements": len(BENCH_B_QUERIES),
             "stream_bytes": CAMPAIGN_STREAM_BYTES, "arms": arms,
             "resume_skipped": skipped, "report_rows": rows,
+            "static_columns": {"arms": arm_static,
+                               "trace_report": tr_static},
             "encoded_vs_raw": delta, "gate_baseline": baseline
             if gate_args else None, "gates": gates,
             "resident_against_run_a": run_b,
@@ -3873,6 +3889,79 @@ def param_phase(torch, K, device="cuda", data=None,
     return ok, lines + [summary], launches
 
 
+# ---------------------------------------------------------------------------
+# perf: the lint gate and the static cost model against the card
+# ---------------------------------------------------------------------------
+
+
+def start_lint():
+    """The static analysis gate on the tree, a process in the background
+    (host work only: it runs beside the build and the kernel phases)."""
+    log = open(os.path.join(OUT, "lint.json"), "w+")
+    err = open(os.path.join(OUT, "lint.err"), "w+")
+    return time.time(), log, err, subprocess.Popen(
+        [sys.executable, "-m", "nds_tpu_torch.tools.lint", "--format",
+         "json"], cwd=REPO, stdout=log, stderr=err)
+
+
+def perf_phase(torch, K, lint_run):
+    """The static analysis gate of :func:`start_lint` (``python -m
+    nds_tpu_torch.tools.lint --format json``: exit 0 against the baseline,
+    findings by pass, the passes not ported yet), then
+    ``tools.perf_audit_diff``'s arms on cuda (the 14 A/B statements at 2
+    partitions; ab0, ab2, ab7 at 2 shards sharing the card; ab0, ab2, ab7,
+    ab11 on the raw wire; each cold (captured), warm (replayed) and
+    through the eager drive): uploaded and collective bytes against the
+    closed forms, K4/K5 launches inside the static band and nonzero, each
+    statement's static roofline ms at the H100 rates beside its measured
+    warm ms; then the ``--inject-drift`` self-test on the same evidence,
+    which must fail. Returns ``(ok, lines, launches)``."""
+    from nds_tpu_torch.tools import perf_audit_diff as PD
+    t0 = time.time()
+    started, log, err, proc = lint_run
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    lint_s = round(time.time() - started, 3)
+    outs = []
+    for f in (log, err):
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    try:
+        doc = json.loads(outs[0])
+    except ValueError:
+        doc = {}
+    lint = {"phase": "perf_lint", "rc": rc, "ok": rc == 0 and bool(doc),
+            "pass_counts": doc.get("pass_counts"),
+            "absent": doc.get("absent"), "new": doc.get("new"),
+            "baselined": sum(f["count"] for f in doc.get("findings", [])
+                             if f["baselined"]),
+            "s": lint_s, "waited_s": round(time.time() - t0, 3),
+            **({} if rc == 0 else {"stderr": outs[1][-2000:]})}
+    t1 = time.time()
+    K.reset_launches()
+    collected = PD.collect("cuda")
+    torch.cuda.synchronize()
+    launches = {k: K.LAUNCHES[k] for k in ("chunk_scan", "join_probe")}
+    ok, diff_lines, records = PD.check(collected)
+    with open(os.path.join(OUT, "perf_audit_diff.txt"), "w") as f:
+        f.write("\n".join(diff_lines) + "\n")
+    drift_ok, _lines, _recs = PD.check(collected, inject=True)
+    arms = [{"phase": "perf_arm", **rec} for rec in records]
+    summary = {
+        "phase": "perf", "ok": lint["ok"] and ok and not drift_ok
+        and all(launches.values()),
+        "diff_ok": ok, "drift_rejected": not drift_ok,
+        "mismatches": [ln for ln in diff_lines
+                       if ln.startswith(("MISMATCH", "    "))][:20],
+        "launches": launches, "diff_s": round(time.time() - t1, 3),
+        "s": round(time.time() - t0, 3), "nvidia_smi": smi_line()}
+    return summary["ok"], [lint] + arms + [summary], launches
+
+
 class _Skipped(Exception):
     """A phase left out by ``--only``."""
 
@@ -3890,13 +3979,13 @@ def load_session(Session, data_dir, device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "power", "mesh", "census", "replay", "param",
+PHASES = ("kernels", "perf", "power", "mesh", "census", "replay", "param",
           "stream", "shard", "agreement", "validate", "bench", "campaign",
           "full_bench")
 
 
 def main(argv=None) -> int:
-    global STREAM_SCALE, STREAM_BYTES, STREAM_CI
+    global STREAM_SCALE, STREAM_BYTES, STREAM_CI, STREAM_AB
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on "
                                  "one GPU (every phase by default).")
@@ -3937,10 +4026,12 @@ def main(argv=None) -> int:
         from nds_tpu_torch.power import (gen_sql_from_stream,
                                          run_query_stream,
                                          strip_stream_markers)
+        from nds_tpu_torch.tools.perf_audit_diff import AB_QUERIES
     except ImportError as e:
         print(f"chip_smoke: the nds_tpu_torch package is missing: {e}",
               file=sys.stderr)
         return 3
+    STREAM_AB = AB_QUERIES
     os.makedirs(OUT, exist_ok=True)
     os.makedirs(DATA, exist_ok=True)
     if os.path.exists(os.path.join(OUT, "phases.jsonl")):
@@ -3967,6 +4058,10 @@ def main(argv=None) -> int:
         stream_f = pool.submit(streamed_data, ndsgen, stream_raw,
                                max(cpus - 2, 1))
 
+    # the lint gate of the perf phase, host work beside the build and the
+    # kernel phases
+    lint_run = start_lint() if runs("perf") else None
+
     # 2. build
     t0 = time.time()
     try:
@@ -3983,6 +4078,9 @@ def main(argv=None) -> int:
               "sources": sorted(set(KERNEL_SOURCE.values())), **report})
     except Exception as e:
         emit({"phase": "build", "ok": False, "error": str(e)[-2000:]})
+        if lint_run is not None:
+            lint_run[3].kill()
+            lint_run[3].wait()
         return 1
 
     # 3. kernels vs plain versions
@@ -4051,6 +4149,25 @@ def main(argv=None) -> int:
         emit({"phase": "kernel", "name": "chunk_scan/join_probe",
               "ok": False, "error": traceback.format_exc()[-2000:]})
         failed.append("scan_probe_kernels")
+
+    # perf: the lint gate and the cost model's differential, while the
+    # data generates
+    perf_launches = {}
+    try:
+        if not runs("perf"):
+            raise _Skipped
+        ok, lines, perf_launches = perf_phase(torch, K, lint_run)
+        for line in lines:
+            emit(line)
+        if not ok:
+            failed.append("perf")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "perf", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("perf")
 
     # 4. data
     t0 = time.time()
@@ -4488,6 +4605,8 @@ def main(argv=None) -> int:
             extra["campaign_launches"] = campaign_launches[name]
         if param_launches.get(name):
             extra["param_launches"] = param_launches[name]
+        if perf_launches.get(name):
+            extra["perf_launches"] = perf_launches[name]
         if name == "chunk_scan" and param_k4 is not None:
             extra["param_bound_words"] = param_k4
         line.append({"name": name, "route": "cuda",

@@ -36,6 +36,7 @@ import torch
 
 from nds_tpu_torch.engine import faults as _faults
 from nds_tpu_torch.engine import prim
+from nds_tpu_torch.engine import settings as _settings
 from nds_tpu_torch.engine.column import Column, encs_equal, is_dec
 from nds_tpu_torch.engine.table import DeviceTable
 from nds_tpu_torch.obs import trace as _trace
@@ -48,15 +49,10 @@ F64 = torch.float64
 # ---------------------------------------------------------------------------
 
 
-# the bucket floor: the smallest physical length of any column
-_MIN_BUCKET = 16
-
-
-def bucket_len(n: int) -> int:
-    """Smallest power-of-two capacity >= n (floor ``_MIN_BUCKET``)."""
-    if n <= _MIN_BUCKET:
-        return _MIN_BUCKET
-    return 1 << (int(n) - 1).bit_length()
+# the bucket floor and rule (engine/settings.py, which the host-only
+# static models share)
+_MIN_BUCKET = _settings.MIN_BUCKET
+bucket_len = _settings.bucket_len
 
 
 # ---------------------------------------------------------------------------
@@ -81,18 +77,19 @@ class _OnDevice:
 
     def __enter__(self):
         t = _sync_tls
-        self._prev = (getattr(t, "device", None), getattr(t, "conf", None),
+        self._prev = (getattr(t, "device", None), _settings.statement_conf(),
                       getattr(t, "graph_pool", None),
                       getattr(t, "stream_graph", True))
         t.device = self.dev
         if self.conf is not None:
-            t.conf = self.conf
+            _settings.use_conf(self.conf)
         t.graph_pool, t.stream_graph = self.pool, self.graph
         return self.dev
 
     def __exit__(self, *exc):
         t = _sync_tls
-        t.device, t.conf, t.graph_pool, t.stream_graph = self._prev
+        t.device, conf, t.graph_pool, t.stream_graph = self._prev
+        _settings.use_conf(conf)
 
 
 @contextlib.contextmanager
@@ -137,59 +134,12 @@ def stream_graph() -> bool:
     return getattr(_sync_tls, "stream_graph", True)
 
 
-# The streamed path's settings: ``Session(conf=...)`` keys and their
-# defaults. Read per statement through :func:`setting`; the two in
-# :data:`SETTING_ENV` are also campaign arms, and their variable, when set,
-# overrides the session's value (as ``NDS_TPU_REPLAY`` does the replay
-# policy).
-STREAM_DEFAULTS = {
-    # "compiled": the chunk pipeline (engine/stream.py); "eager": the
-    # per-chunk planner loop only
-    "stream_exec": "compiled",
-    # pin the partition count of partitionable graphs (None: the proof
-    # chooses; <= 1 disables)
-    "stream_partitions": None,
-    # hard per-partition survivor-accumulator ceiling (None: proof-sized)
-    "stream_acc_rows": None,
-    # stream-bounds join pair-bucket allowance (power of two)
-    "stream_fanout": 4,
-    # hash-skew safety factor of the per-partition bound
-    "stream_skew": 2,
-    # chunks the prefetch worker may run ahead of the driver (0: inline)
-    "prefetch_depth": 2,
-    # device-memory capacity model in bytes (None: the card's own memory
-    # on cuda, the reference's 16 GiB on the CPU)
-    "hbm_bytes": None,
-    # shard count of a streamed pipeline (rounded up to a power of two;
-    # <= 1, or fewer local devices than shards: unsharded)
-    "stream_shards": 1,
-}
-
-
-# settings a campaign arm sets from the environment: the prefetch ring's
-# depth, read when the ring is built, and the shard count, read when a
-# pipeline is built (the reference's variables)
-SETTING_ENV = {
-    "prefetch_depth": "NDS_TPU_PREFETCH_DEPTH",
-    "stream_shards": "NDS_TPU_STREAM_SHARDS",
-}
-
-
-def setting(name: str):
-    """The calling statement's value of a streamed-path setting (a string
-    from a property file or the environment is read as the default's
-    type)."""
-    conf = getattr(_sync_tls, "conf", None) or {}
-    default = STREAM_DEFAULTS[name]
-    env = SETTING_ENV.get(name)
-    v = os.environ.get(env) if env else None
-    if not v:
-        v = conf.get(name, default)
-    if not isinstance(v, str) or isinstance(default, str):
-        return v
-    if isinstance(default, bool):
-        return v.strip().lower() in ("1", "true", "yes")
-    return int(float(v))
+# the streamed path's settings live in the torch-free engine/settings.py
+# (read by the host-only static models too); ``setting`` answers the
+# calling statement's value
+setting = _settings.setting
+STREAM_DEFAULTS = _settings.STREAM_DEFAULTS
+SETTING_ENV = _settings.SETTING_ENV
 
 
 def add_syncs(n: int = 1) -> None:

@@ -64,7 +64,7 @@ _PUT_POLL_S = 0.05
 def prefetch_depth() -> int:
     """The calling statement's ``prefetch_depth`` setting (chunks the
     worker may run ahead of the driver; ``<= 0``: inline)."""
-    from nds_tpu_torch.engine.ops import setting
+    from nds_tpu_torch.engine.settings import setting
     return int(setting("prefetch_depth"))
 
 

@@ -19,10 +19,7 @@ import numpy as np
 import torch
 
 from nds_tpu_torch.engine.column import Column
-
-# rows per streamed chunk (the ``stream_chunk_rows`` session setting
-# overrides it per table)
-CHUNK_ROWS = 1 << 22
+from nds_tpu_torch.engine.settings import CHUNK_ROWS
 
 
 class DeviceTable:

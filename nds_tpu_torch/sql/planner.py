@@ -1828,7 +1828,8 @@ class Planner:
         s, c = partials["sum"], partials["count"]
         data = s.data.to(torch.float64)
         if s.scale:
-            data = data / (10.0 ** s.scale)
+            # one IEEE division on every device (H6), as agg_avg descales
+            data = prim.true_div(data, 10.0 ** s.scale)
         cnt = c.data.to(torch.float64)
         out = torch.where(cnt > 0, data / cnt.clamp(min=1.0), 0.0)
         return Column("f64", out, c.data > 0)

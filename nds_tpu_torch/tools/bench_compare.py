@@ -13,7 +13,17 @@ regressions, and render the per-statement table from a ledger.
 * **--inject-drift**: self-test — regress round B synthetically before
   gating and require the gate to fail (exit 0 iff it did);
 * **--emit-perf PATH**: the per-statement table of one ledger, through
-  the bench's own renderer.
+  the bench's own renderer;
+* **--record-ab PATH**: run the 14 streamed A/B statements
+  (``tools/perf_audit_diff.AB_QUERIES``) on the chunked toy session,
+  partitions forced to 2, plus ab0, ab2 and ab7 at 2 shards sharing the
+  device, and ledger each statement's warm sight (the session's row
+  counts, chunk rows and settings ride the meta record);
+* **--audit-perf PATH**: hold such a ledger's uploaded and collective
+  bytes against the static cost model (``analysis/perf_audit.py``) built
+  from the ledger's own meta: equal where the model is exact, inside its
+  band otherwise. With ``--inject-drift`` every prediction is zeroed and
+  the check must fail (exit 0 iff it did).
 
 With more than two rounds it prints the cross-arm table instead (every
 round against the first, labeled by the arm name its ledger records).
@@ -29,6 +39,10 @@ Usage:
         --inject-drift
     python -m nds_tpu_torch.tools.bench_compare B.jsonl --emit-perf T.md
     python -m nds_tpu_torch.tools.bench_compare base.jsonl a1.jsonl a2.jsonl
+    python -m nds_tpu_torch.tools.bench_compare --record-ab ab.jsonl \
+        [--device cpu]
+    python -m nds_tpu_torch.tools.bench_compare --audit-perf ab.jsonl \
+        [--inject-drift]
 """
 
 import argparse
@@ -351,6 +365,170 @@ def emit_perf(b, out_path):
     return text
 
 
+# ---------------------------------------------------------------------------
+# the A/B ledger against the static cost model
+# ---------------------------------------------------------------------------
+
+AB_SHARDED = (0, 2, 7)
+
+
+def _ab_sweep(ledger, session, indices, suffix="", **fields):
+    """Each statement cold (recorded, on cuda captured), then warm into
+    the ledger: ms, syncs, rows and its streamed scans."""
+    import time
+
+    import torch
+
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.listener import drain_stream_events, stream_event_json
+    from nds_tpu_torch.tools.perf_audit_diff import AB_QUERIES
+    drain_stream_events()
+    for i in indices:
+        sql = AB_QUERIES[i]
+        session.sql(sql).collect()
+        drain_stream_events()
+        t0 = time.perf_counter()
+        s0 = E.sync_count()
+        rows = session.sql(sql).collect()
+        if session.device.type == "cuda":
+            torch.cuda.synchronize(session.device)
+        used = E.sync_count() - s0
+        ms = (time.perf_counter() - t0) * 1e3
+        ledger.query(f"ab{i}{suffix}", status="ok", ms=round(ms, 3),
+                     hostSyncs=used, outRows=len(rows), sight="warm",
+                     streamedScans=[stream_event_json(e)
+                                    for e in drain_stream_events()],
+                     **fields)
+
+
+def record_ab(path, device="cuda"):
+    """Ledger the warm sight of the 14 A/B statements (partitions forced
+    to 2) and of ab0, ab2, ab7 at 2 shards sharing the device, under the
+    current environment (``NDS_TPU_ENCODED`` and the campaign arm's
+    knobs). The meta record carries what ``--audit-perf`` rebuilds the
+    model from: row counts, chunk rows, settings (capacity included), the
+    wire gate."""
+    from nds_tpu_torch.analysis.mem_audit import hbm_capacity_bytes
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.io.columnar import encoded_enabled
+    from nds_tpu_torch.parallel.exchange import sharing_devices
+    from nds_tpu_torch.tools import perf_audit_diff as PD
+    tables = PD.star_tables()
+    conf = {"stream_partitions": PD.PARTITIONS}
+    session = PD.star_session(tables, device, conf)
+    with E.on_device(session.device, conf=conf):
+        conf["hbm_bytes"] = hbm_capacity_bytes()
+    stamp = {"arm": os.environ["NDS_CAMPAIGN_ARM"]} \
+        if os.environ.get("NDS_CAMPAIGN_ARM") else None
+    ledger = L.Ledger(
+        path, stamp=stamp, driver="bench-compare-ab",
+        platform="gpu" if session.device.type == "cuda" else "cpu",
+        rowBounds={n: int(t.nrows) for n, t in session.catalog.items()},
+        chunkRows=PD.CHUNK_ROWS, conf=conf, shards=PD.SHARDS,
+        encoded=encoded_enabled())
+    _ab_sweep(ledger, session, range(len(PD.AB_QUERIES)))
+    with sharing_devices(True):
+        sharded = PD.star_session(tables, device,
+                                  {**conf, "stream_shards": PD.SHARDS})
+        _ab_sweep(ledger, sharded, AB_SHARDED, suffix="@sharded",
+                  shardsForced=PD.SHARDS)
+    ledger.close("completed", queries=len(PD.AB_QUERIES) + len(AB_SHARDED))
+    return path
+
+
+def audit_perf(path, inject=False):
+    """Hold a ``--record-ab`` ledger's byte evidence against the static
+    cost model: per statement, the compiled scans' recorded ``bytesH2d``
+    (sorted) equal the predictions where the model is exact and lie in
+    its band otherwise; the ``@sharded`` records' ``bytesIci`` equal the
+    exchange-and-reduce arithmetic (or reach it, a lower bound). The
+    model takes the ledger's row counts, chunk rows, settings and wire
+    gate, and the toy tables' live wire widths (structure, rebuilt from
+    the seed). ``inject`` zeroes every prediction first: the check must
+    fail. Returns ``(ok, lines)``."""
+    from nds_tpu_torch.analysis.mem_audit import MemModel
+    from nds_tpu_torch.analysis.perf_audit import (PerfAuditor,
+                                                   wire_column_widths)
+    from nds_tpu_torch.engine import ops as E
+    from nds_tpu_torch.engine.table import ChunkedTable
+    from nds_tpu_torch.tools import perf_audit_diff as PD
+
+    data = L.load_ledger(path)
+    meta = data.meta
+    row_bounds = {str(k): int(v) for k, v in
+                  (meta.get("rowBounds") or {}).items()}
+    conf = dict(meta.get("conf") or {})
+    chunk_rows = int(meta.get("chunkRows", PD.CHUNK_ROWS))
+    with PD._env(NDS_TPU_ENCODED=None if meta.get("encoded", True)
+                 else "0"):
+        store = ChunkedTable(PD.star_tables()["store_sales"],
+                             chunk_rows=chunk_rows)
+        wire = {"store_sales": wire_column_widths(store)}
+
+        def reports(settings):
+            with E.on_device("cpu", conf=settings):
+                model = MemModel(row_bounds=row_bounds,
+                                 chunk_rows=chunk_rows)
+                auditor = PerfAuditor(streamed={"store_sales"},
+                                      model=model, wire_cols=wire)
+                return [auditor.audit_sql(sql, query=f"ab{i}")
+                        for i, sql in enumerate(PD.AB_QUERIES)]
+        plain = reports(conf)
+        sharded = reports({**conf, "stream_shards": meta.get("shards",
+                                                             PD.SHARDS)})
+    ok, lines = True, []
+    for i in range(len(PD.AB_QUERIES)):
+        name = f"ab{i}"
+        rec = data.queries.get(name)
+        rep = plain[i]
+        if rec is None:
+            ok = False
+            lines.append(f"MISMATCH [{name}] no ledger record")
+            continue
+        problems = []
+        preds = sorted(((c.bytes_h2d, c.bytes_h2d_min, c.h2d_exact)
+                        for c in rep.scans if c.compiled), reverse=True)
+        if inject:
+            preds = [(0, 0, True) for _ in preds]
+        got = sorted((s["bytesH2d"] for s in rec.get("streamedScans") or []
+                      if s.get("path") == "compiled"
+                      and s.get("bytesH2d", -1) >= 0), reverse=True)
+        if len(got) != len(preds):
+            problems.append(f"ledger carries {len(got)} compiled byte "
+                            f"records, the model priced {len(preds)}")
+        for (p, pmin, exact), g in zip(preds, got):
+            if (exact and g != p) or not pmin <= g <= p:
+                problems.append(f"recorded upload {g} bytes, static {p}"
+                                + ("" if exact else f" (band from {pmin})"))
+        srec = data.queries.get(f"{name}@sharded")
+        if srec is not None:
+            ici = sorted(((c.bytes_ici, c.ici_exact)
+                          for c in sharded[i].scans
+                          if c.compiled and c.shards > 1), reverse=True)
+            if inject:
+                ici = [(0, True) for _ in ici]
+            got_ici = sorted((s["bytesIci"]
+                              for s in srec.get("streamedScans") or []
+                              if s.get("bytesIci", -1) >= 0), reverse=True)
+            if len(got_ici) != len(ici):
+                problems.append(f"sharded record carries {len(got_ici)} "
+                                f"collective byte records, the model "
+                                f"priced {len(ici)}")
+            for (p, exact), g in zip(ici, got_ici):
+                if (exact and g != p) or g < p:
+                    problems.append(f"recorded collective {g} bytes, "
+                                    f"static {p}" + ("" if exact else
+                                                     " (lower bound)"))
+        if problems:
+            ok = False
+            lines.append(f"MISMATCH [{name}]")
+            lines.extend(f"    {p}" for p in problems)
+        else:
+            lines.append(f"ok [{name}] recorded h2d {got} == static, "
+                         f"roofline {rep.roofline_ms:.6f} ms ({rep.bound})")
+    return ok, lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m nds_tpu_torch.tools.bench_compare",
@@ -376,7 +554,40 @@ def main(argv=None) -> int:
     ap.add_argument("--emit-perf", metavar="PATH",
                     help="write the per-statement table of the (single) "
                     "given ledger to PATH")
+    ap.add_argument("--record-ab", metavar="PATH",
+                    help="run the A/B statements on the chunked toy "
+                    "session and write their evidence ledger to PATH")
+    ap.add_argument("--audit-perf", metavar="PATH",
+                    help="hold a --record-ab ledger's byte evidence "
+                    "against the perf_audit static cost model")
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                    help="device of --record-ab (default cuda; refused "
+                    "when no GPU is present)")
     args = ap.parse_args(argv)
+
+    if args.record_ab:
+        from nds_tpu_torch import resolve_device
+        resolve_device(args.device)
+        record_ab(args.record_ab, args.device)
+        print(f"# A/B evidence ledger recorded: {args.record_ab}")
+        return 0
+
+    if args.audit_perf:
+        ok, lines = audit_perf(args.audit_perf, inject=args.inject_drift)
+        for ln in lines:
+            print(ln)
+        if args.inject_drift:
+            if ok:
+                print("# drift fixture NOT rejected: the cost-model check "
+                      "cannot see a drifted model")
+                return 1
+            print("# drift fixture correctly rejected (the cost-model "
+                  "check is live)")
+            return 0
+        print("# ledger byte evidence matches the perf_audit static cost "
+              "model" if ok else "# cost-model check FAILED: the ledger's "
+              "bytes differ from the static predictions")
+        return 0 if ok else 1
 
     if args.emit_perf:
         if len(args.rounds) != 1:

@@ -34,8 +34,13 @@ Usage:
         --report --gate BASELINE.jsonl [--allow-missing]
     python -m nds_tpu_torch.tools.campaign --preset smoke --emit-perf T.md
 
-``--audit-ab`` and ``--audit-perf`` exit 2: they need ``bench_compare``'s
-audit modes and the static cost model, which the port does not have yet.
+``--audit-perf`` records, for each arm under the arm's own environment,
+the A/B ledger of ``bench_compare --record-ab`` (``ab.jsonl`` in the arm's
+directory, on ``--audit-device``, cuda by default) and holds it against the
+static cost model (``bench_compare --audit-perf``); the worst exit code
+counts. ``--audit-ab`` exits 2: it needs the sync and memory bounds
+checked against a ledger (``bench_compare --audit-ab``), which the port
+does not have yet.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import argparse
 import json
 import os
 import shlex
+import subprocess
 import sys
 
 from nds_tpu_torch.obs import campaign as C
@@ -53,9 +59,10 @@ from nds_tpu_torch.tools import trace_report as TR
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-NO_AUDITS = ("--audit-ab and --audit-perf need bench_compare's audit modes "
-             "and the static cost model (perf_audit), which the port does "
-             "not have yet: ROADMAP Queue 1, the lint and the auditors")
+NO_AUDIT_AB = ("--audit-ab needs bench_compare --audit-ab (the ledger held "
+               "against exec_audit's sync bounds and mem_audit's "
+               "accumulator bounds), which the port does not have yet: "
+               "ROADMAP Queue 1 item 2, the other auditors")
 
 
 def _matrix(args):
@@ -149,10 +156,14 @@ def report_lines(arms, campaign_dir, primary):
                  "| %HBM roof | static-roofline % | unexplained ms |")
     lines.append("|---|---|---|---|---|---|---|")
     stalls = {}
+    aggs = {name: _collect(rounds_by, name) for name in order}
+    # the static cost model prices every arm's statements at once
+    walls = TR.static_walls({q for agg in aggs.values() if agg
+                             for q in agg["per_query"]})
     for name in order:
-        agg = _collect(rounds_by, name)
+        agg = aggs[name]
         if not agg:
-            lines.append(f"| {name} | - | - | - | - | — | — |")
+            lines.append(f"| {name} | - | - | - | - | - | - |")
             continue
         rows = agg["per_query"].values()
         stalls[name] = sum(r["pf_stall"] for r in rows)
@@ -166,8 +177,17 @@ def report_lines(arms, campaign_dir, primary):
                      f"{100 * gbs / TR.ROOFLINE_HBM_GBS:.1f}%")
         else:
             cells = "- | - | -"
-        lines.append(f"| {name} | {stalls[name]:.0f} | {cells} | — | — |")
-    lines.append(f"# {TR.NO_STATIC}")
+        # the static cost model's walls of the priced statements against
+        # their measured ms
+        priced = [q for q in agg["per_query"] if q in walls]
+        measured = sum(agg["per_query"][q]["total_ms"] for q in priced)
+        static = TR.static_cells(measured, sum(walls[q][0] for q in priced)
+                                 if priced else None)
+        lines.append(f"| {name} | {stalls[name]:.0f} | {cells} |{static}")
+    lines.append("# static-roofline % and unexplained ms: perf_audit's "
+                 "roofline walls (SF10 catalog row bounds, the H100's "
+                 "rates) of an arm's priced statements against their "
+                 "measured ms")
     lines.append("")
     for title, b, note in (
             ("prefetch overlap delta", "prefetch-off",
@@ -227,6 +247,32 @@ def run_gate(arms, campaign_dir, baseline, threshold, allow_missing=False):
     return worst
 
 
+def run_audits(arms, campaign_dir, device="cuda"):
+    """``--audit-perf`` for every arm: ``bench_compare --record-ab`` under
+    the arm's environment (a child process: each arm has its own knobs),
+    then ``--audit-perf`` of that ledger. Returns the worst exit code."""
+    worst = 0
+    for arm in arms:
+        paths = C.arm_paths(campaign_dir, arm.name)
+        os.makedirs(paths["dir"], exist_ok=True)
+        ab = os.path.join(paths["dir"], "ab.jsonl")
+        if os.path.exists(ab):
+            os.remove(ab)            # a fresh recording, never appended
+        env = C.arm_env(arm)
+        env["NDS_CAMPAIGN_ARM"] = arm.name
+        for step in (["--record-ab", ab, "--device", device],
+                     ["--audit-perf", ab]):
+            print(f"## arm {arm.name}: {' '.join(step[:2])}", flush=True)
+            rc = subprocess.call(
+                [sys.executable, "-m", "nds_tpu_torch.tools.bench_compare",
+                 *step], env=env, cwd=REPO)
+            if rc != 0:
+                print(f"## arm {arm.name}: {step[0]} FAILED (rc {rc})")
+                worst = max(worst, rc)
+                break
+    return worst
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m nds_tpu_torch.tools.campaign",
@@ -259,17 +305,23 @@ def main(argv=None) -> int:
                     help="gate an arm that covers fewer statements than "
                     "BASELINE (bench_compare --allow-missing)")
     ap.add_argument("--audit-ab", action="store_true",
-                    help="refused: needs the auditors (exit 2)")
+                    help="refused: needs bench_compare --audit-ab (exit 2)")
     ap.add_argument("--audit-perf", action="store_true",
-                    help="refused: needs the static cost model (exit 2)")
+                    help="per arm, record the A/B ledger under the arm's "
+                    "knobs and hold its bytes against the static cost "
+                    "model (bench_compare --record-ab / --audit-perf)")
+    ap.add_argument("--audit-device", default="cuda",
+                    choices=("cpu", "cuda"),
+                    help="device of the --audit-perf recordings (default "
+                    "cuda)")
     ap.add_argument("--emit-perf", metavar="PATH", nargs="?",
                     const=os.path.join(REPO, "PERF.md"),
                     help="write the primary arm's per-statement table to "
                     "PATH (default: the repo's PERF.md)")
     args = ap.parse_args(argv)
 
-    if args.audit_ab or args.audit_perf:
-        print(f"campaign: {NO_AUDITS}", file=sys.stderr)
+    if args.audit_ab:
+        print(f"campaign: {NO_AUDIT_AB}", file=sys.stderr)
         return 2
     if args.list_presets:
         for name in sorted(C.PRESETS):
@@ -325,6 +377,8 @@ def main(argv=None) -> int:
     if args.gate:
         rc = max(rc, run_gate(arms, campaign_dir, args.gate, args.threshold,
                               allow_missing=args.allow_missing))
+    if args.audit_perf:
+        rc = max(rc, run_audits(arms, campaign_dir, args.audit_device))
     if args.emit_perf:
         ledger = C.arm_paths(campaign_dir, primary)["ledger"]
         if os.path.exists(ledger):

@@ -21,9 +21,12 @@ ledger (``power --ledger``, ``NDS_BENCH_RESULTS_JSONL``), and prints:
    interconnect columns (``nvlink MB | nvlink GB/s | %NVLink roof``);
 2. the top sync-charging host-read sites;
 3. the eager-fallback cost by reason;
-4. the ``static-roofline %`` and ``unexplained ms`` columns, which need
-   the static cost model (``perf_audit``, not yet in the port) and read
-   "—" until it lands;
+4. for each statement the static cost model prices (the 103 corpus
+   statements, ``analysis/perf_audit.py``), ``static-roofline %``: its
+   roofline wall (the largest of its upload, memory and collective bytes
+   over their rates, at the catalog's SF10 row bounds) against the
+   measured total ms, and ``unexplained ms``: the measured total less
+   that wall ("-" for a statement the model does not price);
 5. the ranked next bottleneck: host-sync blocking, eager fallbacks,
    capture and compile time, and the host-link, memory and interconnect
    headroom, each in attributable ms. A share is never clamped: a byte
@@ -48,21 +51,32 @@ from collections import Counter, defaultdict
 
 # the card's host link, memory and interconnect rates in GB/s (datasheet
 # figures of the H100 SXM5: PCIe Gen5 x16 64 GB/s a direction, HBM3 3.35
-# TB/s, NVLink 4 450 GB/s a direction)
+# TB/s, NVLink 4 450 GB/s a direction), the measured columns' and the
+# static cost model's (analysis/perf_audit.py) alike
 H100_PCIE_GBS = 64.0
 H100_HBM_GBS = 3350.0
 H100_NVLINK_GBS = 450.0
-ROOFLINE_H2D_GBS = float(os.environ.get("NDS_TPU_ROOFLINE_H2D_GBS",
-                                        H100_PCIE_GBS))
-ROOFLINE_HBM_GBS = float(os.environ.get("NDS_TPU_ROOFLINE_HBM_GBS",
-                                        H100_HBM_GBS))
-ROOFLINE_ICI_GBS = float(os.environ.get("NDS_TPU_ROOFLINE_ICI_GBS",
-                                        H100_NVLINK_GBS))
+DEFAULT_ROOFLINE_GBS = {"h2d": H100_PCIE_GBS, "hbm": H100_HBM_GBS,
+                        "ici": H100_NVLINK_GBS}
 
-# why the static columns are empty
-NO_STATIC = ("static-roofline % and unexplained ms: — (they need the "
-             "static cost model, perf_audit, which the port does not have "
-             "yet: ROADMAP Queue 1, the lint and the auditors)")
+
+def roofline_gbs() -> dict:
+    """``{"h2d", "hbm", "ici"} -> GB/s``: ``NDS_TPU_ROOFLINE_*_GBS`` (read
+    at call time), else :data:`DEFAULT_ROOFLINE_GBS`."""
+    out = {}
+    for k, dflt in DEFAULT_ROOFLINE_GBS.items():
+        try:
+            out[k] = float(os.environ.get(
+                f"NDS_TPU_ROOFLINE_{k.upper()}_GBS", str(dflt)))
+        except ValueError:
+            out[k] = dflt
+    return out
+
+
+_RATES = roofline_gbs()
+ROOFLINE_H2D_GBS = _RATES["h2d"]
+ROOFLINE_HBM_GBS = _RATES["hbm"]
+ROOFLINE_ICI_GBS = _RATES["ici"]
 
 # phase columns in pipeline order; every other span (the query and
 # stream umbrellas, uncovered wall) folds into "other". The port's own
@@ -257,6 +271,25 @@ def collect_from_ledger(path):
     return agg if agg["per_query"] else None
 
 
+def static_walls(names) -> dict:
+    """``query -> (roofline_ms, bound)`` of the statements in ``names``
+    the static cost model prices (``analysis/perf_audit.py``: the corpus
+    statements), at the current rates."""
+    from nds_tpu_torch.analysis.perf_audit import statement_walls
+    return statement_walls(names)
+
+
+def static_cells(total_ms: float, wall_ms) -> str:
+    """The ``static-roofline % | unexplained ms`` cells: the share of the
+    measured wall the static lower bound ``wall_ms`` explains (never
+    clamped: a share past 100 % says the bound is no bound), and the
+    rest; "-" where nothing is priced."""
+    if wall_ms is None or total_ms <= 0:
+        return " - | - |"
+    return (f" {wall_ms / total_ms * 100:.1f} | "
+            f"{max(total_ms - wall_ms, 0.0):.1f} |")
+
+
 def collective_ms(row) -> float:
     """A sharded scan's collective wall: the exchange pass plus the
     cross-shard reduce inside materialize."""
@@ -334,6 +367,7 @@ def render(agg, source, top=10):
     shared = any(r["ici"] and r["cards"] <= 1 for r in rows)
     nvlink = any(r["ici"] and r["cards"] > 1 for r in rows)
     any_stall = any(r.get("pf_stall", 0.0) > 0.0 for r in rows)
+    walls = static_walls(per_query)
     heads = ""
     if any_bytes:
         heads += " logical MB | h2d MB | h2d GB/s | %PCIe roof |"
@@ -375,10 +409,16 @@ def render(agg, source, top=10):
                 tail += " - | - | - |"
         if any_stall:
             tail += f" {r.get('pf_stall', 0.0):.1f} |"
-        tail += " — | — |"
+        tail += static_cells(r["total_ms"],
+                             walls[q][0] if q in walls else None)
         lines.append(f"| {q} | {r['total_ms']:.1f} | {cells} | "
                      f"{r['syncs']} |" + tail)
-    lines.append(f"# {NO_STATIC}")
+    lines.append(f"# static-roofline % and unexplained ms: perf_audit's "
+                 f"roofline wall of {len(walls)} priced statement(s) at "
+                 f"{ROOFLINE_H2D_GBS:g} / {ROOFLINE_HBM_GBS:g} / "
+                 f"{ROOFLINE_ICI_GBS:g} GB/s (host link / memory / "
+                 "interconnect; SF10 catalog row bounds) against the "
+                 "measured total")
     comp = sum(r["phases"].get("stream.compile", 0.0)
                + r["phases"].get("stream.capture", 0.0) for r in rows)
     drive = sum(r["phases"].get("stream.drive", 0.0) for r in rows)

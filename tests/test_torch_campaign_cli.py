@@ -19,6 +19,7 @@ import pytest
 from nds_tpu_torch.obs import campaign as C
 from nds_tpu_torch.obs import ledger as L
 from nds_tpu_torch.tools import campaign as T
+from nds_tpu_torch.tools import trace_report as TR
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -202,10 +203,21 @@ def test_report_rows_and_named_deltas(campaign, capsys):
     with open(os.path.join(d, "report.md")) as f:
         assert f.read() == out
     lines = out.splitlines()
-    for arm in ("base", "encoded-off", "prefetch-off"):
+    # the static cost model prices both statements: its walls against the
+    # arm's measured ms (query3 and query37: 100 and 200 ms, x1.4 raw,
+    # x1.2 inline)
+    walls = TR.static_walls(("query3", "query37"))
+    explained = walls["query3"][0] + walls["query37"][0]
+    for arm, f in (("base", 1.0), ("encoded-off", 1.4),
+                   ("prefetch-off", 1.2)):
         assert any(ln.startswith(f"| {arm} | 2 |") for ln in lines), arm
-        assert any(ln.startswith(f"| {arm} | ") and ln.endswith(
-            "| — | — |") for ln in lines), arm
+        row = next(ln for ln in lines if ln.startswith(f"| {arm} | ")
+                   and ln.count("|") == 8)
+        pct, unexplained = (float(c) for c in
+                            row.strip("|").split("|")[-2:])
+        assert pct == pytest.approx(explained / (300 * f) * 100, abs=0.06)
+        assert unexplained == pytest.approx(max(300 * f - explained, 0),
+                                            abs=0.06)
     assert "| base | 2 | 141.4 | 1.000 |" in out
     assert ("# encoded-vs-raw wire delta: encoded-off runs x1.400 vs base "
             "over 2 common queries; host-to-device bytes 2000 encoded vs "
@@ -273,7 +285,24 @@ def test_emit_perf_to_a_given_path(campaign, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--audit-ab", "--audit-perf"])
-def test_audits_refused(flag, capsys):
-    assert T.main(["--preset", "smoke", flag]) == 2
-    err = capsys.readouterr().err
-    assert "Queue 1" in err and "auditors" in err
+def test_audits_refused(flag, tmp_path, capsys):
+    """``--audit-ab`` is still refused, naming what it lacks;
+    ``--audit-perf`` now runs: the arm's A/B ledger recorded under the
+    arm's own knobs (here the raw wire) and held against the static cost
+    model, exit 0."""
+    if flag == "--audit-ab":
+        assert T.main(["--preset", "smoke", flag]) == 2
+        err = capsys.readouterr().err
+        assert "Queue 1" in err and "bench_compare --audit-ab" in err
+        return
+    d = str(tmp_path / "camp")
+    m = _matrix(tmp_path, ("encoded-off", {"NDS_TPU_ENCODED": "0"}))
+    res = _cli("--matrix", m, "--dir", d, "--report", flag,
+               "--audit-device", "cpu")
+    assert res.returncode == 0, (res.stdout + res.stderr)[-3000:]
+    assert "## arm encoded-off: --record-ab" in res.stdout
+    assert "matches the perf_audit static cost model" in res.stdout
+    data = L.load_ledger(os.path.join(d, "encoded-off", "ab.jsonl"))
+    assert data.meta["encoded"] is False and data.meta["arm"] == \
+        "encoded-off"
+    assert len(data.queries) == 17

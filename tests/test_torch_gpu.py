@@ -1751,3 +1751,68 @@ def test_k4_bound_words_match_plain(cuda, shape):
         want, _ = K.chunk_scan_plain(flat_cpu, torch.tensor(n_live), spec,
                                      entries)
         assert torch.equal(m.cpu(), want), vals
+
+
+# ------------------------------------------------- the static cost model
+
+
+@pytest.fixture(scope="module")
+def perf_evidence():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    from nds_tpu_torch.tools import perf_audit_diff as PD
+    return PD.collect("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", ["base", "sharded", "encoded-off"])
+def test_launch_band_and_bytes_hold_on_the_card(perf_evidence, arm):
+    """``tools.perf_audit_diff``'s arm on the card: every sight (captured,
+    replayed, eager drive) uploads the closed form's bytes, the sharded
+    arm's collectives move the exchange's, and each scan's K4/K5
+    launches lie in the static band, the arm's total nonzero."""
+    from nds_tpu_torch.tools import perf_audit_diff as PD
+    (got,) = [c for c in perf_evidence if c[0] == arm]
+    name, reports, evidence, counted = got
+    assert counted
+    ok, lines, rec = PD.compare(name, reports, evidence, counted)
+    assert ok, "\n".join(lines)
+    assert rec["launches"] > 0
+    assert rec["band"][0] <= rec["launches"] <= rec["band"][1]
+    for runs in evidence.values():
+        graphs = {g for s in ("cold", "warm") for g in runs[s]["graphs"]}
+        assert graphs <= {"captured", "replayed"}, graphs
+
+
+@pytest.mark.gpu
+def test_launch_band_drift_is_rejected(perf_evidence):
+    from nds_tpu_torch.tools import perf_audit_diff as PD
+    ok, lines, _recs = PD.check(perf_evidence, inject=True)
+    assert not ok
+    assert any("K4/K5 launches outside the band" in ln for ln in lines)
+
+
+@pytest.mark.gpu
+def test_rollup_avg_of_a_decimal_equals_cpu(cuda):
+    """The ROLLUP path's AVG descale divides through ``prim.true_div``
+    (hazard H6): the card's doubles equal the CPU's bit for bit."""
+    import pyarrow as pa
+    from decimal import Decimal
+
+    from nds_tpu_torch.engine.session import Session
+    rng = np.random.default_rng(11)
+    n = 5000
+    tbl = pa.table({
+        "g": pa.array(rng.integers(0, 7, n), pa.int64()),
+        "h": pa.array(rng.integers(0, 3, n), pa.int64()),
+        "p": pa.array([Decimal(int(c)) / 100 for c in
+                       rng.integers(1, 10 ** 6, n)], pa.decimal128(7, 2)),
+    })
+    sql = ("select g, h, avg(p) a from t group by rollup(g, h) "
+           "order by g, h")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = Session(conf={"replay": "off"}, device=dev)
+        s.create_temp_view("t", tbl)
+        out[dev] = s.sql(sql).collect()
+    assert out["cuda"] == out["cpu"] and out["cpu"]

@@ -124,7 +124,21 @@ def test_report_renders_both_sources(run):
         head = lines[2]
         assert "| stream.drive |" in head
         assert "| h2d GB/s | %PCIe roof |" in head
-        assert "static-roofline %" in head and "| — | — |" in lines[4]
+        assert "static-roofline %" in head
+        walls = TR.static_walls(QUERIES)
+        assert set(walls) == set(QUERIES)
+        for q, row in zip(sorted(QUERIES), lines[4:7]):
+            cells = [c.strip() for c in row.strip("|").split("|")]
+            total, pct, unexplained = (float(cells[1]), float(cells[-2]),
+                                       float(cells[-1]))
+            assert row.startswith(f"| {q} |")
+            # the cells come from the unrounded total, the row shows it
+            # to 0.1 ms
+            lo, hi = total - 0.05, total + 0.05
+            assert walls[q][0] / hi * 100 - 0.05 <= pct <= \
+                walls[q][0] / lo * 100 + 0.05
+            assert max(lo - walls[q][0], 0.0) - 0.05 <= unexplained <= \
+                max(hi - walls[q][0], 0.0) + 0.05
         assert any("perf_audit" in ln for ln in lines)
         assert any(ln.startswith("# next bottleneck") for ln in lines)
 
