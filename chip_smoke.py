@@ -7,8 +7,8 @@
 Phases (each prints one JSON line; any failure makes the exit code non-zero
 and suppresses the final ``ok`` line; ``--only`` runs the named ones of
 kernels, perf, power, mesh, census, replay, param, stream, shard,
-agreement, validate, bench, campaign and full_bench after device, build and
-data, and
+agreement, validate, tools, bench, campaign and full_bench after device,
+build and data, and
 ends without the ``ok`` line). ``--stream-scale 10 --stream-ci 13`` runs
 the stream phase as the reference's SF10 setting (tables above 1.5e9
 bytes) with the first 13 CI statements, the run that once took the card
@@ -121,8 +121,12 @@ out of memory:
                kinds bit for bit, doubles within rel 1e-5). The ``replay``
                line counts captured and blacklisted statements, sums
                eager and replay walls, gives the session's peak memory
-               with every graph held and the sync threshold the walls
-               decide; it fails on a differing result, on a statement
+               with every graph held, the sync threshold the walls
+               decide, ``tools.replay_ab``'s aggregate (the phase runs
+               its sequence) and the statements that replay slower than
+               eager; it fails on a differing result, on a statement
+               whose rows ``tools.replay_sweep`` finds unequal, on a
+               statement
                that does not capture (its reason printed), on a replay
                with more than 1 sync before the fetch, or on launches
                unequal to eager. The watchdog line runs with
@@ -172,14 +176,16 @@ out of memory:
                launches equal. Per statement: ``graph`` (captured,
                replayed or the reason), launches, synchronizing calls in
                its chunk loops. A ``chunk_split`` line splits query37's
-               cost a chunk, in four arms (eager drive and graph, each
-               with the chunk store off and warm; the warm arms in a
-               child process, ``--chunk-split-child``), into wall, launch
-               or Python time, prefetch wait and device kernel time (a
-               second run under ``torch.profiler``), and splits each
+               cost a chunk, in two arms (eager drive and graph, the
+               chunk store off; the two warm-store arms in a child
+               process went when the tools phase came: the tools phase's
+               fault matrix reads a warm store on the card), into wall,
+               launch or Python time, prefetch wait and device kernel
+               time (a second run under ``torch.profiler``), splits the
                first sight's time outside the chunk loop into codec
                planning and encoding, record, capture, the first chunk's
-               upload and the rest;
+               upload and the rest, and writes the store once (its
+               entries and cold run's ms);
                the raw-wire arm runs ab0, ab2, query37 and ab7 twice
                more in the same process under ``NDS_TPU_ENCODED=0`` (plain
                widths): rows equal to the encoded runs bit for bit, every
@@ -241,6 +247,19 @@ out of memory:
                statement that has one changed by 1e-3 relative: exit 1,
                that statement alone unmatched and ``Fail``. The line gives
                the statements, rows, both runs' and the phase's seconds;
+   tools       the port's measuring tools (``nds_tpu_torch/tools``) on
+               cuda at SF0.01: ``throughput_sweep --streams 1,2
+               --admission 0,1`` and ``self_validate`` over the first 2
+               CI templates, each its own ``python -m`` process in the
+               background, while ``fault_diff``'s whole matrix (every
+               entry recovered bit for bit or classified, K4 and K5
+               launched) and its ``--inject-drift`` self-test (which
+               must fail) run in this process, then ``coverage_sweep``
+               over the census statements with a 2-shard meshed session
+               sharing the card. One ``tools`` line: the matrix's
+               outcomes and K4/K5 launches, Ttt at each configuration
+               with each stream's wall and registration seconds, the
+               validation verdicts and the coverage pass count;
 8. bench       ``python -m nds_tpu_torch.bench`` (run A, a fresh process,
                its parquet cache seeded with the data phase's SF1 parquet,
                hard-linked: the same ``bench.transcode`` of the same raw
@@ -257,27 +276,32 @@ out of memory:
                and names those blacklisted, with the reason; a blacklist
                other than the eviction of a slower replay fails it), the
                ledger loads, ``bench_compare --gate`` of A against itself
-               passes and its ``--inject-drift`` self-test rejects; a
+               passes and its ``--inject-drift`` self-test rejects;
+               ``python -m nds_tpu_torch.tools.sync_profile`` over its
+               ledger prints a sync-site histogram a statement; a
                second line gives the phase's seconds and the card. Run B
                (the first 4 templates, 4 statements,
                ``BENCH_B_QUERIES``, resident, in a fresh process) is the
                campaign's ``resident`` arm;
    campaign    ``python -m nds_tpu_torch.tools.campaign`` over the arms
-               ``base``, ``encoded-off`` (``NDS_TPU_ENCODED=0``) and
-               ``prefetch-off`` (``NDS_TPU_PREFETCH_DEPTH=0``), each
+               ``base`` and ``prefetch-off``
+               (``NDS_TPU_PREFETCH_DEPTH=0``; the ``encoded-off`` arm
+               went when the tools phase came: the stream phase's
+               raw-wire arm and the perf phase's drive that wire), each
                ``python -m nds_tpu_torch.bench`` over ``BENCH_B_QUERIES``
                at SF1 with ``NDS_TPU_STREAM_BYTES=1.5e8`` (store_sales,
                catalog_sales and inventory stream), and ``resident`` (the
                threshold unset: nothing streams): every arm completes
                with 4 statements ``ok``, the same command again skips
-               all four, ``--report`` writes a row an arm and the
-               encoded/raw delta (the raw wire uploads more bytes), each
+               all three, ``--report`` writes a row an arm, each
                arm's ``--gate`` against run A is a finding, the resident
                arm streams nothing and fails no replay and its ratios to
                run A are run B's A-versus-B finding, ``base`` against
                ``resident`` prices the streamed path (a finding), and
                ``python -m nds_tpu_torch.tools.trace_report`` renders the
-               base arm's traces;
+               base arm's traces and ``python -m
+               nds_tpu_torch.tools.obs_live`` the arms' live-metrics
+               files (a row an arm and the merged TOTAL row);
 9. full_bench  first two processes build the kernel library at once (the
                built one set aside) and must both load it; then
                ``python -m nds_tpu_torch.nds_bench`` on a configuration
@@ -312,6 +336,7 @@ line printed.
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1554,7 +1579,7 @@ def stream_phase(torch, K, queries, capture):
     capture.context = None
     split_problems, split = chunk_split(
         torch, power_s, strip_stream_markers(queries["query37"]), "query37",
-        first, pq, stream_conf)
+        first)
     failures += [f"chunk_split: {p}" for p in split_problems]
     # the cached pipelines' static operands and graphs go with them
     S._PIPELINE_CACHE.clear()
@@ -2600,9 +2625,26 @@ def bench_phase(raw_dir):
         problems.append(f"self gate exit {self_rc}")
     if not drift_ok:
         problems.append("the drift self-test did not reject")
+    # tools.sync_profile's ledger mode over run A's ledger: a histogram
+    # header a statement
+    t1 = time.time()
+    sp = subprocess.run([sys.executable, "-m",
+                         "nds_tpu_torch.tools.sync_profile", led_a],
+                        cwd=REPO, capture_output=True, text=True,
+                        timeout=120)
+    with open(os.path.join(OUT, "sync_profile.txt"), "w") as f:
+        f.write(sp.stdout + "\n# stderr\n" + sp.stderr)
+    heads = re.findall(r"^== (\S+): (\d+) syncs", sp.stdout, re.M)
+    sync_profile = {"rc": sp.returncode, "statements": len(heads),
+                    "syncs": sum(int(n) for _q, n in heads),
+                    "sites": len(re.findall(r"^ +\d+  ", sp.stdout, re.M)),
+                    "s": round(time.time() - t1, 3)}
+    if sp.returncode != 0 or len(heads) != counts.get("a"):
+        problems.append(f"sync_profile: {sync_profile}")
     line = {"phase": "bench", "ok": not problems, "scale": BENCH_SCALE,
             "statements": counts, "geomean_ms": geo,
             "self_gate_rc": self_rc, "drift_rejected": drift_ok,
+            "sync_profile": sync_profile,
             "launches": launches, "replay": tiers, "problems": problems,
             "cache_seeded": seeded}
     seconds = {"phase": "bench_time", "s": round(time.time() - t0, 3),
@@ -2636,6 +2678,11 @@ def replay_threshold(rows):
     return None
 
 
+def _rows_of(table):
+    """An arrow result as a list of row tuples."""
+    return list(zip(*(c.to_pylist() for c in table.columns)))
+
+
 def replay_phase(torch, K, Session, sf1, queries):
     """The SF1 resident session on cuda with ``NDS_TPU_REPLAY=force``, over
     the 25 CI statements and the MIN/MAX-of-double one: per statement
@@ -2645,10 +2692,17 @@ def replay_phase(torch, K, Session, sf1, queries):
     spans' ms, the tier or the blacklist reason), one first replay and
     ``REPLAY_REPS`` timed ones (median wall with the fetch, syncs before
     and with the fetch, launches per kernel); each replayed result against
-    the eager one (``tables_agree``). Returns (ok, line, rows)."""
+    the eager one (``tables_agree``). The sequence is
+    ``tools.replay_ab.measure``'s, and the line carries that tool's
+    aggregate (its walls here include the fetch) and the statements that
+    replay slower than eager; ``tools.replay_sweep.rows_eq`` holds the
+    first sight, the recorded run and every replay to one row set.
+    Returns (ok, line, rows)."""
     from nds_tpu_torch.engine import ops as E
     from nds_tpu_torch.obs import trace as obs_trace
     from nds_tpu_torch.power import strip_stream_markers
+    from nds_tpu_torch.tools import replay_ab as RA
+    from nds_tpu_torch.tools import replay_sweep as RS
     key = "NDS_TPU_REPLAY"
     prev = os.environ.get(key)
     os.environ[key] = "force"
@@ -2674,21 +2728,37 @@ def replay_phase(torch, K, Session, sf1, queries):
             return (tab, ms, before_fetch, E.sync_count() - s0,
                     _launch_delta(K, l0), sess.last_tier)
 
+        def run(stage, sql):
+            """``tools.replay_ab``'s stage runner: ``one`` (its wall with
+            the fetch, and its evidence), the record pass's spans kept"""
+            if stage == "record":
+                obs_trace.drain_spans()
+            got = one(sql)
+            if stage == "record":
+                spans.update({sp.name: sp.dur_ns / 1e6
+                              for sp in obs_trace.drain_spans()
+                              if getattr(sp, "name", "").startswith(
+                                  "replay.")})
+            return got, got[1] / 1e3
+
+        ab_rows, parity_failed = [], []
         for q, sql in todo:
-            # the eager wall: the median of REPLAY_REPS warm runs with
-            # replay off, after one cold run
-            os.environ[key] = "off"
-            one(sql)
-            eager_runs = sorted((one(sql) for _ in range(REPLAY_REPS)),
-                                key=lambda r: r[1])
+            # tools.replay_ab's sequence: REPLAY_REPS warm eager runs
+            # with replay off after a cold one (their median), the first
+            # sight, the record and capture, a first replay and
+            # REPLAY_REPS timed replays (their median), each wall with
+            # the fetch
+            spans = {}
+            ab, runs = RA.measure(sess, sql, reps=REPLAY_REPS, run=run)
+            ab_rows.append({"query": q, **ab})
+            by = {}
+            for stage, got, _s in runs:
+                by.setdefault(stage, []).append(got)
+            eager_runs = sorted(by["eager"][1:], key=lambda r: r[1])
             eager, e_ms, _s, _a, e_launch, _t = \
                 eager_runs[len(eager_runs) // 2]
-            os.environ[key] = "force"
-            _f, f_ms, e_syncs, _e_all, _fl, _tier = one(sql)  # first sight
-            obs_trace.drain_spans()
-            _rec, r_ms, _rs, _ra, _rl, tier = one(sql)
-            spans = {sp.name: sp.dur_ns / 1e6 for sp in obs_trace.drain_spans()
-                     if getattr(sp, "name", "").startswith("replay.")}
+            _f, f_ms, e_syncs, _e_all, _fl, _tier = by["seen"][0]
+            _rec, r_ms, _rs, _ra, _rl, tier = by["record"][0]
             row = {"statement": q, "first_syncs": e_syncs,
                    "eager_ms": round(e_ms, 3),
                    "eager_ms_all": [round(r[1], 3) for r in eager_runs],
@@ -2697,7 +2767,8 @@ def replay_phase(torch, K, Session, sf1, queries):
                    "record_pass_ms": round(r_ms, 3),
                    "record_ms": round(spans.get("replay.record", 0), 3),
                    "capture_ms": round(spans.get("replay.compile", 0), 3),
-                   "tier": tier, "nvidia_smi": smi}
+                   "tier": tier, "speedup": ab.get("speedup"),
+                   "nvidia_smi": smi}
             if tier != "record":
                 # a statement that does not capture fails the phase: its
                 # reason is printed, never passed over
@@ -2705,16 +2776,22 @@ def replay_phase(torch, K, Session, sf1, queries):
                 problems.append(f"{q}: not captured: {row['reason']}")
                 rows.append(row)
                 continue
-            first = one(sql)
-            walls, syncs, launches, tiers, why = [], set(), [], set(), None
-            for _ in range(REPLAY_REPS):
-                tab, ms, s_before, s_all, lau, t = one(sql)
-                walls.append(ms)
-                syncs.add((s_before, s_all))
-                launches.append(lau)
-                tiers.add(t)
-                why = why or tables_agree(tab, eager)
-            walls.sort()
+            first = by["replay_first"][0]
+            replays = by["replay"]
+            walls = sorted(r[1] for r in replays)
+            syncs = {(r[2], r[3]) for r in replays}
+            launches = [r[4] for r in replays]
+            tiers = {r[5] for r in replays}
+            why = next((w for w in (tables_agree(r[0], eager)
+                                    for r in replays) if w), None)
+            # replay_sweep's parity: the first sight, the recorded run and
+            # every replay hold the same rows (in any order, doubles to
+            # 1e-9)
+            base = _rows_of(_f)
+            if not all(RS.rows_eq(base, _rows_of(t[0]))
+                       for t in [by["record"][0], first, *replays]):
+                parity_failed.append(q)
+                problems.append(f"{q}: replay_sweep parity failed")
             row.update({
                 "first_replay_ms": round(first[1], 3),
                 "replay_ms": round(walls[len(walls) // 2], 3),
@@ -2734,6 +2811,7 @@ def replay_phase(torch, K, Session, sf1, queries):
                 problems.append(f"{q}: launches {launches[0]} against "
                                 f"eager {e_launch}, tiers {sorted(tiers)}")
             rows.append(row)
+        agg = RA.aggregate(ab_rows, "cuda", "1")
         peak = torch.cuda.max_memory_allocated()
         held = torch.cuda.memory_allocated()
         captured = [r for r in rows if r.get("replay_ms") is not None]
@@ -2753,10 +2831,19 @@ def replay_phase(torch, K, Session, sf1, queries):
             "sync_threshold_from_card": replay_threshold(rows),
             "peak_bytes": int(peak), "held_bytes": int(held),
             "graphs_held": len(sess._replay_cache),
+            "replay_ab": {k: agg[k] for k in (
+                "n_queries", "n_replayed", "geomean_eager_s",
+                "geomean_replay_s")},
+            "slower_than_eager": {r["query"]: r["speedup"] for r in ab_rows
+                                  if r.get("speedup") is not None
+                                  and r["speedup"] < 1},
+            "replay_sweep": {"passed": len(captured) - len(parity_failed),
+                             "failed": parity_failed},
             "load_s": round(load_s, 3), "s": round(time.time() - t0, 3),
             "nvidia_smi": smi, "problems": problems[:30]}
         with open(os.path.join(OUT, "replay.json"), "w") as f:
-            json.dump({"line": line, "statements": rows}, f, indent=1)
+            json.dump({"line": line, "statements": rows, "replay_ab": agg},
+                      f, indent=1)
         del sess
         return not problems, line, rows
     finally:
@@ -2772,8 +2859,6 @@ LOOP_SPANS = ("stream.drive", "stream.kernel", "stream.partition",
               "stream.prefetch", "stream.materialize")
 SETUP_SPANS = {"encode": "stream.encode", "record": "stream.record",
                "capture": "stream.capture", "upload": "stream.upload"}
-# the tables query37 reads (the warm-store child loads only these)
-SPLIT_TABLES = ("item", "inventory", "date_dim", "catalog_sales")
 
 
 def _split_of(phases, wall_ms, chunks):
@@ -2851,26 +2936,21 @@ def split_arm(torch, session, sql, graph):
                   "device_kernel_ms": dev_ms}
 
 
-def first_sight_record(wall, phases, n, graphs=None):
+def first_sight_record(wall, phases, n):
     per_chunk, outside, setup = _split_of(phases, wall, n)
-    rec = {"wall_ms": round(wall, 3), "chunks": n, "per_chunk_ms": per_chunk,
-           "outside_chunk_loop_ms": outside, "outside_split_ms": setup,
-           "device": "not measured"}
-    if graphs is not None:
-        rec["graph"] = graphs
-    return rec
+    return {"wall_ms": round(wall, 3), "chunks": n,
+            "per_chunk_ms": per_chunk, "outside_chunk_loop_ms": outside,
+            "outside_split_ms": setup, "device": "not measured"}
 
 
-def chunk_split(torch, session, sql, name, first, pq, conf):
-    """One streamed statement's cost a chunk, in four arms: the eager
-    drive and the graph, each with the chunk store off (this process,
-    the pipeline cached) and with a warm store (a child process, so that
-    the first sight is a new process's). Each arm gives per chunk the
-    wall, the launch or Python time, the prefetch wait and the device
-    time (a second run under ``torch.profiler``). The first sights (the
-    Power Run's, store off, and the child's, warm store) split their time
-    outside the chunk loop by span. Returns (problems, line)."""
-    import subprocess
+def chunk_split(torch, session, sql, name, first):
+    """One streamed statement's cost a chunk, in two arms: the eager
+    drive and the graph, the chunk store off (this process, the pipeline
+    cached). Each arm gives per chunk the wall, the launch or Python
+    time, the prefetch wait and the device time (a second run under
+    ``torch.profiler``). The first sight (the Power Run's) splits its
+    time outside the chunk loop by span; a last run writes the chunk
+    store (its entries and ms). Returns (problems, line)."""
     problems = []
     arms = {}
     g_rows, arms["graph/store_off"] = split_arm(torch, session, sql, True)
@@ -2878,8 +2958,7 @@ def chunk_split(torch, session, sql, name, first, pq, conf):
     why = tables_agree(g_rows, e_rows)
     if why:
         problems.append(f"graph rows differ from the eager drive: {why}")
-    # warm the store in this process (the wire plan is saved once), then
-    # read it in a child
+    # the store written once (the wire plan is saved)
     store = os.path.join(DATA, "chunk_store")
     shutil.rmtree(store, ignore_errors=True)
     os.environ["NDS_TPU_CHUNK_STORE"] = store
@@ -2892,38 +2971,6 @@ def chunk_split(torch, session, sql, name, first, pq, conf):
     entries = sorted(d for d in os.listdir(store) if not d.startswith("."))
     if tables_agree(cold_rows, g_rows) or not entries:
         problems.append(f"cold store run: entries {entries}")
-    # the child needs the card: this process's cached pipelines (their
-    # static operands and graphs) and cached blocks go back first
-    import gc
-    from nds_tpu_torch.engine import stream as S
-    S._PIPELINE_CACHE.clear()
-    gc.collect()
-    torch.cuda.empty_cache()
-    spec = os.path.join(OUT, "chunk_split_child.json")
-    with open(spec, "w") as f:
-        json.dump({"pq": pq, "conf": conf, "sql": sql,
-                   "tables": list(SPLIT_TABLES)}, f)
-    t = time.time()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--chunk-split-child",
-         spec], capture_output=True, text=True, timeout=900,
-        env=dict(os.environ, NDS_TPU_CHUNK_STORE=store))
-    child_s = round(time.time() - t, 3)
-    child = None
-    if proc.returncode == 0 and proc.stdout.strip():
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
-    if child is None:
-        problems.append(f"warm-store child failed ({proc.returncode}): "
-                        f"{proc.stderr[-1500:]}")
-    else:
-        arms.update(child["arms"])
-        if child["rows"] != json.loads(json.dumps(
-                [list(r.values()) for r in g_rows.to_pylist()],
-                default=str)):
-            problems.append("warm-store rows differ from the store-off rows")
-        if child["wire_plans_built"]:
-            problems.append(f"the warm store re-encoded "
-                            f"{child['wire_plans_built']} column sets")
     for arm, rec in arms.items():
         # a pipeline whose parts are bound anew by each execution (query37
         # binds catalog_sales whole) records and captures at each
@@ -2933,56 +2980,15 @@ def chunk_split(torch, session, sql, name, first, pq, conf):
             problems.append(f"{arm}: graph {rec['graph']}, not {want}")
     line = {"phase": "chunk_split", "statement": name, "ok": not problems,
             "scale": STREAM_SCALE, "arms": arms,
-            "store": {"entries": len(entries), "cold_run_ms": round(cold_ms, 3),
-                      "child_s": child_s},
+            "store": {"entries": len(entries),
+                      "cold_run_ms": round(cold_ms, 3)},
             "problems": problems}
     if first is not None:
         f_phases, f_wall, f_n = first
         line["first_sight"] = {
             "store_off": first_sight_record(f_wall, f_phases, f_n)}
-        if child is not None:
-            line["first_sight"]["store_warm"] = child["first_sight"]
     line["nvidia_smi"] = smi_line()
     return problems, line
-
-
-def chunk_split_child(spec_path) -> int:
-    """The warm-store arms of ``chunk_split`` in a fresh process: a cuda
-    session over ``SPLIT_TABLES`` only, the first sight (its time outside
-    the loop split by span), then the graph and eager-drive arms. Prints
-    one JSON line."""
-    import torch
-    sys.path.insert(0, REPO)
-    from nds_tpu_torch.engine.session import Session
-    from nds_tpu_torch.engine.table import ChunkedTable
-    from nds_tpu_torch.schema import get_schemas
-    with open(spec_path) as f:
-        spec = json.load(f)
-    built = []
-    real = ChunkedTable._build_wire_plan
-
-    def building(self):
-        built.append(tuple(self.column_names))
-        return real(self)
-    ChunkedTable._build_wire_plan = building
-    s = Session(spec["conf"], device="cuda")
-    schemas = get_schemas(use_decimal=True)
-    t = time.time()
-    for tname in spec["tables"]:
-        s.read_columnar_view(tname, os.path.join(spec["pq"], tname),
-                             "parquet", {fl.name: str(fl.type)
-                                         for fl in schemas[tname]})
-    load_s = round(time.time() - t, 3)
-    rows, wall, phases, n, graphs = _sight(torch, s, spec["sql"])
-    first = first_sight_record(wall, phases, n, graphs)
-    first["load_s"] = load_s
-    arms = {}
-    _r, arms["graph/store_warm"] = split_arm(torch, s, spec["sql"], True)
-    _r, arms["eager/store_warm"] = split_arm(torch, s, spec["sql"], False)
-    print(json.dumps({"rows": [list(r.values()) for r in rows.to_pylist()],
-                      "first_sight": first, "arms": arms,
-                      "wire_plans_built": len(built)}, default=str))
-    return 0
 
 
 # the full_bench phase: the whole NDS pipeline through the port's
@@ -3428,24 +3434,26 @@ def validate_phase(handle):
 # the streamed arms, then ``resident`` (the streaming threshold unset:
 # every table resident, the statements replayed), which is run B: the
 # same statements as run A's first 15 in a fresh process
-CAMPAIGN_ARMS = (("base", {}), ("encoded-off", {"NDS_TPU_ENCODED": "0"}),
+CAMPAIGN_ARMS = (("base", {}),
                  ("prefetch-off", {"NDS_TPU_PREFETCH_DEPTH": "0"}),
                  ("resident", {"NDS_TPU_STREAM_BYTES": ""}))
 # store_sales, catalog_sales and inventory past it at SF1 (the stream
 # phase's 1.5e8 a scale unit)
 CAMPAIGN_STREAM_BYTES = "1.5e8"
+CAMPAIGN_HEARTBEAT_S = "2"
 
 
 def campaign_phase(sf1, baseline):
     """``python -m nds_tpu_torch.tools.campaign`` over ``CAMPAIGN_ARMS``
     (the bench entry on ``BENCH_B_QUERIES`` at SF1, the facts streamed
     but in ``resident``): every arm completes; the same command again
-    skips every arm; the report has a row an arm and the encoded/raw
-    delta; each arm's gate against ``baseline`` (the bench phase's run A)
-    is a finding; ``resident`` streams nothing and its replays are sound,
+    skips every arm; the report has a row an arm; each arm's gate
+    against ``baseline`` (the bench phase's run A) is a finding;
+    ``resident`` streams nothing and its replays are sound,
     and its ratios to run A are the A-versus-B finding; ``base`` against
     ``resident`` is the streamed path's cost; the trace report renders
-    ``base``'s traces. (ok, line)."""
+    ``base``'s traces and ``tools.obs_live`` every arm's live-metrics
+    file. (ok, line)."""
     import shlex
     from nds_tpu_torch.obs.campaign import load_manifest
     from nds_tpu_torch.obs.ledger import load_ledger
@@ -3459,6 +3467,10 @@ def campaign_phase(sf1, baseline):
         json.dump({"v": 1, "env": {
             "NDS_BENCH_SCALE": str(BENCH_SCALE),
             "NDS_BENCH_BUDGET_S": str(BENCH_BUDGET_S),
+            # the bench writes its live-metrics file on each heartbeat
+            # (15 s by default, longer than an arm here): obs_live reads
+            # every arm's
+            "NDS_BENCH_HEARTBEAT_S": CAMPAIGN_HEARTBEAT_S,
             "NDS_TPU_STREAM_BYTES": CAMPAIGN_STREAM_BYTES},
             "arms": [{"name": n, "env": e} for n, e in CAMPAIGN_ARMS]}, f)
     bench = " ".join(shlex.quote(x) for x in (
@@ -3501,10 +3513,8 @@ def campaign_phase(sf1, baseline):
             report = f.read().splitlines()
     rows = {n: any(ln.startswith(f"| {n} | ") for ln in report)
             for n, _e in CAMPAIGN_ARMS}
-    delta = next((ln for ln in report
-                  if ln.startswith("# encoded-vs-raw wire delta")), None)
-    if not all(rows.values()) or delta is None:
-        problems.append(f"report: rows {rows}, encoded/raw delta {delta}")
+    if not all(rows.values()):
+        problems.append(f"report: rows {rows}")
 
     def static_cells(lines, names):
         """The last two cells (static-roofline %, unexplained ms) of the
@@ -3578,11 +3588,6 @@ def campaign_phase(sf1, baseline):
         streamed_vs_resident = ratio_finding(
             os.path.join(d, "resident", "ledger.jsonl"),
             os.path.join(d, "base", "ledger.jsonl"))
-    if arms.get("base") and arms.get("encoded-off") and not (
-            arms["encoded-off"]["h2d_bytes"] > arms["base"]["h2d_bytes"]
-            > 0):
-        problems.append("the raw wire did not upload more bytes than the "
-                        "encoded one")
     tr = subprocess.run(
         [sys.executable, "-m", "nds_tpu_torch.tools.trace_report",
          os.path.join(d, "base", "traces")], cwd=REPO, capture_output=True,
@@ -3599,13 +3604,30 @@ def campaign_phase(sf1, baseline):
     elif not tr_static or not all(isinstance(v[0], float)
                                   for v in tr_static.values()):
         problems.append(f"trace report: static columns {tr_static}")
+    # tools.obs_live over the arms' live-metrics files: a row an arm and
+    # the merged TOTAL row
+    ol = subprocess.run([sys.executable, "-m",
+                         "nds_tpu_torch.tools.obs_live", d], cwd=REPO,
+                        capture_output=True, text=True, timeout=120)
+    with open(os.path.join(OUT, "campaign_obs_live.txt"), "w") as f:
+        f.write(ol.stdout + "\n# stderr\n" + ol.stderr)
+    ol_lines = ol.stdout.splitlines()
+    obs_live = {"rc": ol.returncode, "rows": [
+        ln.split()[0] for ln in ol_lines[2:] if ln.strip()],
+        "total": next((ln for ln in ol_lines if ln.startswith("TOTAL")),
+                      None)}
+    if ol.returncode != 0 or obs_live["total"] is None or \
+            sorted(r for r in obs_live["rows"] if r != "TOTAL") != \
+            sorted(n for n, _e in CAMPAIGN_ARMS):
+        problems.append(f"obs_live: {obs_live}")
     line = {"phase": "campaign", "ok": not problems, "scale": BENCH_SCALE,
+            "obs_live": obs_live,
             "statements": len(BENCH_B_QUERIES),
             "stream_bytes": CAMPAIGN_STREAM_BYTES, "arms": arms,
             "resume_skipped": skipped, "report_rows": rows,
             "static_columns": {"arms": arm_static,
                                "trace_report": tr_static},
-            "encoded_vs_raw": delta, "gate_baseline": baseline
+            "gate_baseline": baseline
             if gate_args else None, "gates": gates,
             "resident_against_run_a": run_b,
             "streamed_against_resident": streamed_vs_resident,
@@ -3962,6 +3984,133 @@ def perf_phase(torch, K, lint_run):
     return summary["ok"], [lint] + arms + [summary], launches
 
 
+# ---------------------------------------------------------------------------
+# tools: the port's measuring tools on the card
+# ---------------------------------------------------------------------------
+
+# the Throughput sweep and the self-validation over the first 2 CI
+# templates at SF0.01, the coverage sweep over the census statements
+TOOLS_TEMPLATES = CI_QUERIES[:2]
+TOOLS_STREAMS = "1,2"
+TOOLS_ADMISSION = "0,1"
+TOOLS_MESH = 2
+TOOLS_TIMEOUT_S = 300
+
+
+def tools_phase(torch, K):
+    """``nds_tpu_torch.tools`` on cuda at SF0.01: ``throughput_sweep
+    --streams 1,2 --admission 0,1`` and ``self_validate`` over
+    ``TOOLS_TEMPLATES`` (each its own ``python -m`` process, in the
+    background), while this process runs ``fault_diff``'s whole matrix
+    (then its ``--inject-drift`` self-test, which must fail) and the
+    coverage sweep over ``CENSUS_QUERIES`` with a ``TOOLS_MESH``-shard
+    meshed session sharing the card. (ok, line, fault_diff's K4/K5
+    launches)."""
+    from nds_tpu_torch.parallel.exchange import sharing_devices
+    from nds_tpu_torch.power import gen_sql_from_stream
+    from nds_tpu_torch.queries import generate_query_streams
+    from nds_tpu_torch.tools import coverage_sweep as C
+    from nds_tpu_torch.tools import fault_diff as FD
+    t0 = time.time()
+    small = os.path.join(DATA, "sf0.01")
+    work = os.path.join(OUT, "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    streams = os.path.join(work, "streams")
+    tpls = [f"{q}.tpl" for q in TOOLS_TEMPLATES]
+    generate_query_streams(streams, streams=3, rngseed=SEED, templates=tpls,
+                           scale=0.01)
+    tt_json = os.path.join(work, "throughput.json")
+    logs, procs = {}, {}
+    for name, args in (
+            ("throughput_sweep", [small, streams, tt_json, "--streams",
+                                  TOOLS_STREAMS, "--admission",
+                                  TOOLS_ADMISSION, "--input_format", "raw",
+                                  "--work_dir", os.path.join(work, "tt")]),
+            ("self_validate", ["--templates", ",".join(tpls), "--scale",
+                               "0.01", "--root", os.path.join(work, "sv")])):
+        logs[name] = open(os.path.join(work, f"{name}.log"), "w")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", f"nds_tpu_torch.tools.{name}", *args],
+            cwd=REPO, stdout=logs[name], stderr=subprocess.STDOUT)
+    problems = []
+    try:
+        t1 = time.time()
+        K.reset_launches()
+        outcomes = {}
+        failures = FD.run_diff(verbose=False, device="cuda",
+                               outcomes=outcomes)
+        launches = {k: K.LAUNCHES[k] for k in ("chunk_scan", "join_probe")}
+        drift = FD.run_diff(inject_drift=True, verbose=False,
+                            device="cuda")
+        fault = {"outcomes": outcomes, "failures": failures[:10],
+                 "drift_rejected": bool(drift), "launches": launches,
+                 "s": round(time.time() - t1, 3)}
+        if failures or not drift:
+            problems.append(f"fault_diff: {failures[:3]}, drift "
+                            f"{bool(drift)}")
+        if not (launches["chunk_scan"] and launches["join_probe"]):
+            problems.append(f"fault_diff launches {launches}")
+        t1 = time.time()
+        queries = gen_sql_from_stream(stream_file("0.01"))
+        sess = C.load_session(small, "cuda")
+        with sharing_devices():
+            meshed = C.load_session(small, "cuda",
+                                    {"mesh_shape": TOOLS_MESH})
+        lines = []
+        passed, failed = C.sweep(sess, {q: queries[q]
+                                        for q in CENSUS_QUERIES},
+                                 meshed, TOOLS_MESH, out=lines.append)
+        with open(os.path.join(work, "coverage.txt"), "w") as f:
+            f.write("\n".join(lines + C.summary(passed, failed)) + "\n")
+        coverage = {"passed": len(passed), "of": len(CENSUS_QUERIES),
+                    "mesh": TOOLS_MESH, "failed": failed,
+                    "s": round(time.time() - t1, 3)}
+        if failed or len(passed) != len(CENSUS_QUERIES):
+            problems.append(f"coverage: {failed}")
+        del sess, meshed
+        rcs = {n: p.wait(timeout=max(TOOLS_TIMEOUT_S - (time.time() - t0),
+                                     1)) for n, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    configs = []
+    if os.path.exists(tt_json):
+        with open(tt_json) as f:
+            configs = json.load(f)["configs"]
+    tt = [{"streams": c["n_streams"], "admission": c["admission_slots"],
+           "rc": c["rc"], "Ttt_s": c.get("Ttt_s"),
+           "launcher_wall_s": c["launcher_wall_s"],
+           "wall_s": [x.get("wall_s") for x in c["streams"].values()],
+           "register_s": [x.get("register_s") for x in
+                          c["streams"].values()]} for c in configs]
+    if rcs["throughput_sweep"] != 0 or len(tt) != 4 or any(
+            c["rc"] != 0 or c["Ttt_s"] is None for c in tt):
+        problems.append(f"throughput_sweep: exit "
+                        f"{rcs['throughput_sweep']}, {tt}")
+    with open(os.path.join(work, "self_validate.log")) as f:
+        sv_out = f.read()
+    verdicts = {}
+    for ln in sv_out.splitlines():
+        if ln.startswith('{"verdicts"'):
+            verdicts = json.loads(ln)["verdicts"]
+    if rcs["self_validate"] != 0 or "SELF VALIDATION: OK" not in sv_out \
+            or sorted(verdicts) != sorted(TOOLS_TEMPLATES) or \
+            set(verdicts.values()) != {"Pass"}:
+        problems.append(f"self_validate: exit {rcs['self_validate']}, "
+                        f"{verdicts}")
+    line = {"phase": "tools", "ok": not problems, "scale": 0.01,
+            "fault_diff": fault, "throughput": tt,
+            "self_validate": {"rc": rcs["self_validate"],
+                              "verdicts": verdicts},
+            "coverage": coverage, "problems": problems,
+            "s": round(time.time() - t0, 3), "nvidia_smi": smi_line()}
+    return not problems, line, launches
+
+
 class _Skipped(Exception):
     """A phase left out by ``--only``."""
 
@@ -3980,8 +4129,8 @@ def load_session(Session, data_dir, device):
 
 
 PHASES = ("kernels", "perf", "power", "mesh", "census", "replay", "param",
-          "stream", "shard", "agreement", "validate", "bench", "campaign",
-          "full_bench")
+          "stream", "shard", "agreement", "validate", "tools", "bench",
+          "campaign", "full_bench")
 
 
 def main(argv=None) -> int:
@@ -3993,7 +4142,6 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run, of "
                     f"{', '.join(PHASES)} (device, build and data always "
                     "run); a partial run ends without the final ok line")
-    ap.add_argument("--chunk-split-child", help=argparse.SUPPRESS)
     ap.add_argument("--stream-scale", type=int, default=STREAM_SCALE,
                     help="scale factor of the stream and shard phases "
                     f"(default {STREAM_SCALE}; 10 is the reference's SF10 "
@@ -4006,8 +4154,6 @@ def main(argv=None) -> int:
         STREAM_SCALE = args.stream_scale
         STREAM_BYTES = 1.5e8 * STREAM_SCALE
     STREAM_CI = CI_QUERIES[:args.stream_ci]
-    if args.chunk_split_child:
-        return chunk_split_child(args.chunk_split_child)
     only = set(args.only.split(","))
     if not only <= set(PHASES):
         ap.error(f"unknown phase(s) {sorted(only - set(PHASES))}")
@@ -4505,6 +4651,26 @@ def main(argv=None) -> int:
         if validation is not None:
             stop_validation_runs(validation)
 
+    # the port's measuring tools at SF0.01
+    tools_launches = {}
+    try:
+        if not runs("tools"):
+            raise _Skipped
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        ok, line, tools_launches = tools_phase(torch, K)
+        emit(line)
+        if not ok:
+            failed.append("tools")
+    except _Skipped:
+        pass
+    except Exception:
+        import traceback
+        emit({"phase": "tools", "ok": False,
+              "error": traceback.format_exc()[-3000:]})
+        failed.append("tools")
+
     # 8. the bench entry, twice, at SF1
     try:
         if not runs("bench"):
@@ -4607,6 +4773,8 @@ def main(argv=None) -> int:
             extra["param_launches"] = param_launches[name]
         if perf_launches.get(name):
             extra["perf_launches"] = perf_launches[name]
+        if tools_launches.get(name):
+            extra["tools_launches"] = tools_launches[name]
         if name == "chunk_scan" and param_k4 is not None:
             extra["param_bound_words"] = param_k4
         line.append({"name": name, "route": "cuda",

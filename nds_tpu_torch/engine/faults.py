@@ -188,12 +188,23 @@ def record_fault_event(seam: str, action: str, attempt: int = 0,
                        detail: str = "") -> None:
     """Record one recovery event, thread-scoped like the sync counters
     and StreamEvents (concurrent streams account their own
-    recoveries)."""
+    recoveries). Suppressed under ``NDS_TPU_FAULT_DRIFT``
+    (:func:`_drift`)."""
+    if _drift():
+        return
     lst = getattr(_fault_tls, "events", None)
     if lst is None:
         # deque(maxlen): diagnostics ring, never unbounded, O(1) evict
         lst = _fault_tls.events = deque(maxlen=1000)
     lst.append(FaultEvent(seam, action, attempt, detail))
+
+
+def _drift() -> bool:
+    """``NDS_TPU_FAULT_DRIFT``: recovery suppressed, for the fault
+    harness's self-test alone (``tools/fault_diff.py --inject-drift``):
+    :func:`with_retry` stops retrying and no event is recorded, so every
+    recovery check of the harness must fail. Never set outside it."""
+    return bool(os.environ.get("NDS_TPU_FAULT_DRIFT"))
 
 
 def drain_fault_events() -> list:
@@ -314,7 +325,7 @@ def with_retry(seam_name: str, fn, record=record_fault_event):
     FaultError). Non-transient exceptions propagate untouched on the
     FIRST attempt — a retry loop must never mask an engine bug."""
     seam = SEAMS[seam_name]
-    attempts = 1 + max(seam.retries, 0)
+    attempts = 1 + (0 if _drift() else max(seam.retries, 0))
     last = None
     for k in range(attempts):
         try:

@@ -626,6 +626,9 @@ class StreamPipeline:
         # compiled drive) and, once a capture failed, why
         self._static: _Static | None = None
         self.refused: str | None = None
+        # the catalog tables the building statement had bound (weakrefs,
+        # ``_bound_tables``): a hit on held parts needs the same ones
+        self.tables = ()
 
     # ------------------------------------------------------------ program
 
@@ -1681,15 +1684,25 @@ def _parts_differ(now, held):
     return flag
 
 
-def _cache_hit(key, chunk_spec, part_infos):
+def _bound_tables(planner):
+    """The catalog tables the statement has bound so far, as ``(name,
+    weakref)`` pairs: the data its parts were derived from."""
+    return tuple((n, weakref.ref(planner.catalog[n]))
+                 for n in sorted(planner.scanned))
+
+
+def _cache_hit(key, chunk_spec, part_infos, planner):
     """``(pipeline, check_parts)`` of a key, or ``(None, False)``. A hit
     needs the chunk dictionaries and encodings equal in content (a
     re-registered streamed table re-encodes) and the part buffers the
     pipeline was built on (the recorded dimension-side host reads hold
     for their content alone): the same buffers, or, when the pipeline
-    still holds its first drive's parts (``_Static.parts``), buffers of
-    the same specs, whose content ``run`` then holds against them on the
-    device (``check_parts``). Anything else evicts the entry."""
+    still holds its first drive's parts (``_Static.parts``) and the
+    statement bound the very catalog tables the pipeline was built over
+    (not another session's, nor tables re-registered since, as a Data
+    Maintenance commit does), buffers of the same specs, whose content
+    ``run`` then holds against them on the device (``check_parts``).
+    Anything else evicts the entry."""
     pipe = _PIPELINE_CACHE.get(key)
     if pipe is None:
         return None, False
@@ -1704,7 +1717,11 @@ def _cache_hit(key, chunk_spec, part_infos):
             all(b is not None and a is b for a, b in zip(flat_now, then)):
         return pipe, False
     st = pipe._static
-    if chunk_same and st is not None and st.parts and \
+    tables = _bound_tables(planner)
+    same_tables = len(tables) == len(pipe.tables) and all(
+        n1 == n2 and r1() is not None and r1() is r2()
+        for (n1, r1), (n2, r2) in zip(tables, pipe.tables))
+    if chunk_same and same_tables and st is not None and st.parts and \
             len(part_infos) == len(pipe.part_specs) and \
             all(_spec_match(spec, want) for (spec, _f), want
                 in zip(part_infos, pipe.part_specs)):
@@ -1714,19 +1731,23 @@ def _cache_hit(key, chunk_spec, part_infos):
 
 
 def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
-                   sources):
+                   sources, syncs0=None):
     """Execute a join graph whose ``keep``-th part is a ``_StreamedScan``
     through the chunk pipeline. Returns ``(table, None)`` on success, or
     ``(None, reason)`` when the graph is not streamable or overflowed — the
     caller (``Planner._stream_join_parts``) then runs the eager chunk loop
-    and records its event. ``(None, None)``: fall back silently."""
+    and records its event. ``(None, None)``: fall back silently.
+    ``syncs0``: the sync count the event's window opens at (set when a
+    stale pipeline's drive already ran for this execution)."""
     if E.replay_mode() != "off":
         return None, None
     from nds_tpu_torch.sql.planner import _OuterBuild, _OuterProbe
     scan = parts[keep]
     chunked, alias = scan.chunked, scan.alias
     dev = E.device()
-    syncs0 = E.sync_count()
+    rebuilt = syncs0 is not None
+    if not rebuilt:
+        syncs0 = E.sync_count()
 
     # resolve every non-streamed part's count up front (one batched
     # transfer): part counts are per-statement constants of the program
@@ -1770,7 +1791,7 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
     key = _cache_key(alias, keep, join_preds, where_conjuncts,
                      masked_sources, part_infos, chunk_spec, chunk_cap,
                      chunked.nrows, outer_meta, bind_slots)
-    pipe, check_parts = _cache_hit(key, chunk_spec, part_infos)
+    pipe, check_parts = _cache_hit(key, chunk_spec, part_infos, planner)
     resid_infos = ()
     if pipe is not None and pipe.residuals:
         resid_infos = _replan_residuals(planner, pipe)
@@ -1795,6 +1816,7 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
             return None, f"fault: {exc.seam} (degraded compiled->eager)"
         if pipe is None:
             return None, "not chunk-invariant"
+        pipe.tables = _bound_tables(planner)
         evicted = []
         with _PIPELINE_LOCK:
             while len(_PIPELINE_CACHE) >= _PIPELINE_MAX:
@@ -1839,12 +1861,18 @@ def stream_execute(planner, parts, keep, join_preds, where_conjuncts,
         _restore_counts(snapshot, checks_snapshot)
     if evidence.get("stale_parts"):
         # the parts are other buffers of other content than the pipeline
-        # was built on: its recorded reads do not hold, so it goes, and
-        # the statement reruns eagerly
+        # was built on (a derived part over the same catalog tables): its
+        # recorded reads do not hold, so it goes, and a fresh pipeline is
+        # built and driven for this execution, as the reference does on
+        # any new part buffer. A fresh pipeline drives the parts it was
+        # built on, so this happens at most once an execution.
         _evict(key)
-        log.info("streamed pipeline's parts changed; re-running %s "
-                 "eagerly", alias)
-        return None, "parts changed since the pipeline was built"
+        if rebuilt:
+            return None, "parts changed since the pipeline was built"
+        log.info("streamed pipeline's parts changed; rebuilding it for %s",
+                 alias)
+        return stream_execute(planner, parts, keep, join_preds,
+                              where_conjuncts, sources, syncs0=syncs0)
     if out is None:
         # device-side overflow: rows were dropped, rerun eagerly. Keep the
         # pipeline — other statements over smaller data may fit.

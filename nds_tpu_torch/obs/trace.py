@@ -20,13 +20,18 @@ leaking or cross-charging a stream.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
 
-# ring capacity per thread: diagnostics, never unbounded; drivers drain
-# per query
-_RING_MAX = 8192
+
+def _ring_max() -> int:
+    """Ring capacity per thread (``NDS_TPU_TRACE_RING``, default 8192):
+    diagnostics, never unbounded; drivers drain per query. Read when a
+    thread attaches its ring, so a process that sets it before its first
+    statement (``tools/sync_profile.py``'s deep ring) sizes every ring."""
+    return int(os.environ.get("NDS_TPU_TRACE_RING", "8192"))
 
 _tls = threading.local()
 
@@ -52,7 +57,7 @@ def attach() -> None:
     ``Session.sql`` so every query-executing thread is scoped; a record
     finished on a never-attached thread goes to :data:`unattributed`."""
     if getattr(_tls, "ring", None) is None:
-        _tls.ring = deque(maxlen=_RING_MAX)
+        _tls.ring = deque(maxlen=_ring_max())
 
 
 def drain_spans() -> list:

@@ -986,12 +986,12 @@ STREAM_QS = [
 ]
 
 
-def _stream_session(conf=None, device="cuda"):
+def _stream_session(conf=None, device="cuda", seed=42):
     import pyarrow as pa
 
     from nds_tpu_torch.engine.session import Session
     from nds_tpu_torch.engine.table import ChunkedTable
-    rng = np.random.default_rng(42)
+    rng = np.random.default_rng(seed)
     n, nd = 200_000, 365
     s = Session(conf=dict(conf or {}), device=device)
     s.create_temp_view("date_dim", pa.table({
@@ -1132,6 +1132,27 @@ def test_refused_capture_records_its_reason(stream_sessions, monkeypatch):
         assert e.path == "compiled" and \
             e.graph.startswith("refused: capture failed"), e.graph
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.gpu
+def test_stream_cache_across_sessions_rebuilds_and_captures(cuda):
+    """Sessions over seeds 42 and 7 (equal shapes, other dimension
+    content) driven A, B, A in one process: each execution evicts the
+    other session's pipeline and builds and captures its own (path
+    ``compiled``, never an eager rerun), with that session's cpu rows."""
+    from nds_tpu_torch.engine import stream as S
+    S._PIPELINE_CACHE.clear()
+    q = STREAM_QS[0]
+    want = {seed: _stream_session(device="cpu", seed=seed).sql(q).collect()
+            for seed in (42, 7)}
+    assert want[42] != want[7]
+    sessions = {seed: _stream_session(seed=seed) for seed in (42, 7)}
+    for seed in (42, 7, 42):
+        rows, launches, events = _streamed(sessions[seed], q)
+        assert rows == want[seed]
+        assert [(e.path, e.graph) for e in events] == \
+            [("compiled", "captured")], [(e.path, e.reason) for e in events]
+        assert launches["chunk_scan"] > 0
 
 
 @pytest.mark.gpu
@@ -1816,3 +1837,54 @@ def test_rollup_avg_of_a_decimal_equals_cpu(cuda):
         s.create_temp_view("t", tbl)
         out[dev] = s.sql(sql).collect()
     assert out["cuda"] == out["cpu"] and out["cpu"]
+
+
+@pytest.mark.gpu
+def test_replay_ab_on_cuda_times_the_replay_after_the_stream(replay_session,
+                                                             monkeypatch):
+    """``tools.replay_ab`` on two statements on the card: each captures
+    one graph and replays the eager rows; every timed stage waits on the
+    card's stream before its clock stops, so a replay's wall covers its
+    work (the stream is idle when the clock stops)."""
+    from nds_tpu_torch.tools import replay_ab as RA
+    s = replay_session
+    waits = []
+    run = RA.timed_run(s)
+
+    def checked(stage, sql):
+        res, secs = run(stage, sql)
+        waits.append((stage, torch.cuda.current_stream().query()))
+        return res, secs
+
+    for sql in ("select grp, count(*) c, sum(v) s from f, dim "
+                "where d = sk group by grp order by grp",
+                "select g, min(x) lo, max(x) hi from f, dim where d = sk "
+                "group by g order by g"):
+        row, runs = RA.measure(s, sql, reps=3, run=checked)
+        RA.reset(s)
+        assert row["compiled"] and row["segmented"] == 0, row
+        assert 0 < row["replay_s"] and 0 < row["eager_s"]
+        assert row["speedup"] == round(row["eager_s"] / row["replay_s"], 2)
+        eager = [r for st, r, _s in runs if st == "seen"][0]
+        assert all(r == eager for st, r, _s in runs
+                   if st in ("record", "replay_first", "replay"))
+    assert waits and all(idle for _st, idle in waits)
+    assert not s._replay_cache and s._pool is None
+    agg = RA.aggregate([{"query": "a", **row}], "cuda", "toy")
+    assert agg["n_replayed"] == 1 and agg["backend"] == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["device-put", "sync-retry"])
+def test_fault_diff_entries_recover_on_cuda(cuda, entry):
+    """fault_diff's upload and fetch entries on the card: rows bit for bit
+    against the fault-free cuda run, the injection fired, one recovery
+    event; K4 launched."""
+    from nds_tpu_torch.tools import fault_diff as FD
+    K.reset_launches()
+    outcomes = {}
+    failures = FD.run_diff(verbose=False, device="cuda", only={entry},
+                           outcomes=outcomes)
+    assert not failures, failures
+    assert outcomes == {entry: "recovered"}
+    assert K.LAUNCHES["chunk_scan"] > 0
